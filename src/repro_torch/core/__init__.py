@@ -1,0 +1,35 @@
+"""The paper's contribution, in PyTorch: ESDP dispatching of multi-server
+jobs (counterpart of ``repro.core``).
+
+Public API:
+  generate_instance / Instance / instance_from_arrays — problem instances
+  build_tables / solve_budgeted_dp      — Algorithm 2 (int32 reference)
+  get_solver / Solver                   — backends (reference | cuda | auto)
+  make_esdp_policy / esdp_factory       — Algorithm 1 (ESDP)
+  make_hswf_policy / make_lcf_policy / make_lwtf_policy — paper baselines
+  simulate / simulate_batch / SimResult — the slot simulator
+  make_draws / Draws                    — a run's random inputs
+  Scenario / default_scenario           — the iid regime
+"""
+from . import stats
+from .baselines import (hswf_factory, lcf_factory, lwtf_factory,
+                        make_hswf_policy, make_lcf_policy, make_lwtf_policy,
+                        make_msr_greedy_policy, make_msr_index_policy)
+from .dp import DPTables, build_tables, oracle_knapsack, solve_budgeted_dp
+from .env import (Draws, Scenario, SimResult, default_scenario, make_draws,
+                  simulate, simulate_batch)
+from .esdp import Policy, PolicyFactory, Slot, esdp_factory, make_esdp_policy
+from .graph import Instance, generate_instance, instance_from_arrays
+from .solvers import SOLVER_NAMES, Solver, get_solver
+
+__all__ = [
+    "Instance", "generate_instance", "instance_from_arrays",
+    "DPTables", "build_tables", "solve_budgeted_dp", "oracle_knapsack",
+    "SOLVER_NAMES", "Solver", "get_solver",
+    "Policy", "PolicyFactory", "Slot", "make_esdp_policy", "esdp_factory",
+    "make_hswf_policy", "make_lcf_policy", "make_lwtf_policy",
+    "make_msr_greedy_policy", "make_msr_index_policy",
+    "hswf_factory", "lcf_factory", "lwtf_factory",
+    "Scenario", "default_scenario", "Draws", "make_draws",
+    "SimResult", "simulate", "simulate_batch", "stats",
+]

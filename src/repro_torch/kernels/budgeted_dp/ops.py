@@ -1,0 +1,184 @@
+"""ESDP Algorithm 2 on the budgeted-DP kernels: operands, checks, solves.
+
+Counterpart of the JAX package's ``kernels/budgeted_dp/ops.py`` (its
+``WarmPallasSolver`` waits for the incremental re-solve slice).  A solve
+is two launches on the card — the forward (``kernel.dp_forward`` for one
+instance, ``kernel.dp_forward_batched`` for a fleet) and the epilogue
+(``kernel.dp_epilogue``: s*, backtrack, value row) — with no host sync.
+
+VALUE_BOUND: the int32 plane with ``core.dp.NEG = -2**29`` is exact while
+every DP partial sum stays below 2²⁹ (NEG-seeded chains then stay
+negative).  The bound is checked for CPU inputs only, where it costs no
+device sync; ``tests/test_torch_budgeted_dp.py`` pins the default
+schedules under it for the card.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ...core import dp as core_dp
+from ...core.dp import DPTables
+from .kernel import dp_epilogue, dp_forward, dp_forward_batched
+
+__all__ = ["VALUE_BOUND", "prepare_tables", "max_achievable_value",
+           "validate_value_row", "solve_budgeted_dp_kernel",
+           "solve_budgeted_dp_batched"]
+
+VALUE_BOUND = 2 ** 29  # int32 plane: NEG + any partial sum stays negative
+
+
+def validate_value_row(value_row) -> "str | None":
+    """Host-side invariant check of a returned DP value row.
+
+    The properties are theorems of the P4/P5 recurrence, so a violation
+    means a corrupted plane, never a legitimate input: ``value_row[0] >=
+    0``; every entry ``>= 0`` or exactly ``core.dp.NEG``; feasible values
+    ``< VALUE_BOUND``; feasible s form a prefix; values are non-increasing
+    in s over it.  Takes an (S,) row or a (B, S) stack; returns ``None``
+    or the first violation.
+    """
+    row = np.asarray(value_row)
+    if row.ndim == 2:
+        for b in range(row.shape[0]):
+            reason = validate_value_row(row[b])
+            if reason is not None:
+                return f"row {b}: {reason}"
+        return None
+    neg = core_dp.NEG
+    feas = row != neg
+    if not feas[0] or row[0] < 0:
+        return f"source: value_row[0] = {row[0]} (must be >= 0)"
+    bad = feas & (row < 0)
+    if bad.any():
+        s = int(np.flatnonzero(bad)[0])
+        return (f"neg-contract: value_row[{s}] = {row[s]} is negative but "
+                f"not the NEG sentinel ({neg})")
+    over = feas & (row >= VALUE_BOUND)
+    if over.any():
+        s = int(np.flatnonzero(over)[0])
+        return f"value-bound: value_row[{s}] = {row[s]} >= 2^29"
+    n_feas = int(feas.sum())
+    if not feas[:n_feas].all():
+        s = int(np.flatnonzero(~feas)[0])
+        return (f"feasible-prefix: value_row[{s}] is infeasible but a "
+                "larger budget is feasible")
+    pre = row[:n_feas]
+    rising = np.flatnonzero(np.diff(pre.astype(np.int64)) > 0)
+    if rising.size:
+        s = int(rising[0])
+        return (f"monotone: value_row[{s + 1}] = {pre[s + 1]} > "
+                f"value_row[{s}] = {pre[s]} (must be non-increasing in s)")
+    return None
+
+
+@functools.lru_cache(maxsize=32)
+def prepare_tables(tables: DPTables):
+    """(feasible (E, C) int32 0/1, offsets (E,) int32) kernel operands.
+
+    Offsets of never-feasible edges (infeasible even at full capacity) are
+    zeroed: those edges are masked everywhere.  Cached by tables identity;
+    the returned arrays are shared and read-only.
+    """
+    feas = np.ascontiguousarray(np.asarray(tables.feasible).T, dtype=np.int32)
+    usable = np.asarray(tables.feasible)[tables.full_state]  # (E,)
+    offsets = np.where(usable, np.asarray(tables.offsets), 0)
+    return feas, offsets.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _operands(tables: DPTables, s_cap: int, device: torch.device):
+    """(feasible, offsets, v0) on ``device``, made once per tables object,
+    height and device."""
+    feas, offs = prepare_tables(tables)
+    return (torch.as_tensor(feas, device=device),
+            torch.as_tensor(offs, device=device),
+            core_dp.initial_plane(s_cap, tables.n_states, device))
+
+
+def max_achievable_value(sigma2, tables: DPTables) -> int:
+    """Upper bound on any DP partial sum: max Σ̂²ᵀx over capacity-feasible x.
+
+    If every usable edge consumes ≥ 1 device the selection size is capped
+    by Σ_k c_k, else by E; the top-k sum of Σ̂² bounds every value the
+    kernel can materialize.
+    """
+    sig = np.asarray(sigma2, dtype=np.int64)
+    E = sig.shape[0]
+    usable = np.asarray(tables.feasible)[tables.full_state]
+    if not usable.any():
+        return 0
+    cap = np.asarray(tables.cap_of_state, dtype=np.int64)
+    c = np.asarray(tables.radices, dtype=np.int64) - 1
+    nxt = np.asarray(tables.next_state)[tables.full_state]
+    req_total = (c[None, :] - cap[nxt]).sum(axis=1)
+    k = min(E, int(c.sum())) if np.all(req_total[usable] >= 1) else E
+    top = np.sort(sig[usable])[::-1][:k]
+    return int(top.sum())
+
+
+def _check_value_bound(sigma2, tables: DPTables) -> None:
+    if sigma2.device.type != "cpu":
+        return  # no device sync on the hot path; bound pinned by tests
+    sig = sigma2.numpy()
+    worst = sig.max(axis=0) if sig.ndim == 2 else sig
+    bound = max_achievable_value(worst, tables)
+    if bound >= VALUE_BOUND:
+        raise ValueError(
+            f"budgeted-DP values can reach {bound} ≥ 2^29: the int32 plane "
+            "can no longer tell NEG-seeded chains from values. Rescale Σ̂².")
+
+
+def _s_limit(s_limit, B: int, device) -> torch.Tensor:
+    s_limit = torch.as_tensor(s_limit, device=device).to(torch.int32)
+    return s_limit.reshape(-1).expand(B).contiguous()
+
+
+def solve_budgeted_dp_kernel(
+    upsilon, sigma2, tables: DPTables, s_cap: int, s_limit, allowed=None
+):
+    """One solve through the single-instance forward (K1's counterpart).
+
+    Same contract as ``core.dp.solve_budgeted_dp`` for (E,) int32
+    statistics; returns ``(x, {"s_star", "value_row"})`` with the value
+    row NEG at budget-infeasible entries.  ``allowed`` (E,) bool is folded
+    into the feasibility plane before the launch.
+    """
+    dev = upsilon.device
+    _check_value_bound(sigma2, tables)
+    feas, offs, v0 = _operands(tables, s_cap, dev)
+    if allowed is not None:
+        feas = feas * allowed.to(torch.int32)[:, None]
+    ups = upsilon.to(torch.int32).contiguous()
+    V, words = dp_forward(ups, sigma2.to(torch.int32).contiguous(), feas,
+                          offs, v0)
+    x, s_star, row = dp_epilogue(V[None], words[None], ups[None], offs,
+                                 _s_limit(s_limit, 1, dev), tables.full_state)
+    return x[0], {"s_star": s_star[0], "value_row": row[0]}
+
+
+def solve_budgeted_dp_batched(
+    upsilon, sigma2, tables: DPTables, s_cap: int, s_limit, allowed=None
+):
+    """B solves against shared tables in ONE forward launch (K2's
+    counterpart) and one epilogue launch.
+
+    ``upsilon``/``sigma2`` (B, E) int32, ``s_limit`` scalar or (B,),
+    ``allowed`` optional (B, E) bool — multiplied into the mask inside
+    the kernel.  Returns ``(x (B, E), {"s_star": (B,), "value_row":
+    (B, S)})``, bit-equal to a per-instance loop over the reference.
+    """
+    dev = upsilon.device
+    B, E = upsilon.shape
+    _check_value_bound(sigma2, tables)
+    feas, offs, v0 = _operands(tables, s_cap, dev)
+    alw = (torch.ones((B, E), dtype=torch.int32, device=dev)
+           if allowed is None else allowed.to(torch.int32).contiguous())
+    ups = upsilon.to(torch.int32).contiguous()
+    V, words = dp_forward_batched(ups, sigma2.to(torch.int32).contiguous(),
+                                  alw, feas, offs, v0)
+    x, s_star, row = dp_epilogue(V, words, ups, offs,
+                                 _s_limit(s_limit, B, dev), tables.full_state)
+    return x, {"s_star": s_star, "value_row": row}
