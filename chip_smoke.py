@@ -7,21 +7,32 @@ Run from the root of a checkout (it imports ``repro_torch`` from
 
 1. build the budgeted-DP CUDA kernels with nvcc (timed);
 2. each kernel against its plain PyTorch version on the card, bitwise
-   (tolerance 0): the paper's Table-2 instance at B = 1, 7 and 64 with
-   random ``allowed`` masks, one case whose DP sums reach [2^24, 2^29),
-   and the fig-6 c_hi = 4 instance (a 160 KB plane);
-3. the shared-memory gate raises ValueError on the fig-6 c_hi = 6 plane;
-4. the main path: ESDP ``simulate`` (T = 2000) and ``simulate_batch``
-   (B = 64, T = 2000) on Table 2, each with the kernels' launch counts
-   set to 0 just before and read just after (each must equal T); rows of
-   the batch equal single runs in x for three seeds; on a small horizon
-   the card's ESDP decisions equal the CPU reference's on the same draws;
-   HSWF/LCF/LWTF at T = 2000 with the quickstart's ASW lines;
-5. kernel and plain-version times at the main path's shapes: each
-   kernel's device time per launch from a ``torch.profiler`` trace of many
-   launches of its C entry point (CUDA events around the same back-to-back
-   launches, divided by their number, where the trace has no device
-   time), beside the least time the card could take.
+   (tolerance 0): the whole-plane forward and the epilogue on the paper's
+   Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
+   case whose DP sums reach [2^24, 2^29), and the fig-6 c_hi = 4
+   instance (a 160 KB plane); the per-edge and fused forwards on planes
+   over one block's shared memory — fig-6 c_hi = 6 at T = 1500 and
+   ``benchmarks/dp_bench.py``'s E16_C512_S4096 problem — and on its
+   E40_K3 shape (chunks across the 32-bit word boundary), at B = 1, 7 and
+   64 under the auto tiling and forced tilings (the per-edge one at B = 1);
+3. the tiling choice: fig-6 c_hi = 6 goes to the fused forward, a forced
+   whole-plane solve of it raises, c_hi = 5 switches from the whole plane
+   at T = 1500 to tiles at T = 2000;
+4. the main paths, each with the kernels' launch counts set to 0 just
+   before and read just after: ESDP ``simulate`` (T = 2000) and
+   ``simulate_batch`` (B = 64) on Table 2 (whole-plane forward, T
+   launches each); the same at fig-6 c_hi = 6, T = 1500 (fused forward,
+   ⌈E/block_e⌉·T launches, no whole-plane launch), with the card's
+   per-slot x equal to the CPU int32 reference on the same draws and
+   schedule; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over);
+   the solver registry without u_max on the c_hi = 6 plane at B = 1,
+   which takes the per-edge forward; HSWF/LCF/LWTF with the quickstart's
+   ASW lines;
+5. kernel and plain-version times at the main paths' shapes: each
+   kernel's device time per launch from a ``torch.profiler`` trace of
+   many launches of its C entry point (CUDA events around the same
+   back-to-back launches, divided by their number, where the trace has no
+   device time), beside the least time the card could take.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -37,14 +48,17 @@ import warnings
 
 HERE = pathlib.Path(__file__).resolve().parent
 T = 2000
+T6 = 1500  # the paper's Fig.-6 horizon (benchmarks/sensitivity.py)
 FLEET = 64
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 67e12  # the card's non-tensor 32-bit rate (FP32 table)
-# int32 operations per plane cell and edge of the forward: the budget shift
+# int32 operations per plane cell and edge of a forward: the budget shift
 # (sub, max), the capacity shift (sub), the mask (two compares, and), the
 # add, the take > V compare, the max and the bit OR
 FWD_OPS_PER_CELL = 10
+SOURCE = "src/repro_torch/kernels/budgeted_dp/csrc/budgeted_dp.cu"
+TPU = "src/repro/kernels/budgeted_dp/"
 
 
 def fail(msg):
@@ -103,6 +117,30 @@ def profiled_ms(fn, calls, kernel_name):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
+def dp_bench_problem(E, c, u_hi, B, seed=0, c_rand=None):
+    """``benchmarks/dp_bench.py::_make_problem`` in numpy, with B rows of
+    statistics (row 0 is dp_bench's own): ``c`` fixed, or ``c_rand =
+    (K, c_hi)`` drawn.  Returns (A, c, Υ̂ (B, E), Σ̂² (B, E)) numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if c_rand is None:
+        c = np.asarray(c, np.int64)
+        A = rng.integers(0, 2, (c.shape[0], E))
+        A[:, A.sum(axis=0) == 0] = 1  # no all-zero demand columns
+    else:
+        K, c_hi = c_rand
+        A = rng.integers(1, 3, (K, E))
+        c = rng.integers(1, c_hi + 1, K)
+        A = np.minimum(A, c[:, None])
+    ups = [rng.integers(0, u_hi + 1, E)]
+    sig = [rng.integers(1, 5000, E)]
+    for _ in range(B - 1):
+        ups.append(rng.integers(0, u_hi + 1, E))
+        sig.append(rng.integers(1, 5000, E))
+    return (A, c, np.stack(ups).astype(np.int32),
+            np.stack(sig).astype(np.int32))
+
+
 def main():
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {HERE / 'chip_smoke.py'}: run it "
@@ -114,12 +152,13 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a GPU")
 
-    from repro_torch.core import (build_tables, esdp, generate_instance,
-                                  make_draws, simulate, simulate_batch,
-                                  stats)
+    from repro_torch.core import (Draws, build_tables, esdp,
+                                  generate_instance, get_solver, make_draws,
+                                  simulate, simulate_batch, stats)
     from repro_torch.core import baselines
     from repro_torch.core.dp import initial_plane
-    from repro_torch.kernels.budgeted_dp import build, kernel, ops, ref
+    from repro_torch.kernels.budgeted_dp import (build, kernel, ops, ref,
+                                                 tiling)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -129,10 +168,11 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    print("kernels: dp_forward (K1 _dp_kernel), dp_forward_batched "
-          "(K2 _dp_kernel_batched), dp_epilogue (s* + backtrack) from "
-          "src/repro_torch/kernels/budgeted_dp/csrc/budgeted_dp.cu",
-          flush=True)
+    print("kernels: dp_forward_batched (K1 _dp_kernel at B = 1, K2 "
+          "_dp_kernel_batched), dp_edge (K3 _edge_tile_kernel/"
+          "_edge_stile_kernel), dp_chunk (K4 _fused_chunk_kernel at B = 1, "
+          "K5 _batched_fused_kernel), dp_epilogue (s* + backtrack) from "
+          f"{SOURCE}", flush=True)
 
     # ------------------------------------------------------------- build
     t0 = phase("build")
@@ -146,13 +186,13 @@ def main():
         inst = generate_instance(seed=seed, c_lo=1, c_hi=c_hi)
         return inst, build_tables(inst.A, inst.c)
 
-    def stats_case(inst, B, seed, big=False):
+    def stats_case(inst, B, seed, horizon=T, big=False):
         """Realistic (B, E) statistics: scale_statistics at random slots,
         with some channels unexplored; ``big`` draws Σ̂² in [2^22, 2^25]."""
         rng = np.random.default_rng(seed)
         E, m = inst.n_edges, inst.m
-        xi_tab, g_tab, _ = stats.schedule_table(T, m, device=dev)
-        t = torch.as_tensor(rng.integers(0, T, B), device=dev)
+        xi_tab, g_tab, _ = stats.schedule_table(horizon, m, device=dev)
+        t = torch.as_tensor(rng.integers(0, horizon, B), device=dev)
         vhat = torch.as_tensor(rng.random((B, E)), dtype=torch.float32,
                                device=dev)
         n = torch.as_tensor(rng.integers(0, 30, (B, E)) * (
@@ -171,7 +211,7 @@ def main():
                 torch.as_tensor(offs, device=dev),
                 initial_plane(s_cap, tables.n_states, dev))
 
-    worst = {"dp_forward": 0, "dp_forward_batched": 0, "dp_epilogue": 0}
+    worst = {k: 0 for k in kernel.LAUNCHES}
 
     def max_err(a, b):
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
@@ -179,7 +219,7 @@ def main():
     def compare(label, inst, tables, B, seed, big=False):
         s_cap = stats.s_cap_for_horizon(T, inst.m)
         feas, offs, v0 = operands(tables, s_cap)
-        ups, sig, slim, alw = stats_case(inst, B, seed, big)
+        ups, sig, slim, alw = stats_case(inst, B, seed, big=big)
         alw_i = alw.to(torch.int32)
         Vk, Wk = kernel.dp_forward_batched(ups, sig, alw_i, feas, offs, v0)
         Vp, Wp = ref.dp_forward_ref(ups, sig, alw_i, feas, offs, v0)
@@ -190,23 +230,15 @@ def main():
         err_e = max(max_err(a, b) for a, b in zip(ek, ep))
         worst["dp_forward_batched"] = max(worst["dp_forward_batched"], err_f)
         worst["dp_epilogue"] = max(worst["dp_epilogue"], err_e)
-        errs = [err_f, err_e]
-        if B == 1:
-            V1, W1 = kernel.dp_forward(ups[0], sig[0], feas * alw_i[0][:, None],
-                                       offs, v0)
-            torch.cuda.synchronize()
-            err_1 = max(max_err(V1, Vp[0]), max_err(W1, Wp[0]))
-            worst["dp_forward"] = max(worst["dp_forward"], err_1)
-            errs.append(err_1)
         top = int(ep[2].max())
         print(f"   {label}: S={s_cap + 1} C={tables.n_states} "
               f"E={inst.n_edges} B={B} max value {top} "
-              f"max |kernel - plain| {max(errs)}", flush=True)
-        if max(errs) != 0:
+              f"max |kernel - plain| {max(err_f, err_e)}", flush=True)
+        if max(err_f, err_e) != 0:
             fail(f"{label}: kernel differs from its plain version")
         return top
 
-    t0 = phase("kernels vs plain versions on the card (bitwise)")
+    t0 = phase("whole-plane kernels vs plain versions on the card (bitwise)")
     table2, tables2 = instance(2, 0)
     for B in (1, 7, FLEET):
         compare(f"table2 B={B}", table2, tables2, B, seed=B)
@@ -216,65 +248,237 @@ def main():
         fail(f"large-value case reached {top}, not [2^24, 2^29)")
     fig6, tables6 = instance(4, 2)
     S6 = stats.s_cap_for_horizon(T, fig6.m) + 1
-    print(f"   fig6 c_hi=4 plane: {kernel.smem_bytes(S6, tables6.n_states)} "
-          "bytes of shared memory", flush=True)
+    print(f"   fig6 c_hi=4 plane: "
+          f"{tiling.whole_plane_smem_bytes(S6, tables6.n_states)} bytes of "
+          "shared memory", flush=True)
     for B in (1, 7):
         compare(f"fig6 c_hi=4 B={B}", fig6, tables6, B, seed=10 + B)
     done(t0)
 
-    t0 = phase("shared-memory gate")
-    big_inst, big_tables = instance(6, 2)
-    s_cap = stats.s_cap_for_horizon(T, big_inst.m)
-    E = big_inst.n_edges
+    # the tiled planes: (label, tables, s_cap, u_max, stats maker)
+    big6, big6_tables = instance(6, 2)
+    s_cap6 = stats.s_cap_for_horizon(T6, big6.m)
+    u_max6 = stats.u_max_for_horizon(T6, big6.m)
+
+    def fig6_stats(B, seed):
+        ups, sig, _, alw = stats_case(big6, B, seed, horizon=T6)
+        return ups, sig, alw
+
+    def bench_stats(E, c, u_hi, c_rand=None):
+        def make(B, seed):
+            _, _, ups, sig = dp_bench_problem(E, c, u_hi, B, c_rand=c_rand)
+            alw = np.random.default_rng(seed).random((B, E)) < 0.7
+            return (torch.as_tensor(ups, device=dev),
+                    torch.as_tensor(sig, device=dev),
+                    torch.as_tensor(alw, device=dev))
+        return make
+
+    A16, c16, _, _ = dp_bench_problem(16, (7, 7, 7), 3, 1)
+    A40, c40, u40, _ = dp_bench_problem(40, None, 6, 1, c_rand=(3, 2))
+    t16, t40 = build_tables(A16, c16), build_tables(A40, c40)
+    # u_max: the bound of the drawn Υ̂ (dp_bench's max + 1 for one row)
+    planes = [
+        ("fig6 c_hi=6 T=1500", big6_tables, s_cap6, u_max6, fig6_stats),
+        ("E16_C512_S4096", t16, 4095, 3 + 1, bench_stats(16, (7, 7, 7), 3)),
+        ("E40_K3", t40, int(u40.sum()), 6 + 1,
+         bench_stats(40, None, 6, c_rand=(3, 2))),
+    ]
+
+    def up8(n):
+        return -(-n // 8) * 8
+
+    def forced_tilings(tables, u_max, off_max, E):
+        """(name, block_e, block_s, block_c, B list) of one plane."""
+        C = tables.n_states
+        c_tile = -(-off_max // 32) * 32  # several C tiles where it can
+        c_tile = c_tile if c_tile < C else off_max
+        both = (1, 7, FLEET)
+        if E > 32:  # the word-boundary shape: every chunk length over it
+            return [("fused full-height, one C tile, e=7", 7, None, C, both),
+                    ("fused 2-D e=5", 5, up8(u_max), off_max, both),
+                    ("fused 2-D e=32", 32, up8(u_max), c_tile, both)]
+        return [
+            ("per-edge (its grid has no tiles)", None, None, C, (1,)),
+            ("fused 2-D e=1", 1, up8(u_max), c_tile, both),
+            ("fused 2-D e=7", 7, up8(u_max), c_tile, both),
+            ("fused 2-D e=32", 32, up8(u_max), off_max, both),
+        ]
+
+    t0 = phase("tiled kernels vs plain versions on the card (bitwise)")
+    for label, tables, s_cap, u_max, make_stats in planes:
+        feas, offs, v0 = operands(tables, s_cap)
+        off_max = int(offs.max())
+        S, C = s_cap + 1, tables.n_states
+        E = offs.shape[0]
+        auto = tiling.choose_tiling(S, C, E, u_max, off_max)
+        cases = forced_tilings(tables, u_max, off_max, E)
+        if auto[2] is not None:
+            cases = [("auto", *auto, (1, 7, FLEET))] + cases
+        print(f"   {label}: S={S} C={C} E={E} u_max={u_max} "
+              f"off_max={off_max} whole plane "
+              f"{tiling.whole_plane_smem_bytes(S, C)} bytes, auto {auto}",
+              flush=True)
+        for B in (1, 7, FLEET):
+            ups, sig, alw = make_stats(B, 100 + B)
+            alw_i = alw.to(torch.int32)
+            Vp, Wp = ref.dp_forward_ref(ups, sig, alw_i, feas, offs, v0)
+            for name, be, bs, bc, batches in cases:
+                if B not in batches:
+                    continue
+                w0 = time.perf_counter()
+                if be is None:
+                    V, W = kernel.dp_forward_blocked(ups, sig, alw_i, feas,
+                                                     offs, v0)
+                    key = "dp_edge"
+                else:
+                    V, W = kernel.dp_forward_fused(
+                        ups, sig, alw_i, feas, offs, v0, block_e=be,
+                        u_max=u_max, off_max=off_max, block_s=bs,
+                        block_c=bc)
+                    key = "dp_chunk"
+                torch.cuda.synchronize()
+                err = max(max_err(V, Vp), max_err(W, Wp))
+                worst[key] = max(worst[key], err)
+                print(f"      B={B} {name} (block_e={be}, block_s={bs}, "
+                      f"block_c={bc}): max |kernel - plain| {err} "
+                      f"({(time.perf_counter() - w0) * 1e3:.1f} ms)",
+                      flush=True)
+                if err != 0:
+                    fail(f"{label} B={B} {name}: kernel differs from its "
+                         "plain version")
+            del Vp, Wp
+    done(t0)
+
+    t0 = phase("tiling choice")
+    E6 = big6.n_edges
+    off_max6 = int(ops.prepare_tables(big6_tables)[1].max())
+    auto6 = tiling.choose_tiling(s_cap6 + 1, big6_tables.n_states, E6,
+                                 u_max6, off_max6)
+    if auto6[0] is None or auto6[0] < E6:
+        fail(f"fig6 c_hi=6 auto tiling {auto6} is not one fused chunk")
     try:
-        ops.solve_budgeted_dp_kernel(
-            torch.zeros(E, dtype=torch.int32, device=dev),
-            torch.ones(E, dtype=torch.int32, device=dev), big_tables, s_cap,
-            s_cap)
+        ops.solve_budgeted_dp_batched(
+            torch.zeros((1, E6), dtype=torch.int32, device=dev),
+            torch.ones((1, E6), dtype=torch.int32, device=dev), big6_tables,
+            s_cap6, s_cap6, u_max=u_max6, block_c=None)
     except ValueError as err:
-        print(f"   fig6 c_hi=6 ({s_cap + 1} x {big_tables.n_states}) raises "
-              f"ValueError: {str(err)[:70]}...", flush=True)
+        print(f"   fig6 c_hi=6 ({s_cap6 + 1} x {big6_tables.n_states}): auto "
+              f"{auto6}; forced block_c=None raises ValueError: "
+              f"{str(err)[:60]}...", flush=True)
     else:
-        fail("the fig6 c_hi=6 plane did not raise at the gate")
+        fail("a forced whole-plane solve of the fig6 c_hi=6 plane did not "
+             "raise")
+    fig5, tables5 = instance(5, 2)
+    for horizon, whole in ((1500, True), (2000, False)):
+        S5 = stats.s_cap_for_horizon(horizon, fig5.m) + 1
+        got = tiling.choose_tiling(
+            S5, tables5.n_states, fig5.n_edges,
+            stats.u_max_for_horizon(horizon, fig5.m),
+            int(ops.prepare_tables(tables5)[1].max()))
+        print(f"   fig6 c_hi=5 T={horizon}: "
+              f"{tiling.whole_plane_smem_bytes(S5, tables5.n_states)} bytes, "
+              f"tiling {got}", flush=True)
+        if (got == (None, None, None)) != whole:
+            fail(f"fig6 c_hi=5 T={horizon} chose {got}")
     done(t0)
 
     # --------------------------------------------------------- main path
-    t0 = phase(f"main path: ESDP simulate, T={T}, Table 2")
+    def reset():
+        for k in kernel.LAUNCHES:
+            kernel.LAUNCHES[k] = 0
+
+    def expect(counts, **want):
+        full = {k: 0 for k in kernel.LAUNCHES}
+        full.update(want)
+        return counts == full
+
+    def drive(label, fn, slots, **want):
+        t0 = phase(label)
+        reset()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        counts = dict(kernel.LAUNCHES)
+        print(f"   launches {counts}; {wall:.2f} s, "
+              f"{wall / slots * 1e3:.3f} ms per slot", flush=True)
+        if not expect(counts, **want):
+            fail(f"{label} launched {counts}, expected {want}")
+        done(t0)
+        return out, counts, wall / slots * 1e3
+
     policy = esdp.make_esdp_policy(table2, T, tables=tables2)
-    for k in kernel.LAUNCHES:
-        kernel.LAUNCHES[k] = 0
-    w0 = time.perf_counter()
-    single = simulate(table2, policy, T, seed=SEED, tables=tables2)
-    wall_single = time.perf_counter() - w0
-    counts_single = dict(kernel.LAUNCHES)
-    print(f"   launches {counts_single}; {wall_single:.2f} s, "
-          f"{wall_single / T * 1e3:.3f} ms per slot", flush=True)
-    if counts_single != {"dp_forward": T, "dp_forward_batched": 0,
-                         "dp_epilogue": T}:
-        fail(f"simulate launched {counts_single}, expected T={T} forwards "
-             "and epilogues")
-    done(t0)
-
-    t0 = phase(f"main path: ESDP simulate_batch, B={FLEET}, T={T}")
     seeds = [SEED] + list(range(1, FLEET))
-    for k in kernel.LAUNCHES:
-        kernel.LAUNCHES[k] = 0
-    w0 = time.perf_counter()
-    fleet = simulate_batch(table2, policy, T, seeds, tables=tables2)
-    wall_fleet = time.perf_counter() - w0
-    counts_fleet = dict(kernel.LAUNCHES)
-    print(f"   launches {counts_fleet}; {wall_fleet:.2f} s, "
-          f"{wall_fleet / T * 1e3:.3f} ms per slot", flush=True)
-    if counts_fleet != {"dp_forward": 0, "dp_forward_batched": T,
-                        "dp_epilogue": T}:
-        fail(f"simulate_batch launched {counts_fleet}, expected one "
-             f"batched forward and one epilogue per slot (T={T})")
-    done(t0)
+    single, counts_single, _ = drive(
+        f"main path: ESDP simulate, T={T}, Table 2",
+        lambda: simulate(table2, policy, T, seed=SEED, tables=tables2), T,
+        dp_forward_batched=T, dp_epilogue=T)
+    fleet, counts_fleet, _ = drive(
+        f"main path: ESDP simulate_batch, B={FLEET}, T={T}, Table 2",
+        lambda: simulate_batch(table2, policy, T, seeds, tables=tables2), T,
+        dp_forward_batched=T, dp_epilogue=T)
 
-    t0 = phase("checks of the main path's output")
-    E = table2.n_edges
-    for name, r, shape in (("simulate", single, (T,)),
-                           ("simulate_batch", fleet, (FLEET, T))):
+    def moved(d, fn):
+        return Draws(*(fn(getattr(d, k)) for k in ("arr_u", "val_n",
+                                                    "pol_u")))
+
+    # fig-6 c_hi = 6: injected draws and schedule, so that the CPU run
+    # through the int32 reference makes its decisions on the same inputs
+    policy6 = esdp.make_esdp_policy(big6, T6, tables=big6_tables)
+    sched6 = stats.schedule_table(T6, big6.m, device="cpu")
+    per_seed = [make_draws(big6, T6, s, dev) for s in seeds]
+    draws6 = Draws(*(torch.cat([getattr(d, k) for d in per_seed])
+                     for k in ("arr_u", "val_n", "pol_u")))
+    n_chunks6 = -(-E6 // auto6[0])
+    single6, counts_single6, ms_single6 = drive(
+        f"main path: ESDP simulate, T={T6}, fig6 c_hi=6 (tiled)",
+        lambda: simulate(big6, policy6, T6, tables=big6_tables,
+                         draws=per_seed[0], schedule=sched6), T6,
+        dp_chunk=n_chunks6 * T6, dp_epilogue=T6)
+    fleet6, counts_fleet6, ms_fleet6 = drive(
+        f"main path: ESDP simulate_batch, B={FLEET}, T={T6}, fig6 c_hi=6 "
+        "(tiled)",
+        lambda: simulate_batch(big6, policy6, T6, seeds, tables=big6_tables,
+                               draws=draws6, schedule=sched6), T6,
+        dp_chunk=n_chunks6 * T6, dp_epilogue=T6)
+    fig5_runs = {}
+    for horizon, want in ((1500, dict(dp_forward_batched=1500,
+                                      dp_epilogue=1500)),
+                          (2000, dict(dp_chunk=2000, dp_epilogue=2000))):
+        pol5 = esdp.make_esdp_policy(fig5, horizon, tables=tables5)
+        fig5_runs[horizon] = drive(
+            f"main path: ESDP simulate, T={horizon}, fig6 c_hi=5",
+            lambda: simulate(fig5, pol5, horizon, seed=SEED, tables=tables5),
+            horizon, **want)[0]
+    n_edge_solves = 40
+    ups_e, sig_e, slim_e, alw_e = stats_case(big6, n_edge_solves, 77,
+                                             horizon=T6)
+    cuda_solver = get_solver("cuda")
+    edge_tiles = tiling.choose_tiling(s_cap6 + 1, big6_tables.n_states, E6,
+                                      s_cap6 + 1, off_max6)
+    if edge_tiles[0] is not None:
+        fail(f"fig6 c_hi=6 without u_max chose {edge_tiles}, not the "
+             "per-edge pipeline")
+    _, counts_edge, _ = drive(
+        f"the per-edge path: {n_edge_solves} solves through the solver "
+        "registry without u_max (u_max = s_cap + 1), fig6 c_hi=6, B = 1, "
+        f"tiling {edge_tiles}",
+        lambda: [cuda_solver(ups_e[i], sig_e[i], big6_tables, s_cap6,
+                             slim_e[i], allowed=alw_e[i])
+                 for i in range(n_edge_solves)], n_edge_solves,
+        dp_edge=E6 * n_edge_solves, dp_epilogue=n_edge_solves)
+
+    t0 = phase("checks of the main paths' output")
+    for name, r, shape, E in (
+            ("simulate", single, (T,), table2.n_edges),
+            ("simulate_batch", fleet, (FLEET, T), table2.n_edges),
+            ("simulate c_hi=6", single6, (T6,), E6),
+            ("simulate_batch c_hi=6", fleet6, (FLEET, T6), E6),
+            ("simulate c_hi=5 T=1500", fig5_runs[1500], (1500,),
+             fig5.n_edges),
+            ("simulate c_hi=5 T=2000", fig5_runs[2000], (2000,),
+             fig5.n_edges)):
         for field in ("sw", "sw_oracle", "regret"):
             a = getattr(r, field)
             if a.shape != shape or not np.isfinite(a).all():
@@ -290,7 +494,8 @@ def main():
         if not np.array_equal(fleet.x[i], one.x):
             fail(f"simulate_batch row {i} differs from simulate(seed "
                  f"{seeds[i]}) in x")
-    print("   simulate_batch rows 0-2 equal simulate(seed) in x", flush=True)
+    print("   Table 2: simulate_batch rows 0-2 equal simulate(seed) in x",
+          flush=True)
     Ts = 60
     small = esdp.make_esdp_policy(table2, Ts, tables=tables2)
     draws = make_draws(table2, Ts, 7, dev)
@@ -299,15 +504,36 @@ def main():
     sched = stats.schedule_table(Ts, table2.m, device="cpu")
     on_card = simulate(table2, small, Ts, tables=tables2, draws=draws,
                        schedule=sched)
-    cpu_draws = type(draws)(*(t.cpu() for t in (draws.arr_u, draws.val_n,
-                                                draws.pol_u)))
     on_cpu = simulate(table2, small, Ts, tables=tables2, device="cpu",
-                      draws=cpu_draws, schedule=sched)
+                      draws=moved(draws, lambda t: t.cpu()), schedule=sched)
     if not np.array_equal(on_card.x, on_cpu.x):
         fail("ESDP on the card and the CPU reference disagree on the same "
-             f"draws (T={Ts})")
-    print(f"   T={Ts}: card (CUDA kernels) and CPU (int32 reference) ESDP "
-          "make the same decisions on the same draws", flush=True)
+             f"draws (Table 2, T={Ts})")
+    print(f"   Table 2, T={Ts}: card (CUDA kernels) and CPU (int32 "
+          "reference) ESDP make the same decisions on the same draws",
+          flush=True)
+    if not np.array_equal(fleet6.x[0], single6.x):
+        fail("fig6 c_hi=6: simulate_batch row 0 differs from simulate in x")
+    w0 = time.perf_counter()
+    cpu6 = simulate(big6, policy6, T6, tables=big6_tables, device="cpu",
+                    draws=moved(per_seed[0], lambda t: t.cpu()),
+                    schedule=sched6)
+    rows = [1, FLEET - 1]
+    cpu6_rows = simulate_batch(
+        big6, policy6, T6, [seeds[i] for i in rows], tables=big6_tables,
+        device="cpu", draws=moved(draws6, lambda t: t[rows].cpu()),
+        schedule=sched6)
+    if not np.array_equal(single6.x, cpu6.x):
+        slot = int(np.flatnonzero((single6.x != cpu6.x).any(axis=1))[0])
+        fail(f"fig6 c_hi=6: card and CPU reference ESDP differ at slot "
+             f"{slot + 1}")
+    if not np.array_equal(fleet6.x[rows], cpu6_rows.x):
+        fail(f"fig6 c_hi=6: simulate_batch rows {rows} differ from the CPU "
+             "reference")
+    print(f"   fig6 c_hi=6, T={T6}: card simulate and simulate_batch rows "
+          f"0, {rows} make the CPU int32 reference's decisions every slot "
+          f"on the same draws and schedule "
+          f"({time.perf_counter() - w0:.1f} s on the CPU)", flush=True)
     done(t0)
 
     t0 = phase(f"quickstart policies, T={T}, seed {SEED}")
@@ -332,19 +558,17 @@ def main():
     for b in ("HSWF", "LCF", "LWTF"):
         print(f"   ESDP improvement vs {b}: "
               f"{(best / runs[b].asw[-1] - 1) * 100:+.0f}%", flush=True)
+    print(f"   fig6 c_hi=6 ESDP ASW: simulate {single6.asw[-1]:.1f}, "
+          f"simulate_batch mean {fleet6.asw[:, -1].mean():.1f}", flush=True)
     done(t0)
 
     # ------------------------------------------------------------ timing
-    t0 = phase("times at the main path's shapes (profiler device time, "
+    t0 = phase("times at the main paths' shapes (profiler device time, "
                "CUDA events over back-to-back launches)")
-    s_cap = stats.s_cap_for_horizon(T, table2.m)
-    S, C = s_cap + 1, tables2.n_states
-    feas, offs, v0 = operands(tables2, s_cap)
-    W = kernel.packed_words(E)
     lib = build.load()
     stream = torch.cuda.current_stream().cuda_stream
     keep = []  # outputs of the raw launches, alive while they are timed
-    rows = []
+    rows_out = []
 
     def checked(launch, args):
         def call():
@@ -353,32 +577,53 @@ def main():
                 fail(f"raw launch returned CUDA error {err}")
         return call
 
-    def raw_forward(u, s, a, f, B):
+    def row(name, replaces, shapes, launches, err, timed, p_ms, bound):
+        ev_ms, w_ms, prof_ms = timed
+        # back-to-back launches of a kernel shorter than one host launch
+        # time the host; the trace's device time is the kernel's own
+        k_ms = ev_ms if prof_ms is None else prof_ms
+        nbytes, nops = bound
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / INT32_OPS_PER_S * 1e3
+        rows_out.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+        prof = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
+        print(f"   {name} {shapes}: kernel {k_ms:.4f} ms (profiler device "
+              f"time {prof}, CUDA events over back-to-back launches "
+              f"{ev_ms:.4f} ms), through the wrapper {w_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} us "
+              f"({nbytes} bytes, {nops} int32 ops), launches {launches}",
+              flush=True)
+
+    def timed(raw, wrapper, kernel_name, calls):
+        return (per_call_ms(raw, calls), per_call_ms(wrapper, calls),
+                profiled_ms(raw, calls, kernel_name))
+
+    # whole plane and epilogue: Table 2, T = 2000
+    s_cap = stats.s_cap_for_horizon(T, table2.m)
+    S, C, E = s_cap + 1, tables2.n_states, table2.n_edges
+    feas, offs, v0 = operands(tables2, s_cap)
+    W = kernel.packed_words(E)
+
+    def raw_forward(u, s, a, B):
         """The forward's C entry point on outputs allocated once: one
         launch without the wrapper's checks and allocations."""
         out = (torch.empty((B, S, C), dtype=torch.int32, device=dev),
                torch.empty((B, W, S, C), dtype=torch.int32, device=dev))
         keep.append(out)
         return checked(lib.dp_forward_launch, (
-            u.data_ptr(), s.data_ptr(), None if a is None else a.data_ptr(),
-            f.data_ptr(), offs.data_ptr(), v0.data_ptr(), out[0].data_ptr(),
+            u.data_ptr(), s.data_ptr(), a.data_ptr(), feas.data_ptr(),
+            offs.data_ptr(), v0.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), B, E, S, C, stream))
 
-    def raw_epilogue(V, Wd, u, sl, B):
-        out = (torch.empty((B, E), dtype=torch.int32, device=dev),
-               torch.empty((B,), dtype=torch.int32, device=dev),
-               torch.empty((B, S), dtype=torch.int32, device=dev))
-        keep.append(out)
-        return checked(lib.dp_epilogue_launch, (
-            V.data_ptr(), Wd.data_ptr(), u.data_ptr(), offs.data_ptr(),
-            sl.data_ptr(), tables2.full_state, B, E, S, C, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), stream))
-
-    def fwd_bound(B, with_alw):
-        nbytes = 4 * (B * E * (3 if with_alw else 2) + E * C + E + S * C
-                      + B * S * C + B * W * S * C)
-        nops = FWD_OPS_PER_CELL * B * E * S * C
-        return nbytes, nops
+    def fwd_bound(B):
+        nbytes = 4 * (3 * B * E + E * C + E + S * C + B * S * C
+                      + B * W * S * C)
+        return nbytes, FWD_OPS_PER_CELL * B * E * S * C
 
     def epi_bound(x):
         """Per instance: the V column at full_state (S) and the value row
@@ -387,77 +632,143 @@ def main():
         B = x.shape[0]
         nbytes = 4 * (B * (2 * S + 2 * E + 2) + int(x.sum())
                       + int(x.any(0).sum()))
-        nops = B * (5 * S + 6 * E)
-        return nbytes, nops
-
-    def row(name, source_line, shapes, launches, err, timed, p_ms, bound):
-        ev_ms, w_ms, prof_ms = timed
-        # back-to-back launches of a kernel shorter than one host launch
-        # time the host; the trace's device time is the kernel's own
-        k_ms = ev_ms if prof_ms is None else prof_ms
-        nbytes, nops = bound
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT32_OPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/budgeted_dp/csrc/budgeted_dp.cu",
-            "replaces": source_line, "launches": launches,
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        prof = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
-        print(f"   {name} {shapes}: kernel {k_ms:.4f} ms (profiler device "
-              f"time {prof}, CUDA events over back-to-back launches "
-              f"{ev_ms:.4f} ms), through the wrapper {w_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} us "
-              f"({nbytes} bytes, {nops} int32 ops)", flush=True)
-
-    def timed(raw, wrapper, kernel_name, calls):
-        return (per_call_ms(raw, calls), per_call_ms(wrapper, calls),
-                profiled_ms(raw, calls, kernel_name))
+        return nbytes, B * (5 * S + 6 * E)
 
     ups, sig, slim, alw = stats_case(table2, FLEET, 99)
     alw_i = alw.to(torch.int32)
-    f1 = feas * alw_i[0][:, None]
-    u1, s1 = ups[0].contiguous(), sig[0].contiguous()
-    t1 = timed(raw_forward(u1, s1, None, f1, 1),
-               lambda: kernel.dp_forward(u1, s1, f1, offs, v0),
-               "dp_forward_kernel", 200)
-    p1 = per_call_ms(lambda: ref.dp_forward_ref(ups[:1], sig[:1], None, f1,
-                                                offs, v0), 3, reps=3)
-    row("dp_forward", "src/repro/kernels/budgeted_dp/kernel.py:409",
-        f"B=1 S={S} C={C} E={E}", counts_single["dp_forward"],
-        worst["dp_forward"], t1, p1, fwd_bound(1, False))
-    t2 = timed(raw_forward(ups, sig, alw_i, feas, FLEET),
-               lambda: kernel.dp_forward_batched(ups, sig, alw_i, feas,
-                                                 offs, v0),
-               "dp_forward_kernel", 200)
-    p2 = per_call_ms(lambda: ref.dp_forward_ref(ups, sig, alw_i, feas, offs,
-                                                v0), 3, reps=3)
-    row("dp_forward_batched", "src/repro/kernels/budgeted_dp/kernel.py:484",
-        f"B={FLEET} S={S} C={C} E={E}", counts_fleet["dp_forward_batched"],
-        worst["dp_forward_batched"], t2, p2, fwd_bound(FLEET, True))
+    for B, launches in ((1, counts_single), (FLEET, counts_fleet)):
+        u, s, a = (t[:B].contiguous() for t in (ups, sig, alw_i))
+        t_k = timed(raw_forward(u, s, a, B),
+                    lambda: kernel.dp_forward_batched(u, s, a, feas, offs,
+                                                      v0),
+                    "dp_forward_kernel", 200)
+        p_k = per_call_ms(lambda: ref.dp_forward_ref(u, s, a, feas, offs,
+                                                     v0), 3, reps=3)
+        row(f"dp_forward_batched B={B} "
+            f"({'K1 _dp_kernel' if B == 1 else 'K2 _dp_kernel_batched'})",
+            TPU + ("kernel.py:409" if B == 1 else "kernel.py:484"),
+            f"B={B} S={S} C={C} E={E}", launches["dp_forward_batched"],
+            worst["dp_forward_batched"], t_k, p_k, fwd_bound(B))
     V, Wd = kernel.dp_forward_batched(ups, sig, alw_i, feas, offs, v0)
-    t3 = timed(raw_epilogue(V, Wd, ups, slim, FLEET),
-               lambda: kernel.dp_epilogue(V, Wd, ups, offs, slim,
-                                          tables2.full_state),
-               "dp_epilogue_kernel", 500)
+    epi_out = (torch.empty((FLEET, E), dtype=torch.int32, device=dev),
+               torch.empty((FLEET,), dtype=torch.int32, device=dev),
+               torch.empty((FLEET, S), dtype=torch.int32, device=dev))
+    keep.append(epi_out)
+    t3 = timed(checked(lib.dp_epilogue_launch, (
+        V.data_ptr(), Wd.data_ptr(), ups.data_ptr(), offs.data_ptr(),
+        slim.data_ptr(), tables2.full_state, FLEET, E, S, C,
+        epi_out[0].data_ptr(), epi_out[1].data_ptr(), epi_out[2].data_ptr(),
+        stream)),
+        lambda: kernel.dp_epilogue(V, Wd, ups, offs, slim,
+                                   tables2.full_state),
+        "dp_epilogue_kernel", 500)
     p3 = per_call_ms(lambda: ref.dp_epilogue_ref(V, Wd, ups, offs, slim,
-                                                 tables2.full_state), 3, reps=3)
+                                                 tables2.full_state), 3,
+                     reps=3)
     x_epi = kernel.dp_epilogue(V, Wd, ups, offs, slim, tables2.full_state)[0]
-    if not torch.equal(keep[-1][0], x_epi):
+    if not torch.equal(epi_out[0], x_epi):
         fail("the raw epilogue launch and the wrapper disagree in x")
     # the row names the fleet's shapes, so it counts the fleet run's launches
     print(f"   dp_epilogue launches: simulate {counts_single['dp_epilogue']}, "
           f"simulate_batch {counts_fleet['dp_epilogue']}", flush=True)
-    row("dp_epilogue", "src/repro/kernels/budgeted_dp/ops.py:231",
+    row("dp_epilogue (s* + backtrack)", TPU + "ops.py:231",
         f"B={FLEET} S={S} C={C} E={E}", counts_fleet["dp_epilogue"],
         worst["dp_epilogue"], t3, p3, epi_bound(x_epi))
+
+    # the tiled forwards: fig-6 c_hi = 6, T = 1500
+    S, C = s_cap6 + 1, big6_tables.n_states
+    feas, offs, v0 = operands(big6_tables, s_cap6)
+    off_max = int(offs.max())
+    W = kernel.packed_words(E6)
+    ups, sig, alw = fig6_stats(FLEET, 99)
+    alw_i = alw.to(torch.int32)
+
+    def halos(bs, bc):
+        return (u_max6 if bs < S else 0, off_max if bc < C else 0)
+
+    def history_ints(bs, bc, hu, hl):
+        """History ints one instance moves per edge: rowh written by every
+        S-tile and read (with the up-left corner) by every S-tile below
+        the first; lefth written by every tile and read by every tile
+        right of the first."""
+        n_si, n_cj = -(-S // bs), -(-C // bc)
+        return (n_si * hu * C + (n_si - 1) * hu * (C + (n_cj - 1) * hl)
+                + n_si * n_cj * bs * hl + n_si * (n_cj - 1) * bs * hl)
+
+    # dp_chunk: the auto tiling of the main path, one chunk of E6 edges
+    be6, bs6, bc6 = auto6
+    bs6 = S if bs6 is None else bs6
+    hu, hl = halos(bs6, bc6)
+    n_e = min(be6, E6)
+    n_words = (E6 - 1) // 32 - (E6 - n_e) // 32 + 1  # words the chunk sets
+    print(f"   dp_chunk halo histories (this design's tile walk, kept out "
+          f"of the bound): {4 * history_ints(bs6, bc6, hu, hl) * n_e} bytes "
+          "per instance and chunk", flush=True)
+    for B, launches in ((1, counts_single6), (FLEET, counts_fleet6)):
+        u, s, a = (t[:B].contiguous() for t in (ups, sig, alw_i))
+        out = (torch.empty((B, S, C), dtype=torch.int32, device=dev),
+               torch.zeros((B, W, S, C), dtype=torch.int32, device=dev),
+               torch.empty(max(B * 2 * n_e * hu * C, 1), dtype=torch.int32,
+                           device=dev),
+               torch.empty(max(B * n_e * bs6 * hl, 1), dtype=torch.int32,
+                           device=dev))
+        keep.append(out)
+        raw = checked(lib.dp_chunk_launch, (
+            u.data_ptr(), s.data_ptr(), a.data_ptr(), feas.data_ptr(),
+            offs.data_ptr(), v0.data_ptr(), 0, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), B, E6,
+            S, C, E6 - n_e, E6, hu, hl, bs6, bc6, stream))
+
+        def wrapped(u=u, s=s, a=a, B=B):
+            V = torch.empty((B, S, C), dtype=torch.int32, device=dev)
+            Wz = torch.zeros((B, W, S, C), dtype=torch.int32, device=dev)
+            kernel.dp_chunk(v0, V, Wz, u, s, a, feas, offs, E6 - n_e, E6,
+                            u_max=u_max6, off_max=off_max, block_s=auto6[1],
+                            block_c=bc6)
+
+        t_k = timed(raw, wrapped, "dp_chunk_kernel", 20)
+        words_p = torch.zeros((B, W, S, C), dtype=torch.int32, device=dev)
+        p_k = per_call_ms(lambda: ref.dp_chunk_ref(
+            v0, words_p, u, s, a, feas, offs, E6 - n_e, E6), 3, reps=3)
+        # the function's operands: Υ̂, Σ̂², allowed, the chunk's feasible
+        # rows and offsets, the shared input plane read once, the output
+        # plane and the chunk's words written once
+        nbytes = 4 * (3 * B * n_e + n_e * C + n_e + S * C + B * S * C
+                      + B * n_words * S * C)
+        row(f"dp_chunk B={B} ({'K4 _fused_chunk_kernel' if B == 1 else 'K5 _batched_fused_kernel'})",
+            TPU + ("kernel.py:697" if B == 1 else "kernel.py:935"),
+            f"B={B} S={S} C={C} edges {E6 - n_e}..{E6 - 1} tiles "
+            f"({bs6}, {bc6}) halos ({hu}, {hl})", launches["dp_chunk"],
+            worst["dp_chunk"], t_k, p_k,
+            (nbytes, FWD_OPS_PER_CELL * B * n_e * S * C))
+
+    # dp_edge: the per-edge path (u_max = s_cap + 1), B = 1
+    u, s, a = (t[:1].contiguous() for t in (ups, sig, alw_i))
+    vin = torch.empty((1, S, C), dtype=torch.int32, device=dev)
+    vin.copy_(v0)
+    out = (torch.empty((1, S, C), dtype=torch.int32, device=dev),
+           torch.zeros((1, W, S, C), dtype=torch.int32, device=dev))
+    keep.append((vin, out))
+    e_mid = E6 // 2
+    raw = checked(lib.dp_edge_launch, (
+        u.data_ptr(), s.data_ptr(), a.data_ptr(), feas.data_ptr(),
+        offs.data_ptr(), vin.data_ptr(), S * C, out[0].data_ptr(),
+        out[1].data_ptr(), 1, E6, S, C, e_mid, stream))
+    t_k = timed(raw, lambda: kernel.dp_edge(
+        vin, out[0], out[1], u, s, a, feas, offs, e_mid),
+        "dp_edge_kernel", 200)
+    p_k = per_call_ms(lambda: ref.dp_edge_ref(vin, out[1], u, s, a, feas,
+                                              offs, e_mid), 3, reps=3)
+    row("dp_edge B=1 (K3 _edge_tile_kernel/_edge_stile_kernel)",
+        TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, one thread per "
+        "cell", counts_edge["dp_edge"], worst["dp_edge"], t_k,
+        p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C))
+    print(f"   fig6 c_hi=6 slot: simulate {ms_single6:.3f} ms, "
+          f"simulate_batch (B={FLEET}) {ms_fleet6:.3f} ms", flush=True)
     print(f"   card: {card}", flush=True)
     done(t0)
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows_out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,9 +7,9 @@ realizes SW(x(t)) = Σ_e x_e·z̃_e (eq. 4), updates the shared observation
 statistics and accounts the per-slot regret against the omniscient oracle.
 
 Batch-first: every tensor carries a leading run dimension B.
-``simulate`` is one run (B = 1; ESDP then solves through the
-single-instance kernel), ``simulate_batch`` a seed fleet (ESDP solves the
-whole fleet in one kernel launch per slot).  A slot enqueues device work
+``simulate`` is one run (B = 1), ``simulate_batch`` a seed fleet; ESDP
+solves the B runs of a slot together, in one forward launch per slot (or
+per chunk of edges on a tiled plane).  A slot enqueues device work
 only; the traces come back to the host once, at the end.
 
 Random draws are made in bulk before the loop (:func:`make_draws`, one

@@ -14,8 +14,8 @@ at random.
 
 The per-slot Algorithm-2 solve is pluggable: ``solver=`` names a backend
 of ``core.solvers`` (``"reference"`` | ``"cuda"`` | ``"auto"``/None).
-A single run (B = 1) goes through the single-instance forward kernel, a
-fleet through one batched launch per slot.
+A single run is a batch of one: every slot solves the B runs together,
+with ``u_max = stats.u_max_for_horizon(T, m, δ)`` bounding Υ̂.
 """
 from __future__ import annotations
 
@@ -84,6 +84,8 @@ def make_esdp_policy(
     solve = get_solver(solver)
     m = instance.m
     s_cap = stats_mod.s_cap_for_horizon(T, m, delta_fn)
+    # the up-halo height of a tiled plane (Υ̂ ≤ ξ(T))
+    u_max = stats_mod.u_max_for_horizon(T, m, delta_fn)
 
     def init(batch, device):
         return ()  # all ESDP state is the simulator's shared (n, Σz̃)
@@ -91,12 +93,8 @@ def make_esdp_policy(
     def step(state, slot, eligible, arrived, vhat, n, pol_u):
         ups, sig, s_limit = stats_mod.scale_statistics(vhat, n, slot.xi,
                                                        slot.g, m)
-        if ups.shape[0] == 1:  # one run: the single-instance kernel
-            x, _ = solve(ups[0], sig[0], tables, s_cap, s_limit,
-                         allowed=eligible[0])
-            x = x[None]
-        else:
-            x, _ = solve(ups, sig, tables, s_cap, s_limit, allowed=eligible)
+        x, _ = solve(ups, sig, tables, s_cap, s_limit, allowed=eligible,
+                     u_max=u_max)
         return x * eligible.to(torch.int32), state
 
     return Policy(name="esdp", init=init, step=step, delta_fn=delta_fn,

@@ -3,21 +3,25 @@
 Counterpart of ``repro.core.solvers``.  Every backend implements one
 contract::
 
-    solver(upsilon, sigma2, tables, s_cap, s_limit, allowed=None) -> (x, info)
+    solver(upsilon, sigma2, tables, s_cap, s_limit, allowed=None,
+           u_max=None) -> (x, info)
 
 for (E,) or batch-first (B, E) int32 statistics: ``x`` int32 of the same
 shape and ``info`` with ``s_star`` and ``value_row`` — the (s_cap+1,)
 int32 DP value row with exactly ``dp.NEG`` at budget-infeasible entries.
-Backends are bit-exact interchangeable.
+``u_max`` is an optional bound on max Υ̂ (``stats.u_max_for_horizon``);
+the kernels size the up halo of a tiled plane with it, ``None`` meaning
+``s_cap + 1``.  Backends are bit-exact interchangeable.
 
 Registry:
   reference — the plain int32 edge fold of ``core.dp.solve_budgeted_dp``,
               on CPU tensors only: a CUDA tensor raises, so no setting can
               send the card's slot to a plain version.
   cuda      — the budgeted-DP kernels (``kernels.budgeted_dp``): (E,)
-              statistics go through the single-instance forward, (B, E)
-              through ONE fleet launch (``accepts_batch``).  CPU tensors
-              run the kernels' plain versions.
+              statistics solve as a batch of one, (B, E) as one fleet
+              (``accepts_batch``), with the tiling picked by
+              ``tiling.choose_tiling``.  CPU tensors run the kernels'
+              plain versions under the same host loop.
   auto      — per call: ``cuda`` for CUDA tensors, ``reference`` otherwise.
 
 Selection: ``get_solver(None)`` consults ``$REPRO_DP_SOLVER`` and falls
@@ -78,12 +82,21 @@ class Solver:
     accepts_batch: bool = False
 
     def __call__(
-        self, upsilon, sigma2, tables: DPTables, s_cap: int, s_limit, allowed=None
+        self,
+        upsilon,
+        sigma2,
+        tables: DPTables,
+        s_cap: int,
+        s_limit,
+        allowed=None,
+        u_max=None,
     ):
-        return self._fn(upsilon, sigma2, tables, s_cap, s_limit, allowed)
+        return self._fn(upsilon, sigma2, tables, s_cap, s_limit, allowed,
+                        u_max)
 
 
-def _reference_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed):
+def _reference_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed, u_max):
+    del u_max  # the plain fold needs no halo
     if upsilon.device.type != "cpu":
         raise ValueError(
             f"the 'reference' DP backend runs on CPU tensors only, got "
@@ -96,17 +109,22 @@ def _reference_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed):
                "value_row": torch.where(row >= 0, row, NEG)}
 
 
-def _cuda_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed):
+def _cuda_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed, u_max):
     from ..kernels.budgeted_dp import ops
-    solve = (ops.solve_budgeted_dp_kernel if upsilon.dim() == 1
-             else ops.solve_budgeted_dp_batched)
-    return solve(upsilon, sigma2, tables, s_cap, s_limit, allowed=allowed)
+    if upsilon.dim() == 2:
+        return ops.solve_budgeted_dp_batched(upsilon, sigma2, tables, s_cap,
+                                             s_limit, u_max=u_max,
+                                             allowed=allowed)
+    x, info = ops.solve_budgeted_dp_batched(
+        upsilon[None], sigma2[None], tables, s_cap, s_limit, u_max=u_max,
+        allowed=None if allowed is None else allowed[None])
+    return x[0], {k: v[0] for k, v in info.items()}
 
 
-def _auto_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed):
+def _auto_solve(upsilon, sigma2, tables, s_cap, s_limit, allowed, u_max):
     solve = (_cuda_solve if upsilon.device.type == "cuda"
              else _reference_solve)
-    return solve(upsilon, sigma2, tables, s_cap, s_limit, allowed)
+    return solve(upsilon, sigma2, tables, s_cap, s_limit, allowed, u_max)
 
 
 _SOLVERS = {

@@ -88,6 +88,10 @@ def load() -> ctypes.CDLL:
         lib.dp_forward_launch.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, p]
         lib.dp_forward_launch.restype = i
+        lib.dp_edge_launch.argtypes = [p] * 6 + [i, p, p] + [i] * 5 + [p]
+        lib.dp_edge_launch.restype = i
+        lib.dp_chunk_launch.argtypes = [p] * 6 + [i] + [p] * 4 + [i] * 10 + [p]
+        lib.dp_chunk_launch.restype = i
         lib.dp_epilogue_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                            p, p, p, p]
         lib.dp_epilogue_launch.restype = i

@@ -1,46 +1,75 @@
 // Budgeted DP of ESDP (paper Algorithm 2) for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernels
-//   kernels/budgeted_dp/kernel.py::_dp_kernel          (K1, one instance)
-//   kernels/budgeted_dp/kernel.py::_dp_kernel_batched  (K2, a seed fleet)
-// with ONE __global__ forward launched one block per instance, and moves the
-// eq.-17 s* rule and the packed-word backtrack (a lax.scan in
-// kernels/budgeted_dp/ops.py::_solve/_solve_batched) into a second kernel,
-// so a dispatch slot needs no host sync and no per-edge launches.
-//
-// Forward.  The whole (S x C) int32 value plane sits in dynamic shared
-// memory (44 KB at the paper's Table-2 instance, 160 KB at the fig-6
-// c_hi = 4 sweep point; smem_bytes() in kernel.py is the gate).  Edges run
-// E-1 ... 0 inside the block; per edge every cell (s, c) computes
+// Replaces the JAX package's Pallas TPU kernels (kernels/budgeted_dp/)
+//   kernel.py::_dp_kernel, _dp_kernel_batched     (K1, K2)  dp_forward_kernel
+//   kernel.py::_edge_tile_kernel, _edge_stile_kernel (K3)   dp_edge_kernel
+//   kernel.py::_fused_chunk_kernel, _batched_fused_kernel
+//                                                 (K4, K5)  dp_chunk_kernel
+// and moves the eq.-17 s* rule and the packed-word backtrack (a lax.scan in
+// kernels/budgeted_dp/ops.py::_solve/_solve_batched) into dp_epilogue_kernel,
+// so a dispatch slot needs no host sync.  Every forward is batch-first: B
+// instances share the feasibility plane, the offsets and the seed plane and
+// mask their own `allowed` in the kernel.  Per edge every cell (s, c) does
 //   take = V[max(s - u_e, 0), c - off_e] + sig_e   (NEG if c < off_e, the
 //          state is infeasible or the edge is not allowed)
-//   dec  = take > V,   V = max(V, take).
-// The update reads cells that other threads write in the same edge step.
-// Every read goes to a linear index s'*C + c' <= s*C + c (s' <= s, c' <= c),
-// so the plane is swept in chunks of THREADS*ITEMS cells from the top index
-// down: a chunk stages its new values in registers, and after one
-// __syncthreads writes them back.  A chunk reads only cells below its upper
-// end, which are either its own (still old, staged) or lower chunks' (not yet
-// written), so no second plane copy is needed — that is what lets the 160 KB
-// plane run at all (two copies would take 320 KB).
-// Decision bits go straight into the packed output words, as K1 does: the
-// block zeroes its words first and ORs bit e % 32 into word e / 32 of a cell
-// only where take > V.
+//   dec  = take > V,   V = max(V, take),
+// and ORs bit e % 32 of word e / 32 where dec holds.
 //
-// What bounds it.  One instance moves ~180 KB of device memory at Table 2
-// (v0, feasibility, V, the words), ~50 ns at 3.35 TB/s, and does ~3.6 M
-// integer operations; neither is the limit.  The limit is the serial chain
-// of E block-wide steps, each a chunk sweep plus a barrier, in one SM per
-// instance.  A fleet (B = 64) runs one block per instance on its own SM.
-// The int32 arithmetic with NEG = -2^29 keeps every NEG-seeded chain below
-// zero for sums < 2^29 (the f32 Pallas kernel stopped at 2^24).
+// Whole-plane forward (dp_forward_kernel).  The (S x C) int32 plane sits in
+// dynamic shared memory, one block per instance, for all E edges (44 KB at
+// the paper's Table-2 instance, 160 KB at the fig-6 c_hi = 4 point; the
+// limit is one block's 232,448 bytes, tiling.py).  The update reads cells
+// that other threads write in the same edge step, but every read goes to a
+// linear index s'*C + c' <= s*C + c, so the plane is swept in chunks of
+// THREADS*ITEMS cells from the top index down: a chunk stages its new values
+// in registers and writes them back after one __syncthreads.  No second
+// plane copy is needed, which is what lets the 160 KB plane run at all.
+//
+// Per-edge forward (dp_edge_kernel).  One launch per edge; one thread per
+// cell, EDGE_THREADS cells per block and a grid row of blocks per instance,
+// reads the plane `vin` in device memory and writes `vout` (the host
+// ping-pongs two buffers), so it runs a plane of any size.  The TPU kernel's
+// halos become plain reads of the input plane, so the JAX tiling knobs
+// (block_s, block_c) only pick this pipeline and do not shape the grid,
+// which fills the card at any tiling.  What bounds it: each edge moves the
+// plane and its word through device memory (~1.2 MB at fig-6 c_hi = 6),
+// ~0.4 us at 3.35 TB/s, below one launch's latency; it is the pipeline of
+// last resort.
+//
+// Fused forward (dp_chunk_kernel).  One launch per chunk of <= 32 edges,
+// one block per instance.  The TPU kernel relied on its grid running tiles
+// in row-major order on one core; on Hopper blocks run in no order, so a
+// block walks its own instance's tiles in row-major order.  A tile lives in
+// shared memory for the whole chunk, with an up halo of u_max rows (only if
+// the plane has several S-tiles) above it and a left halo of off_max
+// columns (only with several C-tiles) to its left.  Before edge k of the
+// chunk a tile reads its neighbours' boundaries *before edge k* from two
+// history buffers in device memory (the TPU kernel's VMEM scratches):
+//   lefth (chunk, block_s, off_max): the left tile's last off_max columns;
+//     read, then overwritten with this tile's own, by the same thread;
+//   rowh (2 banks, chunk, u_max, C): the previous S-row's bottom u_max
+//     rows, banked by S-row parity so the up-left corner read never races
+//     the current row's writes.
+// S-tile 0 clamps its reads to row 0 of the plane (the clamp row V[0]); the
+// left halo of C-tile 0 is never loaded, since only states c < off_e, which
+// are masked, would read it.  Inside a tile the in-place hazard of the
+// whole-plane kernel returns (reads go to smaller row-major scratch
+// indices), and the same staged top-down sweep handles it.  The plane is
+// updated in place across chunks: a tile reads and writes only its own
+// cells of V, and halos come from the histories.  What bounds it: the
+// serial chain of edge steps in one SM per instance, ~S*C/1024 cells per
+// thread and edge plus two barriers per 8192-cell chunk; bytes (the plane
+// once per chunk, histories ~2*u_max*C ints per S-tile and edge) and
+// operations are far below the card's rates.
 //
 // Epilogue.  One block per instance: a block-wide first-index argmax of
 // s + sqrtf((float)v) over the feasible s <= s_limit, then one thread walks
 // the E edges from (s*, full_state).  It must be compiled WITHOUT
 // --use_fast_math: the score needs IEEE-rounded sqrtf or s* flips.
 //
-// wgmma, TMA and clusters are of no use to this integer shift-and-max DP.
+// The int32 arithmetic with NEG = -2^29 keeps every NEG-seeded chain below
+// zero for sums < 2^29 (the f32 Pallas kernels stopped at 2^24).  wgmma, TMA
+// and clusters are of no use to this integer shift-and-max DP.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +82,7 @@ constexpr int NEG = -(1 << 29);
 constexpr int FWD_THREADS = 1024;
 constexpr int ITEMS = 8;  // cells a thread stages per chunk
 constexpr int EPI_THREADS = 256;
+constexpr int EDGE_THREADS = 256;
 
 __global__ void __launch_bounds__(FWD_THREADS)
 dp_forward_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
@@ -112,6 +142,175 @@ dp_forward_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
 
   int* vout_b = vout + (size_t)b * SC;
   for (int i = threadIdx.x; i < SC; i += blockDim.x) vout_b[i] = plane[i];
+}
+
+__global__ void __launch_bounds__(EDGE_THREADS)
+dp_edge_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
+               const int* __restrict__ alw,  // (B, E) or nullptr
+               const int* __restrict__ feas, const int* __restrict__ offs,
+               const int* __restrict__ vin, int vin_stride,
+               int* __restrict__ vout, unsigned* __restrict__ words, int E,
+               int S, int C, int e) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * C) return;
+  const int s = i / C;
+  const int c = i - s * C;
+  const size_t SC = (size_t)S * C;
+  const int* vin_b = vin + (size_t)b * vin_stride;
+  unsigned* word = words + ((size_t)b * ((E + 31) >> 5) + (e >> 5)) * SC;
+  const int u = max(ups[(size_t)b * E + e], 0);
+  const int off = offs[e];
+  const bool on = alw == nullptr || alw[(size_t)b * E + e] != 0;
+  const int v = vin_b[i];
+  int take = NEG;
+  if (on && c >= off && feas[(size_t)e * C + c] != 0) {
+    take = vin_b[(size_t)max(s - u, 0) * C + (c - off)] +
+           sig[(size_t)b * E + e];
+  }
+  vout[(size_t)b * SC + i] = max(v, take);
+  if (take > v) word[i] |= 1u << (e & 31);
+}
+
+// The histories and the plane are read after this block wrote them, so
+// their pointers are neither const nor __restrict__ (no non-coherent
+// loads); vin may be vout.
+__global__ void __launch_bounds__(FWD_THREADS)
+dp_chunk_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
+                const int* __restrict__ alw,  // (B, E) or nullptr
+                const int* __restrict__ feas, const int* __restrict__ offs,
+                const int* vin, int vin_stride, int* vout, unsigned* words,
+                int* rowh, int* lefth, int E, int S, int C, int lo, int hi,
+                int hu, int hl, int bs, int bc) {
+  extern __shared__ int sm[];  // (hu + bs) x (hl + bc), body at [hu:, hl:]
+  const int b = blockIdx.x;
+  const int n_e = hi - lo;
+  const int n_si = (S + bs - 1) / bs;
+  const int n_cj = (C + bc - 1) / bc;
+  const int ws = hl + bc;  // scratch row width
+  const int body = bs * bc;
+  const size_t SC = (size_t)S * C;
+  const int* vin_b = vin + (size_t)b * vin_stride;
+  int* vout_b = vout + (size_t)b * SC;
+  unsigned* words_b = words + (size_t)b * ((E + 31) >> 5) * SC;
+  int* rowh_b = rowh + (size_t)b * 2 * n_e * hu * C;
+  int* lefth_b = lefth + (size_t)b * n_e * bs * hl;
+  const int* ups_b = ups + (size_t)b * E;
+  const int* sig_b = sig + (size_t)b * E;
+  const int* alw_b = alw == nullptr ? nullptr : alw + (size_t)b * E;
+  const int chunk = blockDim.x * ITEMS;
+
+  for (int ti = 0; ti < n_si; ++ti) {
+    const int s0 = ti * bs;
+    int* rowh_rd = rowh_b + (size_t)((ti + 1) & 1) * n_e * hu * C;
+    int* rowh_wr = rowh_b + (size_t)(ti & 1) * n_e * hu * C;
+    for (int tj = 0; tj < n_cj; ++tj) {
+      const int c0 = tj * bc;
+      for (int t = threadIdx.x; t < body; t += blockDim.x) {
+        const int r = t / bc;
+        const int cc = t - r * bc;
+        const int s = s0 + r;
+        const int c = c0 + cc;
+        sm[(hu + r) * ws + hl + cc] =
+            s < S && c < C ? vin_b[(size_t)s * C + c] : NEG;
+      }
+      __syncthreads();
+
+      for (int k = 0; k < n_e; ++k) {
+        const int e = hi - 1 - k;
+        // the halos hold at most hu rows and hl columns: clamp (the host
+        // checks max Y <= u_max on CPU inputs, as the JAX kernel clamps)
+        const int u = min(max(ups_b[e], 0), hu > 0 ? hu : S);
+        const int off = hl > 0 ? min(offs[e], hl) : offs[e];
+        const int sg = sig_b[e];
+        const bool on = alw_b == nullptr || alw_b[e] != 0;
+        const int* feas_e = feas + (size_t)e * C;
+        unsigned* word = words_b + (size_t)(e >> 5) * SC;
+        const unsigned bit = 1u << (e & 31);
+
+        if (hl > 0) {  // left halo for edge k, then this tile's boundary
+          int* lh = lefth_b + (size_t)k * bs * hl;
+          for (int t = threadIdx.x; t < bs * hl; t += blockDim.x) {
+            const int r = t / hl;
+            const int q = t - r * hl;
+            if (tj > 0) sm[(hu + r) * ws + q] = lh[t];
+            lh[t] = sm[(hu + r) * ws + bc + q];
+          }
+        }
+        if (hu > 0) {  // up halo (with the up-left corner) for edge k
+          const int* up = rowh_rd + (size_t)k * hu * C;
+          int* mine = rowh_wr + (size_t)k * hu * C;
+          if (ti > 0) {
+            for (int t = threadIdx.x; t < hu * ws; t += blockDim.x) {
+              const int r = t / ws;
+              const int q = t - r * ws;
+              const int c = c0 - hl + q;
+              if (c >= 0 && c < C) sm[r * ws + q] = up[(size_t)r * C + c];
+            }
+          }
+          for (int t = threadIdx.x; t < hu * bc; t += blockDim.x) {
+            const int r = t / bc;
+            const int cc = t - r * bc;
+            if (c0 + cc < C) {
+              mine[(size_t)r * C + c0 + cc] = sm[(bs + r) * ws + hl + cc];
+            }
+          }
+        }
+        __syncthreads();
+
+        for (int top = body; top > 0; top -= chunk) {
+          const int bot = max(top - chunk, 0);
+          int staged[ITEMS];
+#pragma unroll
+          for (int it = 0; it < ITEMS; ++it) {
+            const int t = bot + it * blockDim.x + threadIdx.x;
+            if (t < top) {
+              const int r = t / bc;
+              const int cc = t - r * bc;
+              const int s = s0 + r;
+              const int c = c0 + cc;
+              const int pos = (hu + r) * ws + hl + cc;
+              const int v = sm[pos];
+              int nv = v;
+              if (s < S && c < C) {
+                int take = NEG;
+                if (on && c >= off && feas_e[c] != 0) {
+                  const int rr = ti == 0 ? max(r - u, 0) : r - u;
+                  take = sm[(hu + rr) * ws + hl + cc - off] + sg;
+                }
+                if (take > v) {
+                  nv = take;
+                  word[(size_t)s * C + c] |= bit;
+                }
+              }
+              staged[it] = nv;
+            }
+          }
+          __syncthreads();  // every read of this chunk precedes its writes
+#pragma unroll
+          for (int it = 0; it < ITEMS; ++it) {
+            const int t = bot + it * blockDim.x + threadIdx.x;
+            if (t < top) {
+              const int r = t / bc;
+              sm[(hu + r) * ws + hl + (t - r * bc)] = staged[it];
+            }
+          }
+        }
+        __syncthreads();  // the next edge reads the whole updated tile
+      }
+
+      for (int t = threadIdx.x; t < body; t += blockDim.x) {
+        const int r = t / bc;
+        const int cc = t - r * bc;
+        const int s = s0 + r;
+        const int c = c0 + cc;
+        if (s < S && c < C) {
+          vout_b[(size_t)s * C + c] = sm[(hu + r) * ws + hl + cc];
+        }
+      }
+      __syncthreads();  // the next tile reuses the scratch
+    }
+  }
 }
 
 __global__ void __launch_bounds__(EPI_THREADS)
@@ -183,8 +382,9 @@ dp_epilogue_kernel(const int* __restrict__ vout,
 
 extern "C" {
 
-// Forward for B instances, one block each.  alw may be null (every edge
-// allowed).  Returns the cudaError_t of the launch (0 on success).
+// Whole-plane forward for B instances, one block each.  In every launcher
+// alw may be null (every edge allowed), and the return value is the
+// cudaError_t of the launch (0 on success).
 int dp_forward_launch(const int* ups, const int* sig, const int* alw,
                       const int* feas, const int* offs, const int* v0,
                       int* vout, unsigned* words, int B, int E, int S, int C,
@@ -198,6 +398,38 @@ int dp_forward_launch(const int* ups, const int* sig, const int* alw,
   }
   dp_forward_kernel<<<B, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       ups, sig, alw, feas, offs, v0, vout, words, E, S, C);
+  return (int)cudaGetLastError();
+}
+
+int dp_edge_launch(const int* ups, const int* sig, const int* alw,
+                   const int* feas, const int* offs, const int* vin,
+                   int vin_stride, int* vout, unsigned* words, int B, int E,
+                   int S, int C, int e, void* stream) {
+  const dim3 grid((S * C + EDGE_THREADS - 1) / EDGE_THREADS, B);
+  dp_edge_kernel<<<grid, EDGE_THREADS, 0, (cudaStream_t)stream>>>(
+      ups, sig, alw, feas, offs, vin, vin_stride, vout, words, E, S, C, e);
+  return (int)cudaGetLastError();
+}
+
+// Fused forward of edges hi-1 ... lo for B instances, one block each, on
+// (bs, bc) tiles with hu halo rows and hl halo columns (0 when the plane
+// has one S-tile / one C-tile).  rowh holds B * 2 * (hi-lo) * hu * C ints,
+// lefth B * (hi-lo) * bs * hl.
+int dp_chunk_launch(const int* ups, const int* sig, const int* alw,
+                    const int* feas, const int* offs, const int* vin,
+                    int vin_stride, int* vout, unsigned* words, int* rowh,
+                    int* lefth, int B, int E, int S, int C, int lo, int hi,
+                    int hu, int hl, int bs, int bc, void* stream) {
+  const size_t smem = (size_t)(hu + bs) * (hl + bc) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dp_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dp_chunk_kernel<<<B, FWD_THREADS, smem, (cudaStream_t)stream>>>(
+      ups, sig, alw, feas, offs, vin, vin_stride, vout, words, rowh, lefth, E,
+      S, C, lo, hi, hu, hl, bs, bc);
   return (int)cudaGetLastError();
 }
 

@@ -1,52 +1,44 @@
-"""Wrappers of the budgeted-DP CUDA kernels (``csrc/budgeted_dp.cu``).
+"""Wrappers of the budgeted-DP CUDA kernels (``csrc/budgeted_dp.cu``) and
+the host loops of the tiled forwards.
 
-``dp_forward`` is the counterpart of the JAX package's
-``dp_forward_pallas`` (Pallas kernel ``_dp_kernel``, K1): one instance,
-``allowed`` already folded into the feasibility plane.
-``dp_forward_batched`` is the counterpart of ``dp_forward_pallas_batched``
-(``_dp_kernel_batched``, K2): B instances in ONE launch with shared
-feasibility/offsets/v0 and per-instance ``allowed`` masked in the kernel.
+Every forward is batch-first, B ≥ 1 instances with shared feasibility,
+offsets and seed plane and per-instance Υ̂, Σ̂² and ``allowed`` (masked in
+the kernel):
+
+- ``dp_forward_batched``: the whole plane in one block's shared memory,
+  one launch for all E edges (counterpart of the JAX package's
+  ``_dp_kernel`` at B = 1 and ``_dp_kernel_batched``, K1/K2);
+- ``dp_forward_blocked``: one ``dp_edge`` launch per edge, one thread per
+  cell, the plane ping-ponged between two buffers in device memory
+  (``_edge_tile_kernel``/``_edge_stile_kernel`` scanned by
+  ``_dp_forward_blocked``, K3);
+- ``dp_forward_fused``: one ``dp_chunk`` launch per chunk of ``block_e``
+  edges; each block walks its instance's tiles in row-major order with the
+  tile in shared memory (``_fused_chunk_kernel``, K4, and
+  ``_batched_fused_kernel``, K5).
+
 ``dp_epilogue`` runs the eq.-17 s* rule and the backtrack on the card.
+``tiling.choose_tiling`` picks the pipeline and its tiles.
 
-A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
-CUDA tensor launches the kernel or raises — there is no fallback.  Each
-wrapper counts its launches in ``LAUNCHES``.
-
-The whole plane must fit one block's shared memory (``smem_bytes``);
-larger planes need the blocked and edge-fused pipelines (the JAX
-package's K3–K5), which are not ported yet, and raise ``ValueError``.
+A tensor on the CPU goes to the plain PyTorch version in ``ref.py``, under
+the same host loop (chunk loop, ping-pong, word zeroing); a CUDA tensor
+launches the kernel or raises — there is no fallback.  Each wrapper counts
+its launches in ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, ref, tiling
 from .ref import packed_words
 
-__all__ = ["SMEM_LIMIT_BYTES", "LAUNCHES", "smem_bytes", "dp_forward",
-           "dp_forward_batched", "dp_epilogue", "packed_words"]
-
-# dynamic shared memory one block may use on sm_90 (227 KB)
-SMEM_LIMIT_BYTES = 232448
+__all__ = ["LAUNCHES", "dp_forward_batched", "dp_edge", "dp_chunk",
+           "dp_forward_blocked", "dp_forward_fused", "dp_epilogue",
+           "packed_words"]
 
 # launches of each CUDA kernel wrapper (plain-version calls are not counted)
-LAUNCHES = {"dp_forward": 0, "dp_forward_batched": 0, "dp_epilogue": 0}
-
-
-def smem_bytes(S: int, C: int) -> int:
-    """Shared memory of the forward kernel: the (S, C) int32 plane."""
-    return 4 * S * C
-
-
-def _gate(S: int, C: int) -> None:
-    need = smem_bytes(S, C)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"the ({S}, {C}) value plane needs {need} bytes of shared memory, "
-            f"over the {SMEM_LIMIT_BYTES}-byte limit of one block; planes "
-            "this large need the blocked and edge-fused pipelines (the JAX "
-            "package's _edge_tile_kernel/_fused_chunk_kernel/"
-            "_batched_fused_kernel), which are not ported yet")
+LAUNCHES = {"dp_forward_batched": 0, "dp_edge": 0, "dp_chunk": 0,
+            "dp_epilogue": 0}
 
 
 def _check(name, t, shape, device):
@@ -61,66 +53,230 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = build.load().dp_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _forward(upsilon, sigma2, allowed, feasible, offsets, v0, counter):
+def _check_operands(upsilon, sigma2, allowed, feasible, offsets, S, C, dev):
     B, E = upsilon.shape
-    S, C = v0.shape
-    dev = v0.device
     _check("upsilon", upsilon, (B, E), dev)
     _check("sigma2", sigma2, (B, E), dev)
     if allowed is not None:
         _check("allowed", allowed, (B, E), dev)
     _check("feasible", feasible, (E, C), dev)
     _check("offsets", offsets, (E,), dev)
+    return B, E
+
+
+def _check_planes(vin, vout, words, B, E, dev):
+    """``vin`` is (S, C), shared by the batch, or (B, S, C); returns
+    (S, C, the batch stride of ``vin`` in elements)."""
+    S, C = vout.shape[-2:]
+    _check("vout", vout, (B, S, C), dev)
+    _check("words", words, (B, packed_words(E), S, C), dev)
+    _check("vin", vin, (S, C) if vin.dim() == 2 else (B, S, C), dev)
+    return S, C, 0 if vin.dim() == 2 else S * C
+
+
+def _device(dev) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = build.load().dp_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def dp_forward_batched(upsilon, sigma2, allowed, feasible, offsets, v0):
+    """B whole-plane DP forwards in one launch (K1's counterpart at B = 1,
+    K2's for a fleet).
+
+    ``upsilon``/``sigma2`` (B, E) int32 and ``allowed`` (B, E) int32 0/1
+    or ``None`` per instance; ``feasible`` (E, C), ``offsets`` (E,) and
+    ``v0`` (S, C) int32 shared.  Returns ``V`` (B, S, C) and the words
+    (B, ⌈E/32⌉, S, C), int32.  Raises ``ValueError`` when the plane does
+    not fit one block's shared memory.
+    """
+    S, C = v0.shape
+    dev = v0.device
+    B, E = _check_operands(upsilon, sigma2, allowed, feasible, offsets, S, C,
+                           dev)
     _check("v0", v0, (S, C), dev)
-    _gate(S, C)
+    tiling.check_tiling(S, C, 0, 0, None, None, None)
     if dev.type == "cpu":
         return ref.dp_forward_ref(upsilon, sigma2, allowed, feasible,
                                   offsets, v0)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    _device(dev)
     V = torch.empty((B, S, C), dtype=torch.int32, device=dev)
     words = torch.empty((B, packed_words(E), S, C), dtype=torch.int32,
                         device=dev)
     with torch.cuda.device(dev):  # the library launches on the current one
         err = build.load().dp_forward_launch(
-            upsilon.data_ptr(), sigma2.data_ptr(),
-            None if allowed is None else allowed.data_ptr(),
+            upsilon.data_ptr(), sigma2.data_ptr(), _ptr(allowed),
             feasible.data_ptr(), offsets.data_ptr(), v0.data_ptr(),
             V.data_ptr(), words.data_ptr(), B, E, S, C,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_forward")
-    LAUNCHES[counter] += 1
+    _raise_on(err, "dp_forward_batched")
+    LAUNCHES["dp_forward_batched"] += 1
     return V, words
 
 
-def dp_forward(upsilon, sigma2, feasible, offsets, v0):
-    """One DP forward (K1's counterpart).
+def dp_edge(vin, vout, words, upsilon, sigma2, allowed, feasible, offsets, e):
+    """Edge ``e`` over the plane, one launch of the per-edge kernel (K3's
+    counterpart): one thread per cell reads ``vin`` ((S, C) shared or
+    (B, S, C)) and writes ``vout`` (B, S, C), and ORs bit e % 32 into word
+    e // 32 of ``words`` (B, ⌈E/32⌉, S, C).  ``vout`` must not be
+    ``vin``.  The halos are reads of ``vin``, so no tiling shapes it."""
+    dev = vout.device
+    B, E = _check_operands(upsilon, sigma2, allowed, feasible, offsets,
+                           vout.shape[-2], vout.shape[-1], dev)
+    S, C, vin_stride = _check_planes(vin, vout, words, B, E, dev)
+    if not 0 <= e < E:
+        raise ValueError(f"edge {e} outside [0, {E})")
+    if vin.data_ptr() == vout.data_ptr():
+        raise ValueError("dp_edge reads vin while it writes vout: pass two "
+                         "buffers")
+    if dev.type == "cpu":
+        V, _ = ref.dp_edge_ref(vin, words, upsilon, sigma2, allowed,
+                               feasible, offsets, e)
+        vout.copy_(V)
+        return vout, words
+    _device(dev)
+    with torch.cuda.device(dev):
+        err = build.load().dp_edge_launch(
+            upsilon.data_ptr(), sigma2.data_ptr(), _ptr(allowed),
+            feasible.data_ptr(), offsets.data_ptr(), vin.data_ptr(),
+            vin_stride, vout.data_ptr(), words.data_ptr(), B, E, S, C, e,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "dp_edge")
+    LAUNCHES["dp_edge"] += 1
+    return vout, words
 
-    ``upsilon``/``sigma2``/``offsets`` (E,) int32, ``feasible`` (E, C)
-    int32 0/1 with the slot's eligibility already folded in, ``v0``
-    (S, C) int32.  Returns ``V`` (S, C) int32 and the packed decision
-    words (⌈E/32⌉, S, C) int32 — bit e % 32 of word e // 32 is edge e.
+
+def dp_chunk(
+    vin,
+    vout,
+    words,
+    upsilon,
+    sigma2,
+    allowed,
+    feasible,
+    offsets,
+    lo: int,
+    hi: int,
+    *,
+    u_max: int,
+    off_max: int,
+    block_s,
+    block_c: int,
+):
+    """Edges ``hi−1 … lo`` over the plane, one launch of the fused kernel
+    (K4's counterpart at B = 1, K5's for a fleet).
+
+    One block per instance walks its tiles in row-major order; each tile
+    stays in shared memory for the whole chunk, and the neighbours'
+    boundaries before each edge come from history buffers in device memory
+    that this wrapper allocates.  Reads ``vin`` ((S, C) shared or
+    (B, S, C)), writes ``vout`` (B, S, C) — which may be ``vin`` — and ORs
+    each edge's bit into its word of ``words``.  ``u_max`` ≥ max Υ̂ and
+    ``off_max`` ≥ max offsets size the halos (the kernel clamps at them).
     """
-    V, words = _forward(upsilon[None], sigma2[None], None, feasible, offsets,
-                        v0, "dp_forward")
-    return V[0], words[0]
+    dev = vout.device
+    B, E = _check_operands(upsilon, sigma2, allowed, feasible, offsets,
+                           vout.shape[-2], vout.shape[-1], dev)
+    S, C, vin_stride = _check_planes(vin, vout, words, B, E, dev)
+    if not 0 <= lo < hi <= E:
+        raise ValueError(f"edge chunk [{lo}, {hi}) outside [0, {E})")
+    tiling.check_tiling(S, C, u_max, off_max, hi - lo, block_s, block_c)
+    if dev.type == "cpu":
+        V, _ = ref.dp_chunk_ref(vin, words, upsilon, sigma2, allowed,
+                                feasible, offsets, lo, hi)
+        vout.copy_(V)
+        return vout, words
+    _device(dev)
+    bs = S if block_s is None else min(block_s, S)
+    bc = min(block_c, C)
+    halo_rows = u_max if bs < S else 0
+    halo_cols = off_max if bc < C else 0
+    n_e = hi - lo
+    # per instance: rowh (2 S-row banks, n_e, halo_rows, C) and lefth
+    # (n_e, bs, halo_cols); a size of 0 still gets one element
+    rowh = torch.empty(max(B * 2 * n_e * halo_rows * C, 1),
+                       dtype=torch.int32, device=dev)
+    lefth = torch.empty(max(B * n_e * bs * halo_cols, 1), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        err = build.load().dp_chunk_launch(
+            upsilon.data_ptr(), sigma2.data_ptr(), _ptr(allowed),
+            feasible.data_ptr(), offsets.data_ptr(), vin.data_ptr(),
+            vin_stride, vout.data_ptr(), words.data_ptr(), rowh.data_ptr(),
+            lefth.data_ptr(), B, E, S, C, lo, hi, halo_rows, halo_cols, bs,
+            bc, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "dp_chunk")
+    LAUNCHES["dp_chunk"] += 1
+    return vout, words
 
 
-def dp_forward_batched(upsilon, sigma2, allowed, feasible, offsets, v0):
-    """B DP forwards in one launch (K2's counterpart).
+def _zero_words(B, E, S, C, dev):
+    return torch.zeros((B, packed_words(E), S, C), dtype=torch.int32,
+                       device=dev)
 
-    ``upsilon``/``sigma2``/``allowed`` (B, E) int32 per instance;
-    ``feasible`` (E, C), ``offsets`` (E,) and ``v0`` (S, C) int32 shared.
-    Returns ``V`` (B, S, C) and the words (B, ⌈E/32⌉, S, C), int32.
-    """
-    return _forward(upsilon, sigma2, allowed, feasible, offsets, v0,
-                    "dp_forward_batched")
+
+def dp_forward_blocked(upsilon, sigma2, allowed, feasible, offsets, v0):
+    """The per-edge pipeline: E ``dp_edge`` launches, edges E−1 … 0, from
+    the shared plane ``v0`` (S, C) through two (B, S, C) buffers in turn.
+    The words are zeroed once.  Returns ``V`` and the words as
+    :func:`dp_forward_batched` does."""
+    B, E = upsilon.shape
+    S, C = v0.shape
+    dev = v0.device
+    words = _zero_words(B, E, S, C, dev)
+    if E == 0:
+        return v0.expand(B, S, C).contiguous(), words
+    bufs = [torch.empty((B, S, C), dtype=torch.int32, device=dev)
+            for _ in range(min(E, 2))]
+    V = v0
+    for n, e in enumerate(range(E - 1, -1, -1)):
+        V, words = dp_edge(V, bufs[n % 2], words, upsilon, sigma2, allowed,
+                           feasible, offsets, e)
+    return V, words
+
+
+def dp_forward_fused(
+    upsilon,
+    sigma2,
+    allowed,
+    feasible,
+    offsets,
+    v0,
+    *,
+    u_max: int,
+    off_max: int,
+    block_e: int,
+    block_s,
+    block_c: int,
+):
+    """The edge-fused pipeline: ⌈E/block_e⌉ ``dp_chunk`` launches, edges
+    E−1 … 0 in chunks of ``block_e`` (the last chunk may be shorter), the
+    first reading ``v0`` and each writing one (B, S, C) plane in place.
+    The words are zeroed once; a chunk that straddles a word boundary
+    writes both words.  Returns ``V`` and the words."""
+    B, E = upsilon.shape
+    S, C = v0.shape
+    dev = v0.device
+    words = _zero_words(B, E, S, C, dev)
+    if E == 0:
+        return v0.expand(B, S, C).contiguous(), words
+    V = torch.empty((B, S, C), dtype=torch.int32, device=dev)
+    vin = v0
+    for hi in range(E, 0, -block_e):
+        dp_chunk(vin, V, words, upsilon, sigma2, allowed, feasible, offsets,
+                 max(hi - block_e, 0), hi, u_max=u_max, off_max=off_max,
+                 block_s=block_s, block_c=block_c)
+        vin = V
+    return V, words
 
 
 def dp_epilogue(V, words, upsilon, offsets, s_limit, full_state: int):
@@ -144,8 +300,7 @@ def dp_epilogue(V, words, upsilon, offsets, s_limit, full_state: int):
     if dev.type == "cpu":
         return ref.dp_epilogue_ref(V, words, upsilon, offsets, s_limit,
                                    full_state)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    _device(dev)
     x = torch.empty((B, E), dtype=torch.int32, device=dev)
     s_star = torch.empty((B,), dtype=torch.int32, device=dev)
     value_row = torch.empty((B, S), dtype=torch.int32, device=dev)

@@ -1,16 +1,19 @@
 """ESDP Algorithm 2 on the budgeted-DP kernels: operands, checks, solves.
 
 Counterpart of the JAX package's ``kernels/budgeted_dp/ops.py`` (its
-``WarmPallasSolver`` waits for the incremental re-solve slice).  A solve
-is two launches on the card — the forward (``kernel.dp_forward`` for one
-instance, ``kernel.dp_forward_batched`` for a fleet) and the epilogue
-(``kernel.dp_epilogue``: s*, backtrack, value row) — with no host sync.
+``WarmPallasSolver`` waits for the incremental re-solve slice).
+``solve_budgeted_dp_batched`` is the one solve entry point, batch-first
+(B ≥ 1): the forward — the whole-plane kernel, or the fused or per-edge
+pipeline on tiles when the plane outgrows one block's shared memory
+(``tiling.choose_tiling``) — then the epilogue (``kernel.dp_epilogue``:
+s*, backtrack, value row), with no host sync.
 
 VALUE_BOUND: the int32 plane with ``core.dp.NEG = -2**29`` is exact while
 every DP partial sum stays below 2²⁹ (NEG-seeded chains then stay
-negative).  The bound is checked for CPU inputs only, where it costs no
-device sync; ``tests/test_torch_budgeted_dp.py`` pins the default
-schedules under it for the card.
+negative).  This bound, and ``max Υ̂ ≤ u_max``, are checked for CPU inputs
+only, where they cost no device sync; ``tests/test_torch_budgeted_dp.py``
+and ``tests/test_torch_tiling.py`` pin the default schedules under both
+for the card.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ import torch
 
 from ...core import dp as core_dp
 from ...core.dp import DPTables
-from .kernel import dp_epilogue, dp_forward, dp_forward_batched
+from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
+                     dp_forward_fused)
+from .tiling import check_tiling, choose_tiling
 
 __all__ = ["VALUE_BOUND", "prepare_tables", "max_achievable_value",
-           "validate_value_row", "solve_budgeted_dp_kernel",
-           "solve_budgeted_dp_batched"]
+           "validate_value_row", "solve_budgeted_dp_batched"]
 
 VALUE_BOUND = 2 ** 29  # int32 plane: NEG + any partial sum stays negative
 
@@ -89,6 +93,13 @@ def prepare_tables(tables: DPTables):
 
 
 @functools.lru_cache(maxsize=32)
+def _off_max(tables: DPTables) -> int:
+    """The largest kernel offset: the left-halo width of a tiled plane."""
+    offs = prepare_tables(tables)[1]
+    return int(offs.max()) if offs.size else 0
+
+
+@functools.lru_cache(maxsize=32)
 def _operands(tables: DPTables, s_cap: int, device: torch.device):
     """(feasible, offsets, v0) on ``device``, made once per tables object,
     height and device."""
@@ -131,54 +142,100 @@ def _check_value_bound(sigma2, tables: DPTables) -> None:
             "can no longer tell NEG-seeded chains from values. Rescale Σ̂².")
 
 
+def _check_u_max(upsilon, u_max: int) -> None:
+    """The fused kernel clamps Υ̂ at u_max, the height of its up halo, which
+    would corrupt values silently if any Υ̂ exceeded it: a CPU input that
+    breaks the bound raises (a CUDA one is not read back, which would
+    sync; ``stats.u_max_for_horizon`` bounds the default schedules)."""
+    if upsilon.device.type != "cpu" or upsilon.numel() == 0:
+        return
+    top = int(upsilon.max())
+    if top > u_max:
+        raise ValueError(
+            f"max Υ̂ = {top} exceeds u_max = {u_max}: the shift scratch is "
+            "too short and the kernel would clamp (wrong values). Pass "
+            "u_max ≥ max Υ̂ (stats.u_max_for_horizon bounds the default "
+            "schedules) or leave u_max=None.")
+
+
 def _s_limit(s_limit, B: int, device) -> torch.Tensor:
     s_limit = torch.as_tensor(s_limit, device=device).to(torch.int32)
     return s_limit.reshape(-1).expand(B).contiguous()
 
 
-def solve_budgeted_dp_kernel(
-    upsilon, sigma2, tables: DPTables, s_cap: int, s_limit, allowed=None
-):
-    """One solve through the single-instance forward (K1's counterpart).
-
-    Same contract as ``core.dp.solve_budgeted_dp`` for (E,) int32
-    statistics; returns ``(x, {"s_star", "value_row"})`` with the value
-    row NEG at budget-infeasible entries.  ``allowed`` (E,) bool is folded
-    into the feasibility plane before the launch.
-    """
-    dev = upsilon.device
-    _check_value_bound(sigma2, tables)
-    feas, offs, v0 = _operands(tables, s_cap, dev)
-    if allowed is not None:
-        feas = feas * allowed.to(torch.int32)[:, None]
-    ups = upsilon.to(torch.int32).contiguous()
-    V, words = dp_forward(ups, sigma2.to(torch.int32).contiguous(), feas,
-                          offs, v0)
-    x, s_star, row = dp_epilogue(V[None], words[None], ups[None], offs,
-                                 _s_limit(s_limit, 1, dev), tables.full_state)
-    return x[0], {"s_star": s_star[0], "value_row": row[0]}
-
-
 def solve_budgeted_dp_batched(
-    upsilon, sigma2, tables: DPTables, s_cap: int, s_limit, allowed=None
+    upsilon,
+    sigma2,
+    tables: DPTables,
+    s_cap: int,
+    s_limit,
+    u_max=None,
+    allowed=None,
+    block_c="auto",
+    block_s=None,
+    block_e=None,
 ):
-    """B solves against shared tables in ONE forward launch (K2's
-    counterpart) and one epilogue launch.
+    """B solves against shared tables: one forward (one launch, or one per
+    chunk or edge on a tiled plane) and one epilogue launch.
 
     ``upsilon``/``sigma2`` (B, E) int32, ``s_limit`` scalar or (B,),
-    ``allowed`` optional (B, E) bool — multiplied into the mask inside
-    the kernel.  Returns ``(x (B, E), {"s_star": (B,), "value_row":
-    (B, S)})``, bit-equal to a per-instance loop over the reference.
+    ``allowed`` optional (B, E) bool — multiplied into the mask inside the
+    kernel.  ``u_max`` bounds max Υ̂ and sets the up-halo height of a tiled
+    plane; ``None`` means ``s_cap + 1``.
+
+    The tiling knobs are the JAX package's: ``block_c="auto"`` (default)
+    picks ``(block_e, block_s, block_c)`` with ``tiling.choose_tiling`` —
+    the whole plane when it fits one block's shared memory, else the fused
+    pipeline, else the per-edge one — and raises if another knob was
+    forced.  ``block_c=None`` forces the whole plane (``ValueError`` when
+    it does not fit); an int forces the per-edge pipeline (``block_e=None``,
+    B = 1 only) or the fused one (``block_e`` in [1, 32]); ``block_s=None``
+    is a full-height tile.  The card runs one block per instance on every
+    pipeline, so the JAX package's ``block_b`` has no counterpart.
+
+    Returns ``(x (B, E), {"s_star": (B,), "value_row": (B, S)})``,
+    bit-equal to a per-instance loop over the reference for every legal
+    tiling.
     """
     dev = upsilon.device
     B, E = upsilon.shape
+    S, C = s_cap + 1, tables.n_states
     _check_value_bound(sigma2, tables)
+    u_max = s_cap + 1 if u_max is None else int(u_max)
+    _check_u_max(upsilon, u_max)
     feas, offs, v0 = _operands(tables, s_cap, dev)
-    alw = (torch.ones((B, E), dtype=torch.int32, device=dev)
-           if allowed is None else allowed.to(torch.int32).contiguous())
+    off_max = _off_max(tables)
+    if block_c == "auto":
+        forced = next((name for name, val in (("block_s", block_s),
+                                              ("block_e", block_e))
+                       if val is not None and val != "auto"), None)
+        if forced is not None:
+            raise ValueError(
+                f'{forced} was forced but block_c is "auto": the auto '
+                "tiling would overwrite it — pass a concrete block_c "
+                "(e.g. the number of capacity states for a single "
+                "full-width tile)")
+        block_e, block_s, block_c = choose_tiling(S, C, E, u_max, off_max)
+    if block_c is not None and block_e is None and B > 1:
+        raise ValueError(
+            "batched dispatch supports the whole-plane kernel "
+            "(block_c=None) and the edge-fused pipeline (block_e set); the "
+            "per-edge-scan pipelines re-stream the plane once per edge and "
+            "gain nothing from sharing a launch — run those instances "
+            "sequentially instead")
+    check_tiling(S, C, u_max, off_max, block_e, block_s, block_c)
     ups = upsilon.to(torch.int32).contiguous()
-    V, words = dp_forward_batched(ups, sigma2.to(torch.int32).contiguous(),
-                                  alw, feas, offs, v0)
+    sig = sigma2.to(torch.int32).contiguous()
+    alw = None if allowed is None else allowed.to(torch.int32).contiguous()
+    args = (ups, sig, alw, feas, offs, v0)
+    if block_c is None:
+        V, words = dp_forward_batched(*args)
+    elif block_e is None:
+        V, words = dp_forward_blocked(*args)
+    else:
+        V, words = dp_forward_fused(*args, block_e=block_e, u_max=u_max,
+                                    off_max=off_max, block_s=block_s,
+                                    block_c=block_c)
     x, s_star, row = dp_epilogue(V, words, ups, offs,
                                  _s_limit(s_limit, B, dev), tables.full_state)
     return x, {"s_star": s_star, "value_row": row}

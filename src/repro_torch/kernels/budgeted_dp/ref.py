@@ -1,10 +1,14 @@
 """Plain PyTorch versions of the budgeted-DP kernels.
 
-``dp_forward_ref`` is the forward that ``csrc/budgeted_dp.cu`` computes
-(the counterpart of the JAX package's ``dp_forward_ref`` and of its
-Pallas kernels ``_dp_kernel``/``_dp_kernel_batched``), in int32 with the
-capacity transition written as the uniform shift next(c) = c − offsets[e]
-and the decisions bit-packed: bit e % 32 of word e // 32 is edge e.
+``dp_edge_ref`` is one edge of the forward that ``csrc/budgeted_dp.cu``
+computes (the plain version of the per-edge kernel, the counterpart of
+the JAX package's ``_edge_tile_kernel``/``_edge_stile_kernel``), in int32
+with the capacity transition written as the uniform shift next(c) =
+c − offsets[e] and the decisions bit-packed: bit e % 32 of word e // 32 is
+edge e.  ``dp_chunk_ref`` is a chunk of edges (the fused kernel's,
+``_fused_chunk_kernel``/``_batched_fused_kernel``), and ``dp_forward_ref``
+all of them (the whole-plane kernel's, ``_dp_kernel``/
+``_dp_kernel_batched``; the JAX package's ``dp_forward_ref``).
 ``dp_epilogue_ref`` is the eq.-17 s* rule and the backtrack over the
 packed words (``ops._solve``'s epilogue in the JAX package).
 
@@ -17,7 +21,8 @@ import torch
 
 from ...core.dp import NEG
 
-__all__ = ["packed_words", "dp_forward_ref", "dp_epilogue_ref"]
+__all__ = ["packed_words", "dp_edge_ref", "dp_chunk_ref", "dp_forward_ref",
+           "dp_epilogue_ref"]
 
 
 def packed_words(n_edges: int) -> int:
@@ -25,41 +30,61 @@ def packed_words(n_edges: int) -> int:
     return (n_edges + 31) // 32
 
 
-def dp_forward_ref(upsilon, sigma2, allowed, feasible, offsets, v0):
-    """B DP forwards over edges E−1 … 0.
+def dp_edge_ref(V, words, upsilon, sigma2, allowed, feasible, offsets, e):
+    """Edge ``e`` on B planes.
 
-    ``upsilon``/``sigma2`` (B, E) int32; ``allowed`` (B, E) int32 0/1 or
-    ``None`` (every edge allowed); ``feasible`` (E, C) int32 0/1 and
-    ``offsets`` (E,) int32 are shared; ``v0`` (S, C) int32 seeds every
-    plane.  Returns ``V`` (B, S, C) int32 and the decision words
-    (B, ⌈E/32⌉, S, C) int32.
+    ``V`` (B, S, C) int32, or (S, C) shared by the batch; ``words``
+    (B, ⌈E/32⌉, S, C) int32, into which bit e % 32 of word e // 32 is ORed
+    in place; ``upsilon``/``sigma2`` (B, E) int32; ``allowed`` (B, E)
+    int32 0/1 or ``None`` (every edge allowed); ``feasible`` (E, C) int32
+    0/1 and ``offsets`` (E,) int32 shared.  Returns the new (B, S, C)
+    plane and ``words``.
 
-    Each edge: ``take = V[max(s−Υ̂_e, 0), c−off_e] + Σ̂²_e``, NEG where
-    ``c < off_e``, where the state is infeasible or the edge not allowed;
-    ``dec = take > V``; ``V = max(V, take)``.
+    ``take = V[max(s−Υ̂_e, 0), c−off_e] + Σ̂²_e``, NEG where ``c < off_e``,
+    where the state is infeasible or the edge not allowed;
+    ``dec = take > V``; ``V′ = max(V, take)``.
     """
-    B, E = upsilon.shape
-    S, C = v0.shape
-    dev = v0.device
+    B = upsilon.shape[0]
+    S, C = V.shape[-2:]
+    dev = V.device
+    V = V.expand(B, S, C)
     rows = torch.arange(S, device=dev)
     cols = torch.arange(C, device=dev)
-    V = v0.expand(B, S, C).clone()
-    words = torch.zeros((B, packed_words(E), S, C), dtype=torch.int32,
-                        device=dev)
-    for e in range(E - 1, -1, -1):
-        off = offsets[e]
-        src_s = torch.clamp(rows[None, :] - upsilon[:, e, None], min=0)
-        shifted = torch.gather(V, 1, src_s[:, :, None].expand(B, S, C))
-        take = shifted[:, :, torch.clamp(cols - off, min=0)]
-        take = take + sigma2[:, e, None, None]
-        live = ((feasible[e] > 0) & (cols >= off))[None, None, :]
-        if allowed is not None:
-            live = live & (allowed[:, e] > 0)[:, None, None]
-        take = torch.where(live, take, NEG)
-        dec = (take > V).to(torch.int32)
-        words[:, e // 32] |= dec << (e % 32)  # bit 31 wraps to the sign bit
-        V = torch.maximum(V, take)
+    off = offsets[e]
+    src_s = torch.clamp(rows[None, :] - upsilon[:, e, None], min=0)
+    shifted = torch.gather(V, 1, src_s[:, :, None].expand(B, S, C))
+    take = shifted[:, :, torch.clamp(cols - off, min=0)]
+    take = take + sigma2[:, e, None, None]
+    live = ((feasible[e] > 0) & (cols >= off))[None, None, :]
+    if allowed is not None:
+        live = live & (allowed[:, e] > 0)[:, None, None]
+    take = torch.where(live, take, NEG)
+    dec = (take > V).to(torch.int32)
+    words[:, e // 32] |= dec << (e % 32)  # bit 31 wraps to the sign bit
+    return torch.maximum(V, take), words
+
+
+def dp_chunk_ref(V, words, upsilon, sigma2, allowed, feasible, offsets, lo, hi):
+    """Edges ``hi−1 … lo`` of the fold from plane ``V`` ((B, S, C) or
+    shared (S, C)): :func:`dp_edge_ref` in turn, each edge's bit at its
+    global position.  Returns the (B, S, C) plane and ``words``."""
+    for e in range(hi - 1, lo - 1, -1):
+        V, words = dp_edge_ref(V, words, upsilon, sigma2, allowed, feasible,
+                               offsets, e)
     return V, words
+
+
+def dp_forward_ref(upsilon, sigma2, allowed, feasible, offsets, v0):
+    """B DP forwards over edges E−1 … 0 from the shared (S, C) plane
+    ``v0``: :func:`dp_chunk_ref` over all edges.  Returns ``V`` (B, S, C)
+    int32 and the decision words (B, ⌈E/32⌉, S, C) int32."""
+    B, E = upsilon.shape
+    S, C = v0.shape
+    words = torch.zeros((B, packed_words(E), S, C), dtype=torch.int32,
+                        device=v0.device)
+    V, words = dp_chunk_ref(v0, words, upsilon, sigma2, allowed, feasible,
+                            offsets, 0, E)
+    return V.expand(B, S, C).contiguous(), words
 
 
 def dp_epilogue_ref(V, words, upsilon, offsets, s_limit, full_state: int):

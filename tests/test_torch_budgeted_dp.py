@@ -1,12 +1,13 @@
 """The port's budgeted-DP kernel module on the CPU.
 
-``kernels/budgeted_dp``: the plain forward (``ref.py``) against the JAX
-package's Pallas kernels K1/K2 run with ``interpret=True`` and against the
-JAX int32 reference plane; the solve wrappers (forward + epilogue) against
-the JAX ``reference`` backend and 2^E brute force; the wrappers' checks,
-the shared-memory gate, the value bound and the nvcc command line.  On
-the CPU every wrapper runs its plain version.  Integer outputs must be
-bit-equal (tolerance 0).
+``kernels/budgeted_dp``: the plain whole-plane forward (``ref.py``)
+against the JAX package's Pallas kernels K1/K2 run with
+``interpret=True`` and against the JAX int32 reference plane; the solve
+wrapper (forward + epilogue) against the JAX ``reference`` backend and
+2^E brute force; the wrappers' checks, the shared-memory limit, the value
+bound and the nvcc command line.  On the CPU every wrapper runs its plain
+version.  Integer outputs must be bit-equal (tolerance 0).  The tiled
+pipelines are tested in ``test_torch_tiling.py``.
 """
 import pathlib
 
@@ -23,7 +24,7 @@ from repro.kernels.budgeted_dp.kernel import (dp_forward_pallas,
 from repro.kernels.budgeted_dp.ops import prepare_tables as jax_prepare
 from repro_torch.core import build_tables, generate_instance, stats
 from repro_torch.core.dp import NEG, initial_plane
-from repro_torch.kernels.budgeted_dp import build, kernel, ops, ref
+from repro_torch.kernels.budgeted_dp import build, kernel, ops, ref, tiling
 
 JAX_REF = jax_get_solver("reference")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -52,9 +53,11 @@ def _t(a):
 
 @pytest.mark.parametrize("E", [33, 40])
 def test_forward_ref_matches_pallas_k1_and_int32_plane(E):
-    """Words bit-equal to K1's; the plane bit-equal to the JAX int32
-    reference plane, and equal to K1's f32 plane wherever K1's is ≥ 0
-    (K1 seeds infeasible cells with −2²⁴, the port with −2²⁹)."""
+    """The batched forward at B = 1 with ``allowed`` masked in the kernel
+    (K1 takes it folded into the feasibility plane): words bit-equal to
+    K1's; the plane bit-equal to the JAX int32 reference plane, and equal
+    to K1's f32 plane wherever K1's is ≥ 0 (K1 seeds infeasible cells with
+    −2²⁴, the port with −2²⁹)."""
     _, A, c, ups, sig, alw = _problem(E, E)
     jt = jax_build_tables(A, c)
     S = 24
@@ -69,11 +72,11 @@ def test_forward_ref_matches_pallas_k1_and_int32_plane(E):
     Vj, Wj = np.asarray(Vj), np.asarray(Wj)
 
     feas_i, offs_t = ops.prepare_tables(build_tables(A, c))
-    V, W = kernel.dp_forward(_t(ups), _t(sig),
-                             _t(feas_i * alw.astype(np.int32)[:, None]),
-                             _t(offs_t), initial_plane(S - 1, jt.n_states, "cpu"))
-    np.testing.assert_array_equal(W.numpy(), Wj)
-    V = V.numpy()
+    V, W = kernel.dp_forward_batched(
+        _t(ups[None]), _t(sig[None]), _t(alw[None].astype(np.int32)),
+        _t(feas_i), _t(offs_t), initial_plane(S - 1, jt.n_states, "cpu"))
+    np.testing.assert_array_equal(W[0].numpy(), Wj)
+    V = V[0].numpy()
     np.testing.assert_array_equal(V >= 0, Vj >= 0)
     np.testing.assert_array_equal(V[V >= 0], Vj[V >= 0].astype(np.int32))
 
@@ -136,9 +139,10 @@ def _jax_solve(ups, sig, A, c, s_cap, s_limit, allowed):
 @pytest.mark.parametrize("seed", range(5))
 @pytest.mark.parametrize("large", [False, True], ids=["small", "2^24-2^29"])
 def test_kernel_solve_bit_equal_to_jax_reference(seed, large):
-    """``solve_budgeted_dp_kernel`` (K1 path) on CPU tensors: x, s* and the
-    value row bit-equal to the JAX int32 reference; ``large`` puts the DP
-    sums in [2²⁴, 2²⁹), beyond the Pallas kernel's f32 domain."""
+    """``solve_budgeted_dp_batched`` at B = 1 (the K1 path) on CPU
+    tensors: x, s* and the value row bit-equal to the JAX int32 reference;
+    ``large`` puts the DP sums in [2²⁴, 2²⁹), beyond the Pallas kernel's
+    f32 domain."""
     E = 6 + 2 * seed
     _, A, c, ups, sig, alw = _problem(300 + seed, E, K=3,
                                       sig_lo=2 ** 22 if large else 1,
@@ -147,12 +151,12 @@ def test_kernel_solve_bit_equal_to_jax_reference(seed, large):
     s_cap = int(ups.sum())
     s_limit = s_cap - seed
     want = _jax_solve(ups, sig, A, c, s_cap, s_limit, allowed)
-    x, info = ops.solve_budgeted_dp_kernel(
-        _t(ups), _t(sig), build_tables(A, c), s_cap, s_limit,
-        None if allowed is None else _t(allowed))
-    np.testing.assert_array_equal(x.numpy(), want[0])
-    assert int(info["s_star"]) == want[1]
-    np.testing.assert_array_equal(info["value_row"].numpy(), want[2])
+    x, info = ops.solve_budgeted_dp_batched(
+        _t(ups[None]), _t(sig[None]), build_tables(A, c), s_cap, s_limit,
+        allowed=None if allowed is None else _t(allowed[None]))
+    np.testing.assert_array_equal(x[0].numpy(), want[0])
+    assert int(info["s_star"][0]) == want[1]
+    np.testing.assert_array_equal(info["value_row"][0].numpy(), want[2])
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -166,7 +170,7 @@ def test_batched_solve_bit_equal_to_jax_reference_per_row(seed):
     slim = rng.integers(s_cap // 2, s_cap + 1, B).astype(np.int32)
     x, info = ops.solve_budgeted_dp_batched(_t(ups), _t(sig),
                                             build_tables(A, c), s_cap,
-                                            _t(slim), _t(alw))
+                                            _t(slim), allowed=_t(alw))
     for b in range(B):
         want = _jax_solve(ups[b], sig[b], A, c, s_cap, int(slim[b]), alw[b])
         np.testing.assert_array_equal(x[b].numpy(), want[0])
@@ -179,9 +183,9 @@ def test_kernel_solve_value_row_matches_bruteforce(seed):
     E = 7 + seed
     _, A, c, ups, sig, alw = _problem(500 + seed, E, K=2)
     s_cap = int(ups.sum())
-    _, info = ops.solve_budgeted_dp_kernel(_t(ups), _t(sig),
-                                           build_tables(A, c), s_cap, s_cap,
-                                           _t(alw))
+    _, info = ops.solve_budgeted_dp_batched(_t(ups[None]), _t(sig[None]),
+                                            build_tables(A, c), s_cap, s_cap,
+                                            allowed=_t(alw[None]))
     bits = (np.arange(2 ** E)[:, None] >> np.arange(E)[None, :]) & 1
     bits = bits[(bits <= alw.astype(np.int64)).all(axis=1)]
     bits = bits[(bits @ A.T <= c).all(axis=1)]
@@ -190,7 +194,7 @@ def test_kernel_solve_value_row_matches_bruteforce(seed):
                       bits @ sig.astype(np.int64)):
         want[:min(int(uu), s_cap) + 1] = np.maximum(
             want[:min(int(uu), s_cap) + 1], vv)
-    np.testing.assert_array_equal(info["value_row"].numpy(), want)
+    np.testing.assert_array_equal(info["value_row"][0].numpy(), want)
 
 
 def test_epilogue_no_feasible_budget_picks_zero():
@@ -214,36 +218,45 @@ def test_wrappers_check_dtype_shape_contiguity_and_count_no_cpu_launches():
     _, A, c, ups, sig, _ = _problem(7, 8)
     feas, offs = ops.prepare_tables(build_tables(A, c))
     v0 = initial_plane(9, feas.shape[1], "cpu")
+    ups, sig = _t(ups[None]), _t(sig[None])
     before = dict(kernel.LAUNCHES)
-    kernel.dp_forward(_t(ups), _t(sig), _t(feas), _t(offs), v0)
+    kernel.dp_forward_batched(ups, sig, None, _t(feas), _t(offs), v0)
     assert kernel.LAUNCHES == before  # the plain version counts nothing
     with pytest.raises(TypeError, match="int32"):
-        kernel.dp_forward(_t(ups).long(), _t(sig), _t(feas), _t(offs), v0)
+        kernel.dp_forward_batched(ups.long(), sig, None, _t(feas), _t(offs),
+                                  v0)
     with pytest.raises(ValueError, match="shape"):
-        kernel.dp_forward(_t(ups[:-1]), _t(sig), _t(feas), _t(offs), v0)
+        kernel.dp_forward_batched(ups[:, :-1], sig, None, _t(feas),
+                                  _t(offs), v0)
     with pytest.raises(ValueError, match="contiguous"):
-        kernel.dp_forward(_t(ups), _t(sig), _t(feas.T).T, _t(offs), v0)
+        kernel.dp_forward_batched(ups, sig, None, _t(feas.T).T, _t(offs),
+                                  v0)
 
 
 @pytest.mark.parametrize("c_hi,fits", [(2, True), (4, True), (6, False)])
 def test_shared_memory_gate_on_fig6_planes(c_hi, fits):
     """Fig.-6 capacity sweep at T = 2000: c_hi = 4 is a 160 KB plane that
-    fits one block; c_hi = 6 (402 KB) raises, naming the unported
-    blocked pipelines."""
+    fits one block and solves whole; c_hi = 6 (402 KB) solves on the
+    auto-tiled path, and a forced whole-plane solve of it
+    (``block_c=None``) raises."""
     inst = generate_instance(seed=2, c_lo=1, c_hi=c_hi)
     tables = build_tables(inst.A, inst.c)
     s_cap = stats.s_cap_for_horizon(2000, inst.m)
     S, C = s_cap + 1, tables.n_states
-    assert (kernel.smem_bytes(S, C) <= kernel.SMEM_LIMIT_BYTES) == fits
+    assert (tiling.whole_plane_smem_bytes(S, C)
+            <= tiling.SMEM_LIMIT_BYTES) == fits
     E = inst.n_edges
-    ups = torch.zeros(E, dtype=torch.int32)
-    sig = torch.ones(E, dtype=torch.int32)
+    ups = torch.zeros((1, E), dtype=torch.int32)
+    sig = torch.ones((1, E), dtype=torch.int32)
+    x, info = ops.solve_budgeted_dp_batched(ups, sig, tables, s_cap, s_cap)
+    assert x.shape == (1, E) and int(info["value_row"][0, 0]) >= 0
     if fits:
-        x, _ = ops.solve_budgeted_dp_kernel(ups, sig, tables, s_cap, s_cap)
-        assert x.shape == (E,)
+        ops.solve_budgeted_dp_batched(ups, sig, tables, s_cap, s_cap,
+                                      block_c=None)
     else:
-        with pytest.raises(ValueError, match="not ported"):
-            ops.solve_budgeted_dp_kernel(ups, sig, tables, s_cap, s_cap)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.solve_budgeted_dp_batched(ups, sig, tables, s_cap, s_cap,
+                                          block_c=None)
 
 
 def test_default_schedules_stay_under_value_bound():
@@ -270,8 +283,9 @@ def test_value_bound_overflow_raises_for_cpu_inputs():
     _, A, c, ups, sig, _ = _problem(8, 6)
     sig[0] = ops.VALUE_BOUND
     with pytest.raises(ValueError, match="2\\^29"):
-        ops.solve_budgeted_dp_kernel(_t(ups), _t(sig), build_tables(A, c),
-                                     int(ups.sum()), int(ups.sum()))
+        ops.solve_budgeted_dp_batched(_t(ups[None]), _t(sig[None]),
+                                      build_tables(A, c), int(ups.sum()),
+                                      int(ups.sum()))
 
 
 def test_max_achievable_value_topk():
