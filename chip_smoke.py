@@ -5,7 +5,8 @@
 Run from the root of a checkout (it imports ``repro_torch`` from
 ``src/``).  Phases, each asserted; any failure exits non-zero:
 
-1. build the budgeted-DP CUDA kernels with nvcc (timed);
+1. build the port's three CUDA libraries (budgeted DP, flash attention,
+   SSD scan), one nvcc each, all started together (timed);
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
@@ -28,16 +29,38 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    the solver registry without u_max on the c_hi = 6 plane at B = 1,
    which takes the per-edge forward; HSWF/LCF/LWTF with the quickstart's
    ASW lines;
-5. kernel and plain-version times at the main paths' shapes: each
+5. the attention kernel (K6) against its plain version on the card: the
+   six shapes of ``tests/test_kernels.py:28-58`` in f32 (tolerance 2e-5)
+   and bf16 (2e-2: the plain version rounds p to bf16 before p·v, the
+   kernel keeps it in f32), the Zamba2-7B serving shape in bf16 and a
+   ragged Sq < Sk case; the SSD kernel (K7) against its plain version on
+   the four shapes of ``tests/test_kernels.py:66-71`` and the serving
+   shape, both f32: each held to the plain version run in f64, within
+   1e-4 or twice the f32 plain version's own distance from it (at
+   Q = 128 f32 itself is ~1e-4 off);
+6. the serving path: FULL Zamba2-7B (5.7 B parameters, 81 layers) in
+   bf16, initialised on the card from a seed, ``greedy_generate`` of 32
+   tokens after a 2048-token prompt at batch 4, with every launch count
+   set to 0 just before and read just after — 13 flash-attention and 68
+   SSD launches for the prefill, none for the decode steps — then the
+   prefill and the decode timed apart, each with its counts; the
+   kernels' prefill logits against the plain versions' on the same
+   weights and tokens, in f32 (relative L2 ≤ 1e-3) and in bf16 (no
+   further from the f32 plain logits than the bf16 plain ones, within
+   50%);
+7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point (CUDA events around the same
    back-to-back launches, divided by their number, where the trace has no
-   device time), beside the least time the card could take.
+   device time), beside the least time the card could take and, for
+   attention, ``scaled_dot_product_attention``'s time on the same inputs
+   (a yardstick only: the port never calls it).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
 it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import pathlib
@@ -53,12 +76,18 @@ FLEET = 64
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 67e12  # the card's non-tensor 32-bit rate (FP32 table)
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 # int32 operations per plane cell and edge of a forward: the budget shift
 # (sub, max), the capacity shift (sub), the mask (two compares, and), the
 # add, the take > V compare, the max and the bit OR
 FWD_OPS_PER_CELL = 10
 SOURCE = "src/repro_torch/kernels/budgeted_dp/csrc/budgeted_dp.cu"
 TPU = "src/repro/kernels/budgeted_dp/"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+# the Zamba2-7B serving shape (configs/zamba2_7b.py FULL)
+SERVE_B, SERVE_S, SERVE_GEN = 4, 2048, 32
 
 
 def fail(msg):
@@ -159,6 +188,8 @@ def main():
     from repro_torch.core.dp import initial_plane
     from repro_torch.kernels.budgeted_dp import (build, kernel, ops, ref,
                                                  tiling)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nvcc, ssd
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -172,14 +203,21 @@ def main():
           "_dp_kernel_batched), dp_edge (K3 _edge_tile_kernel/"
           "_edge_stile_kernel), dp_chunk (K4 _fused_chunk_kernel at B = 1, "
           "K5 _batched_fused_kernel), dp_epilogue (s* + backtrack) from "
-          f"{SOURCE}", flush=True)
+          f"{SOURCE}; flash_attention (K6 _flash_kernel) from {FA_SOURCE}; "
+          f"ssd_scan (K7 _ssd_kernel) from {SSD_SOURCE}", flush=True)
+    # a reference states both: f32 products in full f32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ------------------------------------------------------------- build
-    t0 = phase("build")
-    lib_path = build.build()
-    build.load()
-    print(f"   built {lib_path.name} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = phase("build (one nvcc per library, all started together)")
+    libraries = (build.LIBRARY, fa.LIBRARY, ssd.LIBRARY)
+    nvcc.build_all(libraries)
+    for lib in libraries:
+        lib.load()
+        print(f"   {lib.path().name}", flush=True)
+    print(f"   built and loaded in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # ----------------------------------------------- kernels vs plain
     def instance(c_hi, seed):
@@ -383,12 +421,19 @@ def main():
     done(t0)
 
     # --------------------------------------------------------- main path
+    # every kernel wrapper's count: the budgeted DP's four, K6's and K7's
+    counters = (kernel.LAUNCHES, fa.LAUNCHES, ssd.LAUNCHES)
+
     def reset():
-        for k in kernel.LAUNCHES:
-            kernel.LAUNCHES[k] = 0
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counters for k, v in c.items()}
 
     def expect(counts, **want):
-        full = {k: 0 for k in kernel.LAUNCHES}
+        full = {k: 0 for k in read_counts()}
         full.update(want)
         return counts == full
 
@@ -400,7 +445,7 @@ def main():
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
-        counts = dict(kernel.LAUNCHES)
+        counts = read_counts()
         print(f"   launches {counts}; {wall:.2f} s, "
               f"{wall / slots * 1e3:.3f} ms per slot", flush=True)
         if not expect(counts, **want):
@@ -562,6 +607,284 @@ def main():
           f"simulate_batch mean {fleet6.asw[:, -1].mean():.1f}", flush=True)
     done(t0)
 
+    # --------------------------------------- attention and SSD vs plain
+    def rel_err(got, want):
+        """max |got − want| / (1 + |want|) over the elements, in f32."""
+        got, want = got.float(), want.float()
+        return float(((got - want).abs() / (1 + want.abs())).max())
+
+    def qkv(B, Sq, Sk, H, KH, hd, dtype, seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                                   (B, Sk, KH, hd)))
+
+    fa_worst = {"f32": 0.0, "bf16": 0.0}
+    worst_abs = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    t0 = phase("flash attention (K6) vs its plain version on the card")
+    # tests/test_kernels.py:28-58 as (B, Sq, Sk, H, KH, hd, causal,
+    # window), the serving shape, and a ragged Sq < Sk
+    fa_cases = [(2, 256, 256, 4, 4, 64, True, 0),
+                (1, 256, 256, 8, 2, 64, True, 0),
+                (2, 128, 128, 4, 1, 32, True, 0),
+                (1, 512, 512, 2, 2, 128, True, 128),
+                (2, 256, 256, 4, 4, 64, False, 0),
+                (1, 128, 512, 4, 4, 64, True, 0)]
+    fa_cases = ([(c, dt) for c in fa_cases for dt in ("f32", "bf16")]
+                + [((SERVE_B, SERVE_S, SERVE_S, 32, 32, 112, True, 0),
+                    "bf16"),
+                   ((2, 333, 1000, 8, 2, 112, True, 0), "bf16"),
+                   ((2, 333, 1000, 8, 2, 112, True, 0), "f32")])
+    tols = {"f32": 2e-5, "bf16": 2e-2}
+    for (B, Sq, Sk, H, KH, hd, causal, window), dt in fa_cases:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q, k, v = qkv(B, Sq, Sk, H, KH, hd, dtype, Sq + Sk + hd)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        fa_worst[dt] = max(fa_worst[dt], err)
+        worst_abs["flash_attention"] = max(
+            worst_abs["flash_attention"],
+            float((got.float() - want.float()).abs().max()))
+        print(f"   {dt} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} hd={hd} "
+              f"causal={causal} window={window}: max |kernel - plain| / "
+              f"(1 + |plain|) {err:.3g} (tolerance {tols[dt]})", flush=True)
+        if not err <= tols[dt]:
+            fail(f"flash attention {dt} {(B, Sq, Sk, H, KH, hd)} differs "
+                 "from its plain version")
+    del q, k, v, got, want
+    done(t0)
+
+    def ssd_inputs(B, S, H, P, N, seed):
+        """x, B and C as strided views of one (B, S, H·P + 2N) tensor, as
+        the Mamba2 block splits its conv output; dt post-softplus."""
+        g = torch.Generator(dev).manual_seed(seed)
+        xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=dev)
+        xs, Bm, Cm = xbc.split([H * P, N, N], dim=-1)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=g, device=dev))
+        A = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
+        return xs.reshape(B, S, H, P), dt, A, Bm, Cm
+
+    t0 = phase("SSD scan (K7) vs its plain version on the card")
+    # f32 cannot hold every shape to 1e-4: at Q = 128 the plain version
+    # itself is ~1e-4 from the exact answer.  So the kernel is held to
+    # the plain version run in f64 on the same inputs: within 1e-4 (the
+    # JAX tests' tolerance), or no more than twice as far from it as the
+    # plain version in f32
+    # tests/test_kernels.py:66-71 (the third pads 80 steps to chunks of
+    # 32) and the serving shape
+    for B, S, H, P, N, Q in ((2, 128, 2, 32, 16, 32), (1, 96, 4, 64, 32, 32),
+                             (2, 80, 2, 32, 16, 32), (1, 256, 2, 64, 64, 64),
+                             (SERVE_B, SERVE_S, 112, 64, 64, 128)):
+        args = ssd_inputs(B, S, H, P, N, S + H)
+        got = ssd.ssd_scan(*args, chunk=Q)
+        want = ssd.ssd_ref(*args, chunk=Q)
+        exact = ssd.ssd_ref(*(a.double() for a in args), chunk=Q)
+        torch.cuda.synchronize()
+        err = max(rel_err(a, b) for a, b in zip(got, want))
+        err_k = max(rel_err(a, b) for a, b in zip(got, exact))
+        err_p = max(rel_err(a, b) for a, b in zip(want, exact))
+        worst_abs["ssd_scan"] = max(
+            [worst_abs["ssd_scan"]] + [float((a - b).abs().max())
+                                       for a, b in zip(got, want)])
+        print(f"   B={B} S={S} H={H} P={P} N={N} Q={Q}, max over y and the "
+              "state of |a - b| / (1 + |b|): kernel - plain "
+              f"{err:.3g}; from the f64 plain version: kernel {err_k:.3g}, "
+              f"plain {err_p:.3g} (the kernel's tolerance "
+              f"{max(1e-4, 2 * err_p):.3g})", flush=True)
+        if not err_k <= max(1e-4, 2 * err_p):
+            fail(f"SSD scan {(B, S, H, P, N, Q)}: the kernel is {err_k:.3g} "
+                 f"from the f64 plain version, the f32 plain one {err_p:.3g}")
+    del args, got, want, exact
+    done(t0)
+
+    # ------------------------------------------------------ serving path
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import hybrid_layout
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime import (greedy_generate, make_decode_step,
+                                     make_prefill_step)
+
+    @contextlib.contextmanager
+    def plain_versions():
+        """The model's attention and SSD scan through their plain versions
+        on the card, for the comparison only."""
+        saved = attn_mod.chunked_attention, ssm_mod.ssd_chunked
+
+        def attention_plain(q, k, v, *, scale, causal=True, window=None, chunk=1024):
+            return fa.flash_attention_ref(q, k, v, scale=scale,
+                                          causal=causal, window=window or 0,
+                                          chunk=chunk)
+
+        attn_mod.chunked_attention = attention_plain
+        ssm_mod.ssd_chunked = ssd.ssd_ref
+        try:
+            yield
+        finally:
+            attn_mod.chunked_attention, ssm_mod.ssd_chunked = saved
+
+    t0 = phase("serving path: FULL zamba2-7b, bf16, batch "
+               f"{SERVE_B} x prompt {SERVE_S} + {SERVE_GEN} tokens")
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg)
+    w0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"   {n_params} parameters ({cfg.param_dtype}) drawn on the card "
+          f"in {time.perf_counter() - w0:.2f} s", flush=True)
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_S)), device=dev)
+    s_max = SERVE_S + SERVE_GEN
+    G, M, tail = hybrid_layout(cfg)
+    per_prefill = dict(flash_attention=G, ssd_scan=G * M + tail)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    tokens_out = greedy_generate(model, params, {"tokens": prompt},
+                                 steps=SERVE_GEN, s_max=s_max)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - w0
+    serve_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"   greedy_generate: launches {serve_counts}; {gen_wall:.3f} s "
+          "(first call)", flush=True)
+    if not expect(serve_counts, **per_prefill):
+        fail(f"greedy_generate launched {serve_counts}, expected "
+             f"{per_prefill} (one prefill, no kernel in decode)")
+    toks = tokens_out.cpu().numpy()
+    if toks.shape != (SERVE_B, SERVE_GEN) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        fail(f"greedy_generate returned shape {toks.shape}, tokens in "
+             f"[{toks.min()}, {toks.max()}]")
+    prefill_step = make_prefill_step(model)
+    decode_step = make_decode_step(model)
+    cache = model.alloc_cache(SERVE_B, s_max, dev)
+    reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    logits_k, cache = prefill_step(params, {"tokens": prompt}, cache=cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - w0) * 1e3
+    prefill_counts = read_counts()
+    if not expect(prefill_counts, **per_prefill):
+        fail(f"prefill launched {prefill_counts}, expected {per_prefill}")
+    tok = torch.argmax(logits_k, dim=-1).to(torch.int32)[:, None]
+    reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    for i in range(SERVE_GEN - 1):
+        nxt, logits_d, cache = decode_step(params, {
+            "token": tok, "cache": cache,
+            "pos": torch.full((SERVE_B,), SERVE_S + i, device=dev)})
+        tok = nxt[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - w0) * 1e3 / (SERVE_GEN - 1)
+    decode_counts = read_counts()
+    if not expect(decode_counts):
+        fail(f"decode launched {decode_counts}, expected no kernel")
+    if not torch.isfinite(logits_k).all() or not torch.isfinite(
+            logits_d).all() or tuple(logits_k.shape) != (SERVE_B,
+                                                          cfg.vocab):
+        fail("non-finite or misshapen serving logits")
+    tok_per_s = SERVE_B * SERVE_GEN / (prefill_ms + (SERVE_GEN - 1)
+                                       * decode_ms) * 1e3
+    print(f"   prefill {prefill_ms:.1f} ms (launches {prefill_counts}); "
+          f"decode {decode_ms:.2f} ms per token over {SERVE_GEN - 1} steps "
+          f"(launches {decode_counts}); {tok_per_s:.1f} generated tokens/s "
+          f"(batch {SERVE_B}); greedy_generate {SERVE_B * SERVE_GEN / gen_wall:.1f} "
+          f"tokens/s on its first call; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)",
+          flush=True)
+    done(t0)
+
+    t0 = phase("serving path: where the time goes (torch.profiler over one "
+               "prefill and one decode step; the profiler slows the host)")
+
+    def device_breakdown(label, fn):
+        """Kernel time by name over one call of ``fn``, and the device's
+        busy share of the call's wall time (one stream: kernels do not
+        overlap)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w0) * 1e3
+        kernels = sorted(
+            ((getattr(e, "device_time_total", 0.0) / 1e3, e.count, e.key)
+             for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")), reverse=True)
+        busy = sum(ms for ms, _, _ in kernels)
+        print(f"   {label}: wall {wall:.1f} ms under the profiler, kernels "
+              f"{busy:.1f} ms ({len(kernels)} names, "
+              f"{sum(n for _, n, _ in kernels)} launches), device idle "
+              f"{max(0.0, 1 - busy / wall) * 100:.1f}%", flush=True)
+        for ms, n, key in kernels[:8]:
+            print(f"      {ms:9.3f} ms {n:6d}x  {key[:90]}", flush=True)
+
+    device_breakdown("prefill", lambda: prefill_step(
+        params, {"tokens": prompt}, cache=cache))
+    device_breakdown("decode step", lambda: decode_step(params, {
+        "token": tok, "cache": cache,
+        "pos": torch.full((SERVE_B,), s_max - 1, device=dev)}))
+    del cache
+    done(t0)
+
+    t0 = phase("serving path: the kernels' prefill logits against the "
+               "plain versions' on the same weights and tokens")
+    reset()
+    with plain_versions():
+        logits_p, _ = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        fail(f"the plain-version prefill launched {read_counts()}")
+    params.float()  # in place: the same weights, exactly, in f32
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    prefill32 = make_prefill_step(build_model(cfg32))
+    logits_k32, _ = prefill32(params, {"tokens": prompt})
+    reset()
+    with plain_versions():
+        logits_p32, _ = prefill32(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        fail(f"the plain-version prefill launched {read_counts()}")
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    serve_err = l2(logits_k32, logits_p32)
+    bf16_k, bf16_p = l2(logits_k, logits_p32), l2(logits_p, logits_p32)
+    print(f"   f32: ‖kernels − plain‖ / ‖plain‖ = {serve_err:.3g} "
+          "(tolerance 1e-3: summation order only, ~1e-6 per op, which 81 "
+          "layers amplify a few times)", flush=True)
+    print(f"   bf16 against the f32 plain logits: kernels {bf16_k:.4g}, "
+          f"plain {bf16_p:.4g} (the kernels may be at most 1.5x + 1e-3 as "
+          "far: bf16 rounding sets both, and 81 layers amplify where two "
+          "paths round differently); bf16 kernels vs bf16 plain "
+          f"{l2(logits_k, logits_p):.4g}, top-1 agreement "
+          f"{float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()):.2f}",
+          flush=True)
+    if not serve_err <= 1e-3:
+        fail(f"f32 prefill logits: kernels and plain versions differ by "
+             f"{serve_err:.3g}")
+    if not bf16_k <= 1.5 * bf16_p + 1e-3:
+        fail(f"bf16 prefill logits: the kernels are {bf16_k:.4g} from the "
+             f"f32 logits, the plain versions {bf16_p:.4g}")
+    del params, logits_k32, logits_p32
+    torch.cuda.empty_cache()
+    done(t0)
+
     # ------------------------------------------------------------ timing
     t0 = phase("times at the main paths' shapes (profiler device time, "
                "CUDA events over back-to-back launches)")
@@ -577,27 +900,42 @@ def main():
                 fail(f"raw launch returned CUDA error {err}")
         return call
 
-    def row(name, replaces, shapes, launches, err, timed, p_ms, bound):
+    def row(
+        name,
+        replaces,
+        shapes,
+        launches,
+        err,
+        timed,
+        p_ms,
+        bound,
+        source=SOURCE,
+        ops_per_s=INT32_OPS_PER_S,
+        ops_kind="int32",
+        library_ms=None,
+    ):
         ev_ms, w_ms, prof_ms = timed
         # back-to-back launches of a kernel shorter than one host launch
         # time the host; the trace's device time is the kernel's own
         k_ms = ev_ms if prof_ms is None else prof_ms
         nbytes, nops = bound
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT32_OPS_PER_S * 1e3
+        t_ops = nops / ops_per_s * 1e3
         rows_out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": library_ms})
         prof = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
+        lib_txt = ("" if library_ms is None
+                   else f", library call {library_ms:.4f} ms")
         print(f"   {name} {shapes}: kernel {k_ms:.4f} ms (profiler device "
               f"time {prof}, CUDA events over back-to-back launches "
               f"{ev_ms:.4f} ms), through the wrapper {w_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.4f} us "
-              f"({nbytes} bytes, {nops} int32 ops), launches {launches}",
-              flush=True)
+              f"{p_ms:.4f} ms{lib_txt}, bound "
+              f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} bytes, {nops} "
+              f"{ops_kind} ops), launches {launches}", flush=True)
 
     def timed(raw, wrapper, kernel_name, calls):
         return (per_call_ms(raw, calls), per_call_ms(wrapper, calls),
@@ -763,6 +1101,63 @@ def main():
         TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, one thread per "
         "cell", counts_edge["dp_edge"], worst["dp_edge"], t_k,
         p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C))
+    # K6 and K7 at the Zamba2-7B serving shapes
+    B, S, H, hd = SERVE_B, SERVE_S, 32, 112
+    q, k, v = qkv(B, S, S, H, H, hd, torch.bfloat16, 7)
+    o = torch.empty_like(q)
+    keep.append(o)
+    scale = hd ** -0.5
+    raw = checked(fa.LIBRARY.load().flash_attention_launch, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, S, S,
+        H, H, hd, scale, 1, 0, stream))
+    t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale),
+                "flash_fwd_kernel", 20)
+    p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v, scale=scale),
+                      2, reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = per_call_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale), 20)
+    # q·k and p·v over the causal triangle; q, k, v read, o written once
+    fa_ops = 4 * hd * B * H * (S * (S + 1) // 2)
+    row("flash_attention (K6 _flash_kernel)",
+        "src/repro/kernels/flash_attention/kernel.py:24",
+        f"B={B} Sq=Sk={S} H=KH={H} hd={hd} bf16 causal",
+        serve_counts["flash_attention"], worst_abs["flash_attention"], t_k,
+        p_k, (4 * q.numel() * q.element_size(), fa_ops), source=FA_SOURCE,
+        ops_per_s=BF16_OPS_PER_S, ops_kind="bf16 tensor-core",
+        library_ms=lib_ms)
+    del q, k, v, qt, kt, vt
+    H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_chunk
+    xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)
+    y = torch.empty((B, S, H, P), device=dev)
+    st = torch.empty((B, H, N, P), device=dev)
+    keep.append((y, st))
+    raw = checked(ssd.LIBRARY.load().ssd_scan_launch, (
+        xs.data_ptr(), *xs.stride()[:3], dts.data_ptr(), *dts.stride(),
+        As.data_ptr(), Bs.data_ptr(), *Bs.stride()[:2], Cs.data_ptr(),
+        *Cs.stride()[:2], y.data_ptr(), st.data_ptr(), B, S, H, P, N, Q,
+        stream))
+    t_k = timed(raw, lambda: ssd.ssd_scan(xs, dts, As, Bs, Cs, Q),
+                "ssd_scan_kernel", 20)
+    p_k = per_call_ms(lambda: ssd.ssd_ref(xs, dts, As, Bs, Cs, Q), 2,
+                      reps=3)
+    # per (b, h, chunk): C·Bᵀ and M·x on the lower triangle, C·state and
+    # the state update, 2 flops per multiply-add; x, dt, A, B, C read and
+    # y and the state written once
+    tri = Q * (Q + 1) // 2
+    ssd_ops = B * H * (S // Q) * 2 * (tri * N + tri * P + 2 * Q * N * P)
+    ssd_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                     + B * H * N * P)
+    row("ssd_scan (K7 _ssd_kernel)", "src/repro/kernels/ssd/kernel.py:28",
+        f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32",
+        serve_counts["ssd_scan"], worst_abs["ssd_scan"], t_k, p_k,
+        (ssd_bytes, ssd_ops), source=SSD_SOURCE, ops_per_s=F32_OPS_PER_S,
+        ops_kind="f32")
+    print(f"   serving prefill {prefill_ms:.1f} ms: "
+          f"{serve_counts['flash_attention']} flash launches and "
+          f"{serve_counts['ssd_scan']} SSD launches", flush=True)
     print(f"   fig6 c_hi=6 slot: simulate {ms_single6:.3f} ms, "
           f"simulate_batch (B={FLEET}) {ms_fleet6:.3f} ms", flush=True)
     print(f"   card: {card}", flush=True)

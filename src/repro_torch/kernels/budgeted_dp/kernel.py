@@ -83,12 +83,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = build.load().dp_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def dp_forward_batched(upsilon, sigma2, allowed, feasible, offsets, v0):
     """B whole-plane DP forwards in one launch (K1's counterpart at B = 1,
     K2's for a fleet).
@@ -118,7 +112,7 @@ def dp_forward_batched(upsilon, sigma2, allowed, feasible, offsets, v0):
             feasible.data_ptr(), offsets.data_ptr(), v0.data_ptr(),
             V.data_ptr(), words.data_ptr(), B, E, S, C,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_forward_batched")
+    build.LIBRARY.check(err, "dp_forward_batched")
     LAUNCHES["dp_forward_batched"] += 1
     return V, words
 
@@ -150,7 +144,7 @@ def dp_edge(vin, vout, words, upsilon, sigma2, allowed, feasible, offsets, e):
             feasible.data_ptr(), offsets.data_ptr(), vin.data_ptr(),
             vin_stride, vout.data_ptr(), words.data_ptr(), B, E, S, C, e,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_edge")
+    build.LIBRARY.check(err, "dp_edge")
     LAUNCHES["dp_edge"] += 1
     return vout, words
 
@@ -214,7 +208,7 @@ def dp_chunk(
             vin_stride, vout.data_ptr(), words.data_ptr(), rowh.data_ptr(),
             lefth.data_ptr(), B, E, S, C, lo, hi, halo_rows, halo_cols, bs,
             bc, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_chunk")
+    build.LIBRARY.check(err, "dp_chunk")
     LAUNCHES["dp_chunk"] += 1
     return vout, words
 
@@ -310,6 +304,6 @@ def dp_epilogue(V, words, upsilon, offsets, s_limit, full_state: int):
             offsets.data_ptr(), s_limit.data_ptr(), full_state, B, E, S, C,
             x.data_ptr(), s_star.data_ptr(), value_row.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dp_epilogue")
+    build.LIBRARY.check(err, "dp_epilogue")
     LAUNCHES["dp_epilogue"] += 1
     return x, s_star, value_row

@@ -30,11 +30,10 @@ from __future__ import annotations
 
 import functools
 
+from ..nvcc import SMEM_LIMIT_BYTES
+
 __all__ = ["SMEM_LIMIT_BYTES", "MAX_BLOCK_E", "whole_plane_smem_bytes",
            "fused_smem_bytes", "choose_tiling", "check_tiling"]
-
-# dynamic shared memory one block may use on sm_90 (227 KB)
-SMEM_LIMIT_BYTES = 232448
 
 # the JAX package's chunk cap (there: one int32 bit plane per chunk); kept
 # so that a tiling legal in one package is legal in the other

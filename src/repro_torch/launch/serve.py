@@ -1,0 +1,61 @@
+"""Serving from the command line: batched prefill + greedy decode of a
+reduced config.
+
+    python -m repro_torch.launch.serve --device cpu
+
+Runs on the card unless ``--device`` names another; prompts are drawn with
+numpy under ``--seed`` and the weights from a ``torch.Generator`` seeded
+with it.  Prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..device import resolve_device
+from ..models import build_model
+from ..runtime import greedy_generate
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card, cuda)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+        device=dev)
+
+    s_max = args.prompt_len + args.gen + 1
+    t0 = time.perf_counter()
+    out = greedy_generate(model, params, {"tokens": tokens}, steps=args.gen,
+                          s_max=s_max)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    toks = out.numel()
+    summary = {"arch": cfg.name, "device": str(dev), "generated": toks,
+               "tokens_per_s": round(toks / wall, 1),
+               "wall_s": round(wall, 2), "out_shape": list(out.shape)}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Grouped-query attention (GQA/MQA/MHA, optional bias and sliding
+window): the port of the JAX package's ``models/attention.py`` for the
+serving path.  MLA, cross-attention and M-RoPE wait for the families that
+use them.
+
+Full-sequence attention goes through ``chunked_attention``: on the card
+the CUDA kernel of ``kernels/flash_attention`` (K6's counterpart), on the
+CPU its plain version, the online-softmax scan over KV chunks.
+
+Cache: k/v (B, S_max, KV, hd) per layer, written in place by decode.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.flash_attention import flash_attention_op
+from ..kernels.flash_attention.ref import NEG
+from .layers import Leaf, apply_rope
+
+__all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode"]
+
+
+def chunked_attention(
+    q, k, v, *, scale: float, causal: bool = True, window=None, chunk: int = 1024
+):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) with H = KH·g.  ``window``
+    None or ≤ 0 means no sliding window.  Returns (B, Sq, H, hd) in q's
+    dtype; f32 softmax state regardless of input dtype."""
+    return flash_attention_op(q, k, v, scale=scale, causal=causal,
+                              window=window, chunk=chunk)
+
+
+def attn_specs(cfg) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spec = {"wq": Leaf((d, H * hd)), "wk": Leaf((d, KV * hd)),
+            "wv": Leaf((d, KV * hd)), "wo": Leaf((H * hd, d))}
+    if cfg.qkv_bias:
+        spec.update(bq=Leaf((H * hd,), "zeros"), bk=Leaf((KV * hd,), "zeros"),
+                    bv=Leaf((KV * hd,), "zeros"))
+    return spec
+
+
+def _qkv(p, cfg, x):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+def attn_train(p, cfg, x, positions, *, window=None, theta=None, chunk: int = 1024):
+    """Full-sequence attention (prefill). Returns (out, (k, v)) with k
+    after RoPE."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = _qkv(p, cfg, x)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(hd), causal=True,
+                            window=window, chunk=chunk)
+    return ctx.reshape(B, S, H * hd) @ p["wo"], (k, v)
+
+
+def _scatter_kv(cache, new, pos):
+    """cache (B, S_max, ...) ← new (B, 1, ...) at per-row pos (B,), in
+    place."""
+    B = cache.shape[0]
+    cache[torch.arange(B, device=cache.device), pos] = new[:, 0].to(
+        cache.dtype)
+    return cache
+
+
+def attn_decode(p, cfg, x, pos, kv_cache, *, window=None, theta=None):
+    """One-token decode. x: (B, 1, d); pos: (B,) absolute positions (cache
+    write index + mask); kv_cache: (k, v) each (B, S_max, KV, hd), written
+    in place."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    theta = cfg.rope_theta if theta is None else theta
+    k_cache, v_cache = kv_cache
+    S_max = k_cache.shape[1]
+
+    q, k_new, v_new = _qkv(p, cfg, x)
+    if cfg.use_rope:
+        q = apply_rope(q, pos[:, None], theta)
+        k_new = apply_rope(k_new, pos[:, None], theta)
+    _scatter_kv(k_cache, k_new, pos)
+    _scatter_kv(v_cache, v_new, pos)
+
+    g = H // KV
+    qg = q.reshape(B, 1, KV, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg,
+                          k_cache.to(q.dtype)) / math.sqrt(hd)
+    idx = torch.arange(S_max, device=x.device)[None, None, None, None, :]
+    m = idx <= pos[:, None, None, None, None]
+    if window is not None and window > 0:
+        m = m & (pos[:, None, None, None, None] - idx < window)
+    attn = torch.softmax(torch.where(m, logits.float(), NEG), dim=-1)
+    ctx = torch.einsum("bkgqs,bskh->bqkgh", attn.to(v_cache.dtype), v_cache)
+    out = ctx.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    return out, (k_cache, v_cache)

@@ -1,0 +1,148 @@
+"""Parameter trees and basic layers (norm, rope, MLP) of the port.
+
+A model's parameters are declared as a nested spec — dicts of ``Leaf``
+declarations, with lists for runs of layers — and materialized as a
+``ParamTree``: an ``nn.Module`` whose children mirror the spec, indexed
+``p["wz"]`` as the JAX package's dicts are, with state-dict names such as
+``groups.0.mamba.1.mixer.wz``.  Parameters do not require gradients: this
+slice serves.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "DTYPES", "Leaf", "ParamTree", "init_params", "rms_norm",
+    "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "norm_specs",
+]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+class Leaf(NamedTuple):
+    """One parameter: its shape and init kind (fan_in | zeros | ones |
+    normal) with an optional scale, as ``repro/models/layers.py`` declares
+    them."""
+    shape: tuple
+    init: str = "fan_in"
+    scale: float | None = None
+
+
+class ParamTree(nn.Module):
+    """Parameters in the shape of a spec: a dict node is a module with one
+    attribute per key, a list node an ``nn.ModuleList``, a leaf an
+    ``nn.Parameter`` without gradient.  ``tree[key]`` reads a child."""
+
+    def __init__(self, values: dict):
+        super().__init__()
+        for k, v in values.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+def _draw(leaf: Leaf, dtype, generator, device) -> torch.Tensor:
+    """One leaf by its init kind (``repro/models/layers.py:81-104``): the
+    same distribution from a ``torch.Generator``, not the same bits."""
+    if leaf.init == "zeros":
+        return torch.zeros(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "ones":
+        return torch.ones(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "normal":
+        std = leaf.scale or 0.02
+    else:  # fan_in
+        fan = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
+        std = leaf.scale or 1.0 / math.sqrt(max(fan, 1))
+    x = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(spec, dtype, generator: torch.Generator) -> ParamTree:
+    """Materialize ``spec`` in ``dtype`` on the generator's device, leaves
+    drawn in declaration order."""
+    device = generator.device
+
+    def build(node):
+        if isinstance(node, Leaf):
+            return _draw(node, dtype, generator, device)
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return [build(v) for v in node]
+
+    return ParamTree(build(spec))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_specs(d: int, plus_one: bool) -> dict:
+    return {"w": Leaf((d,), "zeros" if plus_one else "ones")}
+
+
+def rms_norm(x, w, eps: float, plus_one: bool):
+    """RMSNorm computed in f32, returned in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (x * scale).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (standard; M-RoPE waits for the VLM family)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return float(theta) ** -exponents  # a host scalar: no copy to the card
+
+
+def apply_rope(x, positions, theta):
+    """x: (B, S, H, hd); positions: (B, S) integer."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / plain GELU)
+# ---------------------------------------------------------------------------
+
+def mlp_specs(d: int, d_ff: int, activation: str) -> dict:
+    spec = {}
+    if activation in ("swiglu", "geglu"):
+        spec["w_gate"] = Leaf((d, d_ff))
+    spec["w_up"] = Leaf((d, d_ff))
+    spec["w_down"] = Leaf((d_ff, d))
+    return spec
+
+
+def mlp_apply(p, x, activation: str):
+    if activation == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif activation == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]

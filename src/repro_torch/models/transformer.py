@@ -1,0 +1,211 @@
+"""Model stacks and the ``Model`` facade of the port; the hybrid family
+(zamba2) so far.
+
+The JAX package scans stacked parameters with ``lax.scan``; the port runs
+its layers in Python loops over per-layer parameters: zamba2 is
+``n_groups`` groups of [``hybrid_every`` − 1 Mamba2 blocks + one SHARED
+attention block (one set of weights, applied once per group)] and a tail
+of Mamba2 blocks.
+
+The serving cache keeps the JAX layout —
+
+  g_ssm  (G, M, B, H, P, N)      g_conv (G, M, B, W-1, conv_dim)
+  k, v   (G, B, S_max, KV, hd)   t_ssm  (T, B, H, P, N)
+                                 t_conv (T, B, W-1, conv_dim)
+
+— in the compute dtype.  ``Model.alloc_cache`` allocates it; prefill and
+decode write it in place (prefill's k/v go to positions [0, S)) and
+return it.  The JAX package's sharding hook ``rules`` is dropped (one
+card), and ``loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from .attention import attn_decode, attn_specs, attn_train
+from .layers import (DTYPES, Leaf, ParamTree, init_params, mlp_apply,
+                     mlp_specs, norm_specs, rms_norm)
+from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
+
+__all__ = ["Model", "build_model", "hybrid_layout"]
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+def _norm(p, cfg, x):
+    return rms_norm(x, p["w"], cfg.norm_eps, cfg.norm_plus_one)
+
+
+def _lm_head_specs(cfg) -> dict:
+    spec = {"embed": Leaf((cfg.vocab, cfg.d_model), "normal"),
+            "final_norm": norm_specs(cfg.d_model, cfg.norm_plus_one)}
+    if not cfg.tie_embeddings:
+        spec["head"] = Leaf((cfg.d_model, cfg.vocab))
+    return spec
+
+
+def _embed(params, cfg, tokens):
+    return params["embed"][tokens].to(DTYPES[cfg.compute_dtype])
+
+
+def _logits(params, cfg, h):
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return (h @ head).float()
+
+
+def _dense_block_specs(cfg) -> dict:
+    return {"ln1": norm_specs(cfg.d_model, cfg.norm_plus_one),
+            "attn": attn_specs(cfg),
+            "ln2": norm_specs(cfg.d_model, cfg.norm_plus_one),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.activation)}
+
+
+def _dense_block_train(p, cfg, h, positions, window, theta):
+    a, kv = attn_train(p["attn"], cfg, _norm(p["ln1"], cfg, h), positions,
+                       window=window, theta=theta, chunk=cfg.attn_chunk)
+    h = h + a
+    return h + mlp_apply(p["mlp"], _norm(p["ln2"], cfg, h),
+                         cfg.activation), kv
+
+
+def _dense_block_decode(p, cfg, h, pos, cache, window, theta):
+    a, cache = attn_decode(p["attn"], cfg, _norm(p["ln1"], cfg, h), pos,
+                           cache, window=window, theta=theta)
+    h = h + a
+    return h + mlp_apply(p["mlp"], _norm(p["ln2"], cfg, h),
+                         cfg.activation), cache
+
+
+def _ssm_block_specs(cfg) -> dict:
+    return {"ln": norm_specs(cfg.d_model, cfg.norm_plus_one),
+            "mixer": ssm_specs(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# the Model facade
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Model:
+    config: Any
+    spec: dict  # nested Leaf declarations, lists for runs of layers
+    prefill: Callable  # (params, batch, cache=None) -> (last_logits, cache)
+    decode: Callable  # (params, batch) -> (logits, cache)
+    alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
+
+    def init(self, generator: torch.Generator) -> ParamTree:
+        """Random parameters on the generator's device, in the config's
+        parameter dtype."""
+        return init_params(self.spec, DTYPES[self.config.param_dtype],
+                           generator)
+
+
+def build_model(cfg) -> Model:
+    if cfg.family == "hybrid":
+        return _build_hybrid_lm(cfg)
+    raise NotImplementedError(
+        f"the {cfg.family!r} family is not ported to repro_torch yet "
+        "(ROADMAP.md, Queue 1 items 12-13)")
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2): groups of mamba blocks + one shared attention block
+# ---------------------------------------------------------------------------
+
+def hybrid_layout(cfg):
+    """(n_groups, mamba blocks per group, tail): 81 layers =
+    13 · (5 mamba + 1 shared attn) + 3."""
+    per = cfg.hybrid_every
+    n_groups = cfg.n_layers // per
+    return n_groups, per - 1, cfg.n_layers - n_groups * per
+
+
+def _build_hybrid_lm(cfg):
+    n_groups, mamba_per, tail = hybrid_layout(cfg)
+    spec = _lm_head_specs(cfg)
+    spec["groups"] = [{"mamba": [_ssm_block_specs(cfg)
+                                 for _ in range(mamba_per)]}
+                      for _ in range(n_groups)]
+    spec["shared_attn"] = _dense_block_specs(cfg)  # ONE shared block
+    if tail:
+        spec["tail"] = [_ssm_block_specs(cfg) for _ in range(tail)]
+
+    def alloc_cache(B, s_max, device):
+        cdt = DTYPES[cfg.compute_dtype]
+        H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        W1, Ch = cfg.conv_width - 1, conv_dim(cfg)
+        kv = (n_groups, B, s_max, cfg.n_kv_heads, cfg.head_dim)
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=cdt, device=device)
+
+        cache = {"g_ssm": z(n_groups, mamba_per, B, H, P, N),
+                 "g_conv": z(n_groups, mamba_per, B, W1, Ch),
+                 "k": z(*kv), "v": z(*kv)}
+        if tail:
+            cache["t_ssm"] = z(tail, B, H, P, N)
+            cache["t_conv"] = z(tail, B, W1, Ch)
+        return cache
+
+    def mamba_prefill(lp, h, ssm_out, conv_out):
+        y, st = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
+                            return_state=True)
+        ssm_out.copy_(st["ssm"])
+        conv_out.copy_(st["conv"])
+        return h + y
+
+    def mamba_step(lp, h, ssm, conv):
+        y, st = mamba_decode(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
+                             {"ssm": ssm, "conv": conv})
+        ssm.copy_(st["ssm"])
+        conv.copy_(st["conv"])
+        return h + y
+
+    def prefill(params, batch, cache=None):
+        """batch["tokens"]: (B, S).  Returns the last position's logits
+        (B, vocab) f32 and the cache, allocated at S_max = S when none is
+        given."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if cache is None:
+            cache = alloc_cache(B, S, tokens.device)
+        h = _embed(params, cfg, tokens)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        for g in range(n_groups):
+            for m in range(mamba_per):
+                h = mamba_prefill(params["groups"][g]["mamba"][m], h,
+                                  cache["g_ssm"][g, m], cache["g_conv"][g, m])
+            h, (k, v) = _dense_block_train(params["shared_attn"], cfg, h,
+                                           positions, None, None)
+            cache["k"][g, :, :S].copy_(k)
+            cache["v"][g, :, :S].copy_(v)
+        for t in range(tail):
+            h = mamba_prefill(params["tail"][t], h, cache["t_ssm"][t],
+                              cache["t_conv"][t])
+        h = _norm(params["final_norm"], cfg, h[:, -1:])
+        return _logits(params, cfg, h)[:, 0], cache
+
+    def decode(params, batch):
+        """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
+        attend up to, "cache".  Returns (logits (B, vocab) f32, cache)."""
+        cache, pos = batch["cache"], batch["pos"]
+        h = _embed(params, cfg, batch["token"])
+        for g in range(n_groups):
+            for m in range(mamba_per):
+                h = mamba_step(params["groups"][g]["mamba"][m], h,
+                               cache["g_ssm"][g, m], cache["g_conv"][g, m])
+            h, _ = _dense_block_decode(params["shared_attn"], cfg, h, pos,
+                                       (cache["k"][g], cache["v"][g]), None,
+                                       None)
+        for t in range(tail):
+            h = mamba_step(params["tail"][t], h, cache["t_ssm"][t],
+                           cache["t_conv"][t])
+        h = _norm(params["final_norm"], cfg, h)
+        return _logits(params, cfg, h)[:, 0], cache
+
+    return Model(cfg, spec, prefill, decode, alloc_cache)

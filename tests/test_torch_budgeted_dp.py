@@ -24,6 +24,7 @@ from repro.kernels.budgeted_dp.kernel import (dp_forward_pallas,
 from repro.kernels.budgeted_dp.ops import prepare_tables as jax_prepare
 from repro_torch.core import build_tables, generate_instance, stats
 from repro_torch.core.dp import NEG, initial_plane
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.budgeted_dp import build, kernel, ops, ref, tiling
 
 JAX_REF = jax_get_solver("reference")
@@ -315,7 +316,7 @@ def test_validate_value_row_catches_each_violation():
 # ---------------------------------------------------------------------------
 
 def test_nvcc_argv_targets_sm90a_without_fast_math():
-    argv = build.nvcc_argv("nvcc", build.SOURCE, pathlib.Path("out.so"))
+    argv = nvcc.nvcc_argv("nvcc", build.SOURCE, pathlib.Path("out.so"))
     joined = " ".join(argv)
     assert "arch=compute_90a,code=sm_90a" in joined
     assert "fast_math" not in joined and "fast-math" not in joined
@@ -326,8 +327,8 @@ def test_nvcc_argv_targets_sm90a_without_fast_math():
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(build, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(nvcc, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build()
     assert not list(tmp_path.iterdir())  # no half-written library left
@@ -335,4 +336,4 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build._nvcc()
+        nvcc._nvcc()

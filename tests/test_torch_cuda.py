@@ -6,7 +6,11 @@ only PyTorch for CUDA:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Integer outputs must be bit-equal (tolerance 0).
+Integer outputs must be bit-equal (tolerance 0).  The float kernels
+(attention K6, SSD K7) are held to their plain versions run on the same
+card: 2e-5 in f32 attention and 1e-4 in f32 SSD, where the two differ in
+summation order only; 2e-2 in bf16 attention, where the plain version
+rounds p to bf16 before p·v and the kernel keeps it in f32.
 """
 import numpy as np
 import pytest
@@ -15,7 +19,11 @@ import torch
 from repro_torch.core import (build_tables, esdp, generate_instance,
                               make_draws, simulate, stats)
 from repro_torch.core.dp import initial_plane
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd
 from repro_torch.kernels.budgeted_dp import LAUNCHES, kernel, ops, ref
+from repro_torch.models import build_model
 
 
 def _card():
@@ -123,3 +131,73 @@ def test_cuda_esdp_decisions_equal_cpu_reference():
                       schedule=sched)
     np.testing.assert_array_equal(on_card.x, on_cpu.x)
     np.testing.assert_allclose(on_card.sw, on_cpu.sw, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Sk,H,KH,hd,causal,window", [
+    ("float32", 2, 256, 256, 4, 4, 64, True, 0),
+    ("float32", 1, 200, 200, 8, 2, 112, True, 0),  # GQA, ragged, hd 112
+    ("float32", 1, 77, 300, 4, 4, 256, True, 50),  # Sq < Sk, a window
+    ("bfloat16", 2, 130, 130, 4, 1, 64, False, 0),  # MQA, bidirectional
+    ("bfloat16", 1, 256, 256, 2, 2, 112, True, 0),
+])
+def test_cuda_flash_attention_matches_plain_version(
+    dtype, B, Sq, Sk, H, KH, hd, causal, window
+):
+    dev = _card()
+    g = torch.Generator().manual_seed(Sq)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, getattr(torch, dtype))
+               for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                             (B, Sk, KH, hd)))
+    want = fa.flash_attention_ref(q, k, v, scale=hd ** -0.5, causal=causal,
+                                  window=window)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, scale=hd ** -0.5, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (2, 128, 2, 32, 16, 32),
+    (2, 80, 2, 32, 16, 32),  # a ragged last chunk
+    (1, 300, 3, 64, 64, 128),  # the serving chunk, ragged
+])
+def test_cuda_ssd_matches_plain_version(B, S, H, P, N, Q):
+    dev = _card()
+    g = torch.Generator().manual_seed(S)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    xbc = torch.randn((B, S, 2 * N), generator=g)
+    args = [t.to(dev) for t in (x, dt, A, xbc)]
+    Bm, Cm = args[3].split([N, N], dim=-1)  # strided, as the model's split
+    want = ssd.ssd_ref(args[0], args[1], args[2], Bm, Cm, Q)
+    before = ssd.LAUNCHES["ssd_scan"]
+    got = ssd.ssd_scan(args[0], args[1], args[2], Bm, Cm, Q)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_scan"] == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_reduced_zamba2_prefill_matches_the_cpu():
+    """The reduced Zamba2 (f32) on the card, through the kernels — one
+    flash launch per group and one SSD launch per Mamba2 block — against
+    the same weights on the CPU through the plain versions."""
+    dev = _card()
+    cfg = get_config("zamba2-7b", reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 45),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = model.prefill(params, {"tokens": tokens})
+    params.to(dev)
+    before = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"])
+    got, _ = model.prefill(params, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["flash_attention"] - before[0],
+            ssd.LAUNCHES["ssd_scan"] - before[1]) == (3, 10)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
