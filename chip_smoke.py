@@ -5,8 +5,9 @@
 Run from the root of a checkout (it imports ``repro_torch`` from
 ``src/``).  Phases, each asserted; any failure exits non-zero:
 
-1. build the port's three CUDA libraries (budgeted DP, flash attention,
-   SSD scan), one nvcc each, all started together (timed);
+1. build the port's four CUDA libraries (budgeted DP, the two flash
+   attention kernels, SSD scan), one nvcc each, all started together
+   (timed);
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
@@ -16,6 +17,7 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    ``benchmarks/dp_bench.py``'s E16_C512_S4096 problem — and on its
    E40_K3 shape (chunks across the 32-bit word boundary), at B = 1, 7 and
    64 under the auto tiling and forced tilings (the per-edge one at B = 1);
+   the fused forward is one cooperative launch per chunk;
 3. the tiling choice: fig-6 c_hi = 6 goes to the fused forward, a forced
    whole-plane solve of it raises, c_hi = 5 switches from the whole plane
    at T = 1500 to tiles at T = 2000;
@@ -29,11 +31,14 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    the solver registry without u_max on the c_hi = 6 plane at B = 1,
    which takes the per-edge forward; HSWF/LCF/LWTF with the quickstart's
    ASW lines;
-5. the attention kernel (K6) against its plain version on the card: the
-   six shapes of ``tests/test_kernels.py:28-58`` in f32 (tolerance 2e-5)
-   and bf16 (2e-2: the plain version rounds p to bf16 before p·v, the
-   kernel keeps it in f32), the Zamba2-7B serving shape in bf16 and a
-   ragged Sq < Sk case; the SSD kernel (K7) against its plain version on
+5. the attention kernels (K6) against their plain version on the card:
+   the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the CUDA-core
+   kernel, tolerance 2e-5) and bf16 (the tensor-core kernel, 2e-2: the
+   plain version rounds q·k and p to bf16, the kernels do not), the
+   Zamba2-7B serving shape in bf16 and a ragged GQA Sq < Sk case in both;
+   each bf16 case also held to the plain version run in f64, no farther
+   from it than 1.25 times the CUDA-core kernel on the same inputs; the
+   SSD kernel (K7) against its plain version on
    the four shapes of ``tests/test_kernels.py:66-71`` and the serving
    shape, both f32: each held to the plain version run in f64, within
    1e-4 or twice the f32 plain version's own distance from it (at
@@ -41,11 +46,13 @@ Run from the root of a checkout (it imports ``repro_torch`` from
 6. the serving path: FULL Zamba2-7B (5.7 B parameters, 81 layers) in
    bf16, initialised on the card from a seed, ``greedy_generate`` of 32
    tokens after a 2048-token prompt at batch 4, with every launch count
-   set to 0 just before and read just after — 13 flash-attention and 68
-   SSD launches for the prefill, none for the decode steps — then the
+   set to 0 just before and read just after — 13 tensor-core
+   flash-attention and 68 SSD launches for the prefill, none for the
+   decode steps — then the
    prefill and the decode timed apart, each with its counts; the
    kernels' prefill logits against the plain versions' on the same
-   weights and tokens, in f32 (relative L2 ≤ 1e-3) and in bf16 (no
+   weights and tokens, in f32 (relative L2 ≤ 1e-3; the f32 prefill goes
+   through the CUDA-core attention kernel, 13 launches) and in bf16 (no
    further from the f32 plain logits than the bf16 plain ones, within
    50%);
 7. kernel and plain-version times at the main paths' shapes: each
@@ -54,7 +61,8 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    back-to-back launches, divided by their number, where the trace has no
    device time), beside the least time the card could take and, for
    attention, ``scaled_dot_product_attention``'s time on the same inputs
-   (a yardstick only: the port never calls it).
+   (a yardstick only: the port never calls it); attention in bf16 through
+   the tensor-core kernel and in f32 through the CUDA-core one.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -85,6 +93,8 @@ FWD_OPS_PER_CELL = 10
 SOURCE = "src/repro_torch/kernels/budgeted_dp/csrc/budgeted_dp.cu"
 TPU = "src/repro/kernels/budgeted_dp/"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FAW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_wgmma.cu")
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 # the Zamba2-7B serving shape (configs/zamba2_7b.py FULL)
 SERVE_B, SERVE_S, SERVE_GEN = 4, 2048, 32
@@ -203,15 +213,17 @@ def main():
           "_dp_kernel_batched), dp_edge (K3 _edge_tile_kernel/"
           "_edge_stile_kernel), dp_chunk (K4 _fused_chunk_kernel at B = 1, "
           "K5 _batched_fused_kernel), dp_epilogue (s* + backtrack) from "
-          f"{SOURCE}; flash_attention (K6 _flash_kernel) from {FA_SOURCE}; "
-          f"ssd_scan (K7 _ssd_kernel) from {SSD_SOURCE}", flush=True)
+          f"{SOURCE}; flash_attention_wgmma (K6 _flash_kernel, bf16 with "
+          f"hd <= 128) from {FAW_SOURCE}; flash_attention (K6, f32 and "
+          f"hd > 128) from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel) from "
+          f"{SSD_SOURCE}", flush=True)
     # a reference states both: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # ------------------------------------------------------------- build
     t0 = phase("build (one nvcc per library, all started together)")
-    libraries = (build.LIBRARY, fa.LIBRARY, ssd.LIBRARY)
+    libraries = (build.LIBRARY, fa.WGMMA_LIBRARY, fa.LIBRARY, ssd.LIBRARY)
     nvcc.build_all(libraries)
     for lib in libraries:
         lib.load()
@@ -421,7 +433,7 @@ def main():
     done(t0)
 
     # --------------------------------------------------------- main path
-    # every kernel wrapper's count: the budgeted DP's four, K6's and K7's
+    # every kernel wrapper's count: the budgeted DP's four, K6's two, K7's
     counters = (kernel.LAUNCHES, fa.LAUNCHES, ssd.LAUNCHES)
 
     def reset():
@@ -620,10 +632,25 @@ def main():
                                    (B, Sk, KH, hd)))
 
     fa_worst = {"f32": 0.0, "bf16": 0.0}
-    worst_abs = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    worst_abs = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0,
+                 "ssd_scan": 0.0}
+    stream0 = torch.cuda.current_stream().cuda_stream
+
+    def cuda_core_attention(q, k, v, scale, causal, window):
+        """The CUDA-core kernel on inputs the wrapper sends to the
+        tensor-core one: a raw launch, for the accuracy comparison."""
+        B, Sq, H, hd = q.shape
+        _, Sk, KH, _ = k.shape
+        out = torch.empty_like(q)
+        fa.LIBRARY.check(fa.LIBRARY.load().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KH, hd, scale,
+            int(causal), window, stream0), "flash_attention")
+        return out
+
     t0 = phase("flash attention (K6) vs its plain version on the card")
     # tests/test_kernels.py:28-58 as (B, Sq, Sk, H, KH, hd, causal,
-    # window), the serving shape, and a ragged Sq < Sk
+    # window), the serving shape, and a ragged GQA Sq < Sk
     fa_cases = [(2, 256, 256, 4, 4, 64, True, 0),
                 (1, 256, 256, 8, 2, 64, True, 0),
                 (2, 128, 128, 4, 1, 32, True, 0),
@@ -640,20 +667,36 @@ def main():
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
         q, k, v = qkv(B, Sq, Sk, H, KH, hd, dtype, Sq + Sk + hd)
         kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+        name = fa.kernel_for(dtype, hd)
         got = fa.flash_attention(q, k, v, **kw)
         want = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = rel_err(got, want)
         fa_worst[dt] = max(fa_worst[dt], err)
-        worst_abs["flash_attention"] = max(
-            worst_abs["flash_attention"],
-            float((got.float() - want.float()).abs().max()))
-        print(f"   {dt} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} hd={hd} "
+        worst_abs[name] = max(worst_abs[name],
+                              float((got.float() - want.float()).abs().max()))
+        extra = ""
+        if name == "flash_attention_wgmma":
+            exact = fa.flash_attention_ref(q.double(), k.double(), v.double(),
+                                           **kw)
+            core = cuda_core_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e_new, e_core = rel_err(got, exact), rel_err(core, exact)
+            extra = (f"; from the f64 plain version: tensor-core kernel "
+                     f"{e_new:.4g}, CUDA-core kernel {e_core:.4g} (limit "
+                     f"1.25x: {1.25 * e_core:.4g})")
+            del exact, core
+        print(f"   {dt} {name} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} hd={hd} "
               f"causal={causal} window={window}: max |kernel - plain| / "
-              f"(1 + |plain|) {err:.3g} (tolerance {tols[dt]})", flush=True)
+              f"(1 + |plain|) {err:.3g} (tolerance {tols[dt]}){extra}",
+              flush=True)
         if not err <= tols[dt]:
             fail(f"flash attention {dt} {(B, Sq, Sk, H, KH, hd)} differs "
                  "from its plain version")
+        if extra and not e_new <= 1.25 * e_core:
+            fail(f"flash attention bf16 {(B, Sq, Sk, H, KH, hd)}: the "
+                 f"tensor-core kernel is {e_new:.4g} from the f64 plain "
+                 f"version, over 1.25x the CUDA-core kernel's {e_core:.4g}")
     del q, k, v, got, want
     done(t0)
 
@@ -742,7 +785,7 @@ def main():
         0, cfg.vocab, (SERVE_B, SERVE_S)), device=dev)
     s_max = SERVE_S + SERVE_GEN
     G, M, tail = hybrid_layout(cfg)
-    per_prefill = dict(flash_attention=G, ssd_scan=G * M + tail)
+    per_prefill = dict(flash_attention_wgmma=G, ssd_scan=G * M + tail)
     torch.cuda.reset_peak_memory_stats()
     reset()
     torch.cuda.synchronize()
@@ -852,7 +895,16 @@ def main():
     params.float()  # in place: the same weights, exactly, in f32
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     prefill32 = make_prefill_step(build_model(cfg32))
+    reset()
     logits_k32, _ = prefill32(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    f32_counts = read_counts()
+    per_prefill32 = dict(flash_attention=G, ssd_scan=G * M + tail)
+    print(f"   f32 prefill through the kernels: launches {f32_counts}",
+          flush=True)
+    if not expect(f32_counts, **per_prefill32):
+        fail(f"the f32 prefill launched {f32_counts}, expected "
+             f"{per_prefill32}")
     reset()
     with plain_versions():
         logits_p32, _ = prefill32(params, {"tokens": prompt})
@@ -1021,48 +1073,28 @@ def main():
     ups, sig, alw = fig6_stats(FLEET, 99)
     alw_i = alw.to(torch.int32)
 
-    def halos(bs, bc):
-        return (u_max6 if bs < S else 0, off_max if bc < C else 0)
-
-    def history_ints(bs, bc, hu, hl):
-        """History ints one instance moves per edge: rowh written by every
-        S-tile and read (with the up-left corner) by every S-tile below
-        the first; lefth written by every tile and read by every tile
-        right of the first."""
-        n_si, n_cj = -(-S // bs), -(-C // bc)
-        return (n_si * hu * C + (n_si - 1) * hu * (C + (n_cj - 1) * hl)
-                + n_si * n_cj * bs * hl + n_si * (n_cj - 1) * bs * hl)
-
-    # dp_chunk: the auto tiling of the main path, one chunk of E6 edges
-    be6, bs6, bc6 = auto6
-    bs6 = S if bs6 is None else bs6
-    hu, hl = halos(bs6, bc6)
-    n_e = min(be6, E6)
+    # dp_chunk: the auto tiling of the main path, one chunk of E6 edges,
+    # one cooperative launch (the tiles only pick the pipeline)
+    n_e = min(auto6[0], E6)
     n_words = (E6 - 1) // 32 - (E6 - n_e) // 32 + 1  # words the chunk sets
-    print(f"   dp_chunk halo histories (this design's tile walk, kept out "
-          f"of the bound): {4 * history_ints(bs6, bc6, hu, hl) * n_e} bytes "
-          "per instance and chunk", flush=True)
     for B, launches in ((1, counts_single6), (FLEET, counts_fleet6)):
         u, s, a = (t[:B].contiguous() for t in (ups, sig, alw_i))
         out = (torch.empty((B, S, C), dtype=torch.int32, device=dev),
-               torch.zeros((B, W, S, C), dtype=torch.int32, device=dev),
-               torch.empty(max(B * 2 * n_e * hu * C, 1), dtype=torch.int32,
-                           device=dev),
-               torch.empty(max(B * n_e * bs6 * hl, 1), dtype=torch.int32,
-                           device=dev))
+               torch.empty((B, S, C), dtype=torch.int32, device=dev),
+               torch.zeros((B, W, S, C), dtype=torch.int32, device=dev))
         keep.append(out)
         raw = checked(lib.dp_chunk_launch, (
             u.data_ptr(), s.data_ptr(), a.data_ptr(), feas.data_ptr(),
             offs.data_ptr(), v0.data_ptr(), 0, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), B, E6,
-            S, C, E6 - n_e, E6, hu, hl, bs6, bc6, stream))
+            out[1].data_ptr(), out[2].data_ptr(), B, E6, S, C, E6 - n_e, E6,
+            stream))
 
         def wrapped(u=u, s=s, a=a, B=B):
             V = torch.empty((B, S, C), dtype=torch.int32, device=dev)
             Wz = torch.zeros((B, W, S, C), dtype=torch.int32, device=dev)
             kernel.dp_chunk(v0, V, Wz, u, s, a, feas, offs, E6 - n_e, E6,
                             u_max=u_max6, off_max=off_max, block_s=auto6[1],
-                            block_c=bc6)
+                            block_c=auto6[2])
 
         t_k = timed(raw, wrapped, "dp_chunk_kernel", 20)
         words_p = torch.zeros((B, W, S, C), dtype=torch.int32, device=dev)
@@ -1075,8 +1107,8 @@ def main():
                       + B * n_words * S * C)
         row(f"dp_chunk B={B} ({'K4 _fused_chunk_kernel' if B == 1 else 'K5 _batched_fused_kernel'})",
             TPU + ("kernel.py:697" if B == 1 else "kernel.py:935"),
-            f"B={B} S={S} C={C} edges {E6 - n_e}..{E6 - 1} tiles "
-            f"({bs6}, {bc6}) halos ({hu}, {hl})", launches["dp_chunk"],
+            f"B={B} S={S} C={C} edges {E6 - n_e}..{E6 - 1}, one "
+            "cooperative launch", launches["dp_chunk"],
             worst["dp_chunk"], t_k, p_k,
             (nbytes, FWD_OPS_PER_CELL * B * n_e * S * C))
 
@@ -1101,33 +1133,49 @@ def main():
         TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, one thread per "
         "cell", counts_edge["dp_edge"], worst["dp_edge"], t_k,
         p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C))
-    # K6 and K7 at the Zamba2-7B serving shapes
+    # K6 and K7 at the Zamba2-7B serving shapes; K6 in bf16 (the serving
+    # path's tensor-core kernel) and in f32 (the f32 prefill's CUDA-core
+    # kernel)
     B, S, H, hd = SERVE_B, SERVE_S, 32, 112
-    q, k, v = qkv(B, S, S, H, H, hd, torch.bfloat16, 7)
-    o = torch.empty_like(q)
-    keep.append(o)
     scale = hd ** -0.5
-    raw = checked(fa.LIBRARY.load().flash_attention_launch, (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, S, S,
-        H, H, hd, scale, 1, 0, stream))
-    t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale),
-                "flash_fwd_kernel", 20)
-    p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v, scale=scale),
-                      2, reps=3)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = per_call_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale), 20)
     # q·k and p·v over the causal triangle; q, k, v read, o written once
     fa_ops = 4 * hd * B * H * (S * (S + 1) // 2)
-    row("flash_attention (K6 _flash_kernel)",
-        "src/repro/kernels/flash_attention/kernel.py:24",
-        f"B={B} Sq=Sk={S} H=KH={H} hd={hd} bf16 causal",
-        serve_counts["flash_attention"], worst_abs["flash_attention"], t_k,
-        p_k, (4 * q.numel() * q.element_size(), fa_ops), source=FA_SOURCE,
-        ops_per_s=BF16_OPS_PER_S, ops_kind="bf16 tensor-core",
-        library_ms=lib_ms)
-    del q, k, v, qt, kt, vt
+    for dtype, launches in ((torch.bfloat16, serve_counts),
+                            (torch.float32, f32_counts)):
+        q, k, v = qkv(B, S, S, H, H, hd, dtype, 7)
+        o = torch.empty_like(q)
+        keep.append(o)
+        name = fa.kernel_for(dtype, hd)
+        if name == "flash_attention_wgmma":
+            raw = checked(fa.WGMMA_LIBRARY.load().flash_attention_wgmma_launch,
+                          (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), B, S, S, H, H, hd, scale, 1, 0,
+                           stream))
+            kname, src = "flash_fwd_wgmma_kernel", FAW_SOURCE
+            rate, kind = BF16_OPS_PER_S, "bf16 tensor-core"
+        else:
+            raw = checked(fa.LIBRARY.load().flash_attention_launch, (
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0, B,
+                S, S, H, H, hd, scale, 1, 0, stream))
+            kname, src, rate, kind = ("flash_fwd_kernel", FA_SOURCE,
+                                      F32_OPS_PER_S, "f32")
+        t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale),
+                    kname, 20)
+        p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                         scale=scale),
+                          2, reps=3)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = per_call_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), 20)
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        row(f"{name} (K6 _flash_kernel, {dt})",
+            "src/repro/kernels/flash_attention/kernel.py:24",
+            f"B={B} Sq=Sk={S} H=KH={H} hd={hd} {dt} causal",
+            launches[name], worst_abs[name], t_k, p_k,
+            (4 * q.numel() * q.element_size(), fa_ops), source=src,
+            ops_per_s=rate, ops_kind=kind, library_ms=lib_ms)
+        del q, k, v, qt, kt, vt
     H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_chunk
     xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)
@@ -1156,7 +1204,7 @@ def main():
         (ssd_bytes, ssd_ops), source=SSD_SOURCE, ops_per_s=F32_OPS_PER_S,
         ops_kind="f32")
     print(f"   serving prefill {prefill_ms:.1f} ms: "
-          f"{serve_counts['flash_attention']} flash launches and "
+          f"{serve_counts['flash_attention_wgmma']} flash launches and "
           f"{serve_counts['ssd_scan']} SSD launches", flush=True)
     print(f"   fig6 c_hi=6 slot: simulate {ms_single6:.3f} ms, "
           f"simulate_batch (B={FLEET}) {ms_fleet6:.3f} ms", flush=True)

@@ -18,7 +18,7 @@ def _declare(lib) -> None:
     lib.dp_forward_launch.restype = i
     lib.dp_edge_launch.argtypes = [p] * 6 + [i, p, p] + [i] * 5 + [p]
     lib.dp_edge_launch.restype = i
-    lib.dp_chunk_launch.argtypes = [p] * 6 + [i] + [p] * 4 + [i] * 10 + [p]
+    lib.dp_chunk_launch.argtypes = [p] * 6 + [i] + [p] * 3 + [i] * 6 + [p]
     lib.dp_chunk_launch.restype = i
     lib.dp_epilogue_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                        p, p, p, p]

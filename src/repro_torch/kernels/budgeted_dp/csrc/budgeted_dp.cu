@@ -36,31 +36,25 @@
 // ~0.4 us at 3.35 TB/s, below one launch's latency; it is the pipeline of
 // last resort.
 //
-// Fused forward (dp_chunk_kernel).  One launch per chunk of <= 32 edges,
-// one block per instance.  The TPU kernel relied on its grid running tiles
-// in row-major order on one core; on Hopper blocks run in no order, so a
-// block walks its own instance's tiles in row-major order.  A tile lives in
-// shared memory for the whole chunk, with an up halo of u_max rows (only if
-// the plane has several S-tiles) above it and a left halo of off_max
-// columns (only with several C-tiles) to its left.  Before edge k of the
-// chunk a tile reads its neighbours' boundaries *before edge k* from two
-// history buffers in device memory (the TPU kernel's VMEM scratches):
-//   lefth (chunk, block_s, off_max): the left tile's last off_max columns;
-//     read, then overwritten with this tile's own, by the same thread;
-//   rowh (2 banks, chunk, u_max, C): the previous S-row's bottom u_max
-//     rows, banked by S-row parity so the up-left corner read never races
-//     the current row's writes.
-// S-tile 0 clamps its reads to row 0 of the plane (the clamp row V[0]); the
-// left halo of C-tile 0 is never loaded, since only states c < off_e, which
-// are masked, would read it.  Inside a tile the in-place hazard of the
-// whole-plane kernel returns (reads go to smaller row-major scratch
-// indices), and the same staged top-down sweep handles it.  The plane is
-// updated in place across chunks: a tile reads and writes only its own
-// cells of V, and halos come from the histories.  What bounds it: the
-// serial chain of edge steps in one SM per instance, ~S*C/1024 cells per
-// thread and edge plus two barriers per 8192-cell chunk; bytes (the plane
-// once per chunk, histories ~2*u_max*C ints per S-tile and edge) and
-// operations are far below the card's rates.
+// Fused forward (dp_chunk_kernel).  One cooperative launch per chunk of
+// <= 32 edges, its grid every block the card holds at once (occupancy x
+// SMs, at most one thread per cell).  The B*S*C cells of all instances
+// are spread over the grid, and each thread keeps the same cells for the
+// whole chunk.  Per edge it applies the update above from one plane in
+// device memory to the other (vout and a scratch plane, ping-ponged so
+// that the last edge writes vout), ORs the edge's bit into its own cells'
+// word (the owner is the only writer, so no atomics), and the grid meets
+// at cooperative_groups' grid barrier before the next edge.  The TPU
+// kernel's halos and tiles become plain reads of the input plane, as in
+// the per-edge kernel, so the JAX tiling knobs only pick this pipeline.
+// The TPU kernel ran an instance's tiles in order on one core; a block per
+// instance walking them here would keep one SM busy for ~72 us an edge
+// while the others idle, so an edge is instead one pass of the whole card
+// over the planes, which stay in L2 at B = 1 (0.4 MB each at fig-6
+// c_hi = 6).  What bounds it: the grid barrier per edge (a few us) at
+// B = 1; at B = 64 the planes (26 MB each) and words move through L2 and
+// device memory once per edge.  Int32 max and add do not depend on order,
+// so the result is bit-exact.
 //
 // Epilogue.  One block per instance: a block-wide first-index argmax of
 // s + sqrtf((float)v) over the feasible s <= s_limit, then one thread walks
@@ -71,6 +65,7 @@
 // zero for sums < 2^29 (the f32 Pallas kernels stopped at 2^24).  wgmma, TMA
 // and clusters are of no use to this integer shift-and-max DP.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -83,6 +78,9 @@ constexpr int FWD_THREADS = 1024;
 constexpr int ITEMS = 8;  // cells a thread stages per chunk
 constexpr int EPI_THREADS = 256;
 constexpr int EDGE_THREADS = 256;
+constexpr int CHUNK_THREADS = 512;
+
+namespace cg = cooperative_groups;
 
 __global__ void __launch_bounds__(FWD_THREADS)
 dp_forward_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
@@ -172,144 +170,77 @@ dp_edge_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
   if (take > v) word[i] |= 1u << (e & 31);
 }
 
-// The histories and the plane are read after this block wrote them, so
+// The planes are read after other blocks wrote them in this launch, so
 // their pointers are neither const nor __restrict__ (no non-coherent
-// loads); vin may be vout.
-__global__ void __launch_bounds__(FWD_THREADS)
+// loads); vin may be vout.  Thread t of the grid owns the cells
+// t, t + step, ... of the B*S*C cells (step = the grid's threads), the
+// same cells for every edge; it walks their (b, s, c) coordinates by
+// mixed-radix adds, with no division inside the loop.
+__global__ void __launch_bounds__(CHUNK_THREADS)
 dp_chunk_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
                 const int* __restrict__ alw,  // (B, E) or nullptr
                 const int* __restrict__ feas, const int* __restrict__ offs,
-                const int* vin, int vin_stride, int* vout, unsigned* words,
-                int* rowh, int* lefth, int E, int S, int C, int lo, int hi,
-                int hu, int hl, int bs, int bc) {
-  extern __shared__ int sm[];  // (hu + bs) x (hl + bc), body at [hu:, hl:]
-  const int b = blockIdx.x;
+                const int* vin, int vin_stride, int* vout, int* scratch,
+                unsigned* words, int B, int E, int S, int C, int lo,
+                int hi) {
+  cg::grid_group grid = cg::this_grid();
+  const unsigned SC = (unsigned)S * C;
+  const unsigned cells = (unsigned)B * SC;  // < 2^31, checked at launch
+  const unsigned first = blockIdx.x * CHUNK_THREADS + threadIdx.x;
+  const unsigned step = gridDim.x * CHUNK_THREADS;
+  const int b0 = first / SC, s0 = first % SC / C, c0 = first % C;
+  const int db = step / SC, ds = step % SC / C, dc = step % C;
   const int n_e = hi - lo;
-  const int n_si = (S + bs - 1) / bs;
-  const int n_cj = (C + bc - 1) / bc;
-  const int ws = hl + bc;  // scratch row width
-  const int body = bs * bc;
-  const size_t SC = (size_t)S * C;
-  const int* vin_b = vin + (size_t)b * vin_stride;
-  int* vout_b = vout + (size_t)b * SC;
-  unsigned* words_b = words + (size_t)b * ((E + 31) >> 5) * SC;
-  int* rowh_b = rowh + (size_t)b * 2 * n_e * hu * C;
-  int* lefth_b = lefth + (size_t)b * n_e * bs * hl;
-  const int* ups_b = ups + (size_t)b * E;
-  const int* sig_b = sig + (size_t)b * E;
-  const int* alw_b = alw == nullptr ? nullptr : alw + (size_t)b * E;
-  const int chunk = blockDim.x * ITEMS;
-
-  for (int ti = 0; ti < n_si; ++ti) {
-    const int s0 = ti * bs;
-    int* rowh_rd = rowh_b + (size_t)((ti + 1) & 1) * n_e * hu * C;
-    int* rowh_wr = rowh_b + (size_t)(ti & 1) * n_e * hu * C;
-    for (int tj = 0; tj < n_cj; ++tj) {
-      const int c0 = tj * bc;
-      for (int t = threadIdx.x; t < body; t += blockDim.x) {
-        const int r = t / bc;
-        const int cc = t - r * bc;
-        const int s = s0 + r;
-        const int c = c0 + cc;
-        sm[(hu + r) * ws + hl + cc] =
-            s < S && c < C ? vin_b[(size_t)s * C + c] : NEG;
-      }
-      __syncthreads();
-
-      for (int k = 0; k < n_e; ++k) {
-        const int e = hi - 1 - k;
-        // the halos hold at most hu rows and hl columns: clamp (the host
-        // checks max Y <= u_max on CPU inputs, as the JAX kernel clamps)
-        const int u = min(max(ups_b[e], 0), hu > 0 ? hu : S);
-        const int off = hl > 0 ? min(offs[e], hl) : offs[e];
-        const int sg = sig_b[e];
-        const bool on = alw_b == nullptr || alw_b[e] != 0;
-        const int* feas_e = feas + (size_t)e * C;
-        unsigned* word = words_b + (size_t)(e >> 5) * SC;
-        const unsigned bit = 1u << (e & 31);
-
-        if (hl > 0) {  // left halo for edge k, then this tile's boundary
-          int* lh = lefth_b + (size_t)k * bs * hl;
-          for (int t = threadIdx.x; t < bs * hl; t += blockDim.x) {
-            const int r = t / hl;
-            const int q = t - r * hl;
-            if (tj > 0) sm[(hu + r) * ws + q] = lh[t];
-            lh[t] = sm[(hu + r) * ws + bc + q];
-          }
-        }
-        if (hu > 0) {  // up halo (with the up-left corner) for edge k
-          const int* up = rowh_rd + (size_t)k * hu * C;
-          int* mine = rowh_wr + (size_t)k * hu * C;
-          if (ti > 0) {
-            for (int t = threadIdx.x; t < hu * ws; t += blockDim.x) {
-              const int r = t / ws;
-              const int q = t - r * ws;
-              const int c = c0 - hl + q;
-              if (c >= 0 && c < C) sm[r * ws + q] = up[(size_t)r * C + c];
-            }
-          }
-          for (int t = threadIdx.x; t < hu * bc; t += blockDim.x) {
-            const int r = t / bc;
-            const int cc = t - r * bc;
-            if (c0 + cc < C) {
-              mine[(size_t)r * C + c0 + cc] = sm[(bs + r) * ws + hl + cc];
-            }
-          }
-        }
-        __syncthreads();
-
-        for (int top = body; top > 0; top -= chunk) {
-          const int bot = max(top - chunk, 0);
-          int staged[ITEMS];
-#pragma unroll
-          for (int it = 0; it < ITEMS; ++it) {
-            const int t = bot + it * blockDim.x + threadIdx.x;
-            if (t < top) {
-              const int r = t / bc;
-              const int cc = t - r * bc;
-              const int s = s0 + r;
-              const int c = c0 + cc;
-              const int pos = (hu + r) * ws + hl + cc;
-              const int v = sm[pos];
-              int nv = v;
-              if (s < S && c < C) {
-                int take = NEG;
-                if (on && c >= off && feas_e[c] != 0) {
-                  const int rr = ti == 0 ? max(r - u, 0) : r - u;
-                  take = sm[(hu + rr) * ws + hl + cc - off] + sg;
-                }
-                if (take > v) {
-                  nv = take;
-                  word[(size_t)s * C + c] |= bit;
-                }
-              }
-              staged[it] = nv;
-            }
-          }
-          __syncthreads();  // every read of this chunk precedes its writes
-#pragma unroll
-          for (int it = 0; it < ITEMS; ++it) {
-            const int t = bot + it * blockDim.x + threadIdx.x;
-            if (t < top) {
-              const int r = t / bc;
-              sm[(hu + r) * ws + hl + (t - r * bc)] = staged[it];
-            }
-          }
-        }
-        __syncthreads();  // the next edge reads the whole updated tile
-      }
-
-      for (int t = threadIdx.x; t < body; t += blockDim.x) {
-        const int r = t / bc;
-        const int cc = t - r * bc;
-        const int s = s0 + r;
-        const int c = c0 + cc;
-        if (s < S && c < C) {
-          vout_b[(size_t)s * C + c] = sm[(hu + r) * ws + hl + cc];
-        }
-      }
-      __syncthreads();  // the next tile reuses the scratch
+  const int W = (E + 31) >> 5;
+  // edge k of the chunk writes vout when n_e - 1 - k is even, so the last
+  // edge writes vout; the first reads vin.  When vin is vout and the
+  // first edge would write it, the plane is first copied to scratch.
+  const int* src = vin;
+  unsigned src_stride = (unsigned)vin_stride;
+  if (vin == vout && (n_e & 1)) {
+    for (unsigned i = first; i < cells; i += step) {
+      const unsigned b = i / SC;
+      scratch[i] = vin[b * src_stride + (i - b * SC)];
     }
+    grid.sync();
+    src = scratch;
+    src_stride = SC;
+  }
+  for (int k = 0; k < n_e; ++k) {
+    const int e = hi - 1 - k;
+    int* dst = ((n_e - 1 - k) & 1) ? scratch : vout;
+    const int off = offs[e];
+    const int* feas_e = feas + (size_t)e * C;
+    const unsigned bit = 1u << (e & 31);
+    int b = b0, s = s0, c = c0;
+    for (unsigned i = first; i < cells; i += step) {
+      const int* src_b = src + b * src_stride;
+      const int v = src_b[s * C + c];
+      int take = NEG;
+      if ((alw == nullptr || alw[b * E + e] != 0) && c >= off &&
+          feas_e[c] != 0) {
+        take = src_b[max(s - max(ups[b * E + e], 0), 0) * C + (c - off)] +
+               sig[b * E + e];
+      }
+      dst[i] = max(v, take);
+      // the cell's owner is the only writer of its word: no atomics
+      if (take > v)
+        words[((size_t)b * W + (e >> 5)) * SC + (i - b * SC)] |= bit;
+      c += dc;
+      s += ds;
+      b += db;
+      if (c >= C) {
+        c -= C;
+        ++s;
+      }
+      if (s >= S) {
+        s -= S;
+        ++b;
+      }
+    }
+    if (k + 1 < n_e) grid.sync();  // the next edge reads this edge's plane
+    src = dst;
+    src_stride = SC;
   }
 }
 
@@ -411,25 +342,40 @@ int dp_edge_launch(const int* ups, const int* sig, const int* alw,
   return (int)cudaGetLastError();
 }
 
-// Fused forward of edges hi-1 ... lo for B instances, one block each, on
-// (bs, bc) tiles with hu halo rows and hl halo columns (0 when the plane
-// has one S-tile / one C-tile).  rowh holds B * 2 * (hi-lo) * hu * C ints,
-// lefth B * (hi-lo) * bs * hl.
+// Fused forward of edges hi-1 ... lo for B instances: one cooperative
+// launch whose grid is every block the card holds at once (at most one
+// thread per cell).  scratch holds B * S * C ints.
 int dp_chunk_launch(const int* ups, const int* sig, const int* alw,
                     const int* feas, const int* offs, const int* vin,
-                    int vin_stride, int* vout, unsigned* words, int* rowh,
-                    int* lefth, int B, int E, int S, int C, int lo, int hi,
-                    int hu, int hl, int bs, int bc, void* stream) {
-  const size_t smem = (size_t)(hu + bs) * (hl + bc) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dp_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dp_chunk_kernel<<<B, FWD_THREADS, smem, (cudaStream_t)stream>>>(
-      ups, sig, alw, feas, offs, vin, vin_stride, vout, words, rowh, lefth, E,
-      S, C, lo, hi, hu, hl, bs, bc);
+                    int vin_stride, int* vout, int* scratch, unsigned* words,
+                    int B, int E, int S, int C, int lo, int hi,
+                    void* stream) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dp_chunk_kernel, CHUNK_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  // at most one thread per cell; the kernel indexes cells in 32 bits
+  const long long cells = (long long)B * S * C;
+  if (cells > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long need = (cells + CHUNK_THREADS - 1) / CHUNK_THREADS;
+  const int blocks = (int)(need < (long long)per_sm * n_sm
+                               ? need
+                               : (long long)per_sm * n_sm);
+  void* args[] = {(void*)&ups,  (void*)&sig,        (void*)&alw,
+                  (void*)&feas, (void*)&offs,       (void*)&vin,
+                  (void*)&vin_stride, (void*)&vout, (void*)&scratch,
+                  (void*)&words, (void*)&B,         (void*)&E,
+                  (void*)&S,    (void*)&C,          (void*)&lo,
+                  (void*)&hi};
+  err = cudaLaunchCooperativeKernel((const void*)dp_chunk_kernel,
+                                    dim3(blocks > 0 ? blocks : 1),
+                                    dim3(CHUNK_THREADS), args, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,8 @@ the kernel):
   (``_edge_tile_kernel``/``_edge_stile_kernel`` scanned by
   ``_dp_forward_blocked``, K3);
 - ``dp_forward_fused``: one ``dp_chunk`` launch per chunk of ``block_e``
-  edges; each block walks its instance's tiles in row-major order with the
-  tile in shared memory (``_fused_chunk_kernel``, K4, and
+  edges, a cooperative launch over the whole card with a grid barrier
+  between edges (``_fused_chunk_kernel``, K4, and
   ``_batched_fused_kernel``, K5).
 
 ``dp_epilogue`` runs the eq.-17 s* rule and the backtrack on the card.
@@ -169,13 +169,15 @@ def dp_chunk(
     """Edges ``hi−1 … lo`` over the plane, one launch of the fused kernel
     (K4's counterpart at B = 1, K5's for a fleet).
 
-    One block per instance walks its tiles in row-major order; each tile
-    stays in shared memory for the whole chunk, and the neighbours'
-    boundaries before each edge come from history buffers in device memory
-    that this wrapper allocates.  Reads ``vin`` ((S, C) shared or
-    (B, S, C)), writes ``vout`` (B, S, C) — which may be ``vin`` — and ORs
-    each edge's bit into its word of ``words``.  ``u_max`` ≥ max Υ̂ and
-    ``off_max`` ≥ max offsets size the halos (the kernel clamps at them).
+    One cooperative launch spreads the B·S·C cells over every block the
+    card holds at once; each edge goes from one plane in device memory to
+    the other (``vout`` and a scratch plane this wrapper allocates, in
+    turn) with a grid barrier between edges.  Reads ``vin`` ((S, C) shared
+    or (B, S, C)), writes ``vout`` (B, S, C) — which may be ``vin`` — and
+    ORs each edge's bit into its word of ``words``.  ``u_max``,
+    ``off_max``, ``block_s`` and ``block_c`` are checked for legality as
+    the JAX package checks them (``tiling.check_tiling``); they do not
+    shape the grid.
     """
     dev = vout.device
     B, E = _check_operands(upsilon, sigma2, allowed, feasible, offsets,
@@ -190,24 +192,14 @@ def dp_chunk(
         vout.copy_(V)
         return vout, words
     _device(dev)
-    bs = S if block_s is None else min(block_s, S)
-    bc = min(block_c, C)
-    halo_rows = u_max if bs < S else 0
-    halo_cols = off_max if bc < C else 0
-    n_e = hi - lo
-    # per instance: rowh (2 S-row banks, n_e, halo_rows, C) and lefth
-    # (n_e, bs, halo_cols); a size of 0 still gets one element
-    rowh = torch.empty(max(B * 2 * n_e * halo_rows * C, 1),
-                       dtype=torch.int32, device=dev)
-    lefth = torch.empty(max(B * n_e * bs * halo_cols, 1), dtype=torch.int32,
-                        device=dev)
+    scratch = torch.empty((B, S, C), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = build.load().dp_chunk_launch(
             upsilon.data_ptr(), sigma2.data_ptr(), _ptr(allowed),
             feasible.data_ptr(), offsets.data_ptr(), vin.data_ptr(),
-            vin_stride, vout.data_ptr(), words.data_ptr(), rowh.data_ptr(),
-            lefth.data_ptr(), B, E, S, C, lo, hi, halo_rows, halo_cols, bs,
-            bc, torch.cuda.current_stream(dev).cuda_stream)
+            vin_stride, vout.data_ptr(), scratch.data_ptr(),
+            words.data_ptr(), B, E, S, C, lo, hi,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.LIBRARY.check(err, "dp_chunk")
     LAUNCHES["dp_chunk"] += 1
     return vout, words

@@ -143,10 +143,11 @@ def _check_value_bound(sigma2, tables: DPTables) -> None:
 
 
 def _check_u_max(upsilon, u_max: int) -> None:
-    """The fused kernel clamps Υ̂ at u_max, the height of its up halo, which
-    would corrupt values silently if any Υ̂ exceeded it: a CPU input that
-    breaks the bound raises (a CUDA one is not read back, which would
-    sync; ``stats.u_max_for_horizon`` bounds the default schedules)."""
+    """The JAX package's fused kernel clamps Υ̂ at u_max, the height of its
+    up halo, so a solve with a larger Υ̂ is outside the contract that both
+    packages share: a CPU input that breaks the bound raises (a CUDA one is
+    not read back, which would sync; ``stats.u_max_for_horizon`` bounds the
+    default schedules)."""
     if upsilon.device.type != "cpu" or upsilon.numel() == 0:
         return
     top = int(upsilon.max())
@@ -180,8 +181,8 @@ def solve_budgeted_dp_batched(
 
     ``upsilon``/``sigma2`` (B, E) int32, ``s_limit`` scalar or (B,),
     ``allowed`` optional (B, E) bool — multiplied into the mask inside the
-    kernel.  ``u_max`` bounds max Υ̂ and sets the up-halo height of a tiled
-    plane; ``None`` means ``s_cap + 1``.
+    kernel.  ``u_max`` bounds max Υ̂ and sets the tile floor ``block_s ≥
+    u_max`` of a tiled plane; ``None`` means ``s_cap + 1``.
 
     The tiling knobs are the JAX package's: ``block_c="auto"`` (default)
     picks ``(block_e, block_s, block_c)`` with ``tiling.choose_tiling`` —
@@ -190,8 +191,8 @@ def solve_budgeted_dp_batched(
     forced.  ``block_c=None`` forces the whole plane (``ValueError`` when
     it does not fit); an int forces the per-edge pipeline (``block_e=None``,
     B = 1 only) or the fused one (``block_e`` in [1, 32]); ``block_s=None``
-    is a full-height tile.  The card runs one block per instance on every
-    pipeline, so the JAX package's ``block_b`` has no counterpart.
+    is a full-height tile.  No grid on the card follows the tiles or the
+    batch, so the JAX package's ``block_b`` has no counterpart.
 
     Returns ``(x (B, E), {"s_star": (B,), "value_row": (B, S)})``,
     bit-equal to a per-instance loop over the reference for every legal

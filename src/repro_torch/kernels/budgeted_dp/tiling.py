@@ -9,18 +9,20 @@ Three forward pipelines, preferred in this order:
 
 - **whole plane** (``kernel.dp_forward_batched``): one block per instance
   holds the (S, C) int32 plane in shared memory for all E edges;
-- **edge-fused** (``kernel.dp_forward_fused``): one block per instance
-  walks the plane's (block_s, block_c) tiles in row-major order and keeps
-  each tile in shared memory across a chunk of ``block_e`` edges.  The
-  tile carries an up halo of u_max rows only when the plane has several
-  S-tiles, and a left halo of off_max columns only when it has several
-  C-tiles.  The halo histories (the neighbours' boundaries before each
-  edge of the chunk) live in device memory, so this model charges only
-  the tile and its halos, and ``block_e`` does not change it;
+- **edge-fused** (``kernel.dp_forward_fused``): one cooperative launch
+  per chunk of ``block_e`` edges over the whole card, the planes in
+  device memory and a grid barrier between edges.  Its grid does not
+  follow the tiles; the JAX package's tile model (a (block_s, block_c)
+  tile with an up halo of u_max rows when the plane has several S-tiles
+  and a left halo of off_max columns when it has several C-tiles) is
+  still sized against one block's shared memory, so that a plane takes
+  the pipeline the earlier tile-walking kernel took;
 - **per-edge** (``kernel.dp_forward_blocked``): one launch per edge, one
-  thread per cell, that reads and writes the plane in device memory.  It
-  uses no shared memory, so it runs any plane, and its tile is only
-  checked for legality; auto picks it only when no fused tile fits.
+  thread per cell, that reads and writes the plane in device memory; auto
+  picks it only when no fused tile fits.
+
+No grid of the tiled pipelines follows the tiles, so the tiles are only
+checked for legality (and, on the fused pipeline, against the model).
 
 The halo floors are the JAX package's legality rules: ``block_c ≥
 off_max`` and ``block_s ≥ u_max``, so a halo reaches into one neighbour

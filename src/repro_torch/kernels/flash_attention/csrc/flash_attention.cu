@@ -3,7 +3,11 @@
 // Replaces the JAX package's Pallas TPU kernel
 //   kernels/flash_attention/kernel.py::_flash_kernel (K6, via
 //   flash_attention and ops.flash_attention_op)
-// with flash_fwd_kernel.  One block per (q tile, kv head, batch row): the
+// with flash_fwd_kernel for f32 inputs and for bf16 with hd in (128, 256];
+// bf16 with hd <= 128 (Zamba2-7B's 112) goes to flash_fwd_wgmma_kernel
+// (flash_attention_wgmma.cu), on the tensor cores.  The wrapper (kernel.py)
+// picks the kernel from the dtype and hd alone.
+// One block per (q tile, kv head, batch row): the
 // tile is FQ = 64 "folded" rows f = qi * g + gi — query position qi of
 // each of the g heads that share kv head kh (GQA) — as the TPU kernel
 // folds the group into its q block.  The block streams K/V in tiles of
@@ -39,7 +43,8 @@
 // tensor cores' kind, 0.12 ms at 989 TFLOP/s bf16, over 235 MB of q, k,
 // v and o (0.07 ms at 3.35 TB/s): operations.  This version runs them on
 // the CUDA cores in f32 (at most 67 TFLOP/s, 1.8 ms), so it sits far above
-// that bound; wgmma tiles are later work.
+// that bound.  Moving these routes to the tensor cores (TF32 or split bf16
+// for f32, wider tiles for hd > 128) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

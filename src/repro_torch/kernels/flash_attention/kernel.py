@@ -1,9 +1,16 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``),
-K6's counterpart.
+"""Wrapper of the flash-attention CUDA kernels, K6's counterparts.
+
+Two kernels, chosen by the inputs alone (:func:`kernel_for`):
+
+- ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 q,
+  k, v with hd up to 128, both products on the tensor cores (``wgmma``),
+  K/V tiles by TMA;
+- ``flash_attention`` (``csrc/flash_attention.cu``): f32 inputs, and bf16
+  with hd in (128, 256], both products as f32 FMAs on the CUDA cores.
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
-CUDA tensor launches the kernel or raises — there is no fallback.  The
-wrapper counts its launches in ``LAUNCHES``.
+CUDA tensor launches its kernel or raises — there is no fallback.  The
+wrapper counts each kernel's launches in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -15,13 +22,17 @@ import torch
 from . import ref
 from ..nvcc import CudaLibrary
 
-__all__ = ["LAUNCHES", "LIBRARY", "MAX_HEAD_DIM", "flash_attention"]
+__all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "MAX_HEAD_DIM",
+           "WGMMA_MAX_HEAD_DIM", "kernel_for", "flash_attention"]
 
-# launches of the CUDA kernel (plain-version calls are not counted)
-LAUNCHES = {"flash_attention": 0}
+# launches of each CUDA kernel (plain-version calls are not counted)
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
-# the kernel keeps hd / 4 accumulator columns per thread in registers
+# the CUDA-core kernel keeps hd / 16 accumulator columns per thread in
+# registers and its tiles in 222 KB of shared memory at 256
 MAX_HEAD_DIM = 256
+# the tensor-core kernel pads hd to one or two 64-column swizzled boxes
+WGMMA_MAX_HEAD_DIM = 128
 
 
 def _declare(lib) -> None:
@@ -31,9 +42,35 @@ def _declare(lib) -> None:
     lib.flash_attention_launch.restype = i
 
 
-LIBRARY = CudaLibrary(
-    pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    _declare, "fa_error_string")
+def _declare_wgmma(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_wgmma_launch.argtypes = ([p] * 4 + [i] * 6
+                                                 + [ctypes.c_float, i, i, p])
+    lib.flash_attention_wgmma_launch.restype = i
+
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu", _declare,
+                      "fa_error_string")
+WGMMA_LIBRARY = CudaLibrary(_CSRC / "flash_attention_wgmma.cu",
+                            _declare_wgmma, "faw_error_string")
+
+
+def kernel_for(dtype, hd: int) -> str:
+    """The kernel that takes q, k, v of ``dtype`` and head dim ``hd`` on the
+    card: ``"flash_attention_wgmma"`` for bfloat16 with hd up to 128, else
+    ``"flash_attention"``.  Raises for what neither takes: ``ValueError``
+    for hd not a multiple of 8 up to 256, ``TypeError`` for a dtype other
+    than float32 and bfloat16."""
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{dtype}: q, k and v must all be float32 or all "
+                        "bfloat16")
+    if dtype == torch.bfloat16 and hd <= WGMMA_MAX_HEAD_DIM:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def flash_attention(
@@ -44,9 +81,9 @@ def flash_attention(
     q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) with H = KH·g; contiguous,
     one dtype (float32 or bfloat16), one device; hd a multiple of 8 up to
     256.  Causal and ``window`` > 0 masks; query i sits at position
-    i + Sk − Sq.  Returns (B, Sq, H, hd) in q's dtype.  ``chunk`` is the
-    plain version's KV chunk (its summation order); the kernel's tiles are
-    its own.
+    i + Sk − Sq.  Returns (B, Sq, H, hd) in q's dtype.  On the card the
+    kernel is :func:`kernel_for`'s.  ``chunk`` is the plain version's KV
+    chunk (its summation order); the kernels' tiles are their own.
     """
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
@@ -59,30 +96,33 @@ def flash_attention(
                          f"({B}, Sk, KH, {hd})")
     if KH < 1 or H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
-    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in (torch.float32, torch.bfloat16) or \
-                t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}: q, k and v must all be "
+    name = kernel_for(q.dtype, hd)
+    for t_name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{t_name} is {t.dtype}: q, k and v must all be "
                             "float32 or all bfloat16")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+            raise ValueError(f"{t_name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{t_name} must be contiguous")
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, chunk=chunk)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):  # the library launches on the current one
-        err = LIBRARY.load().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KH, hd,
-            float(scale), int(causal), int(window),
-            torch.cuda.current_stream(dev).cuda_stream)
-    LIBRARY.check(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    tail = (B, Sq, Sk, H, KH, hd, float(scale), int(causal), int(window))
+    with torch.cuda.device(dev):  # the libraries launch on the current one
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if name == "flash_attention_wgmma":
+            library = WGMMA_LIBRARY
+            err = library.load().flash_attention_wgmma_launch(
+                *ptrs, *tail, stream)
+        else:
+            library = LIBRARY
+            err = library.load().flash_attention_launch(
+                *ptrs, int(q.dtype == torch.bfloat16), *tail, stream)
+    library.check(err, name)
+    LAUNCHES[name] += 1
     return out

@@ -10,7 +10,10 @@ Integer outputs must be bit-equal (tolerance 0).  The float kernels
 (attention K6, SSD K7) are held to their plain versions run on the same
 card: 2e-5 in f32 attention and 1e-4 in f32 SSD, where the two differ in
 summation order only; 2e-2 in bf16 attention, where the plain version
-rounds p to bf16 before p·v and the kernel keeps it in f32.
+rounds q·k and p to bf16 and the kernels do not.  The tensor-core
+attention kernel is also held to the plain version run in f64 on the same
+inputs: no farther from it than 1.25 times the CUDA-core kernel, which
+runs both products in f32.
 """
 import numpy as np
 import pytest
@@ -150,14 +153,133 @@ def test_cuda_flash_attention_matches_plain_version(
                              (B, Sk, KH, hd)))
     want = fa.flash_attention_ref(q, k, v, scale=hd ** -0.5, causal=causal,
                                   window=window)
-    before = fa.LAUNCHES["flash_attention"]
+    name = fa.kernel_for(q.dtype, hd)
+    before = fa.LAUNCHES[name]
     got = fa.flash_attention(q, k, v, scale=hd ** -0.5, causal=causal,
                              window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES[name] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _cuda_core_attention(q, k, v, scale, causal, window):
+    """The CUDA-core kernel (flash_fwd_kernel) on bf16 inputs that the
+    wrapper sends to the tensor-core one: a raw launch, for comparison."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KH, _ = k.shape
+    out = torch.empty_like(q)
+    err = fa.LIBRARY.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, Sq,
+        Sk, H, KH, hd, scale, int(causal), window,
+        torch.cuda.current_stream().cuda_stream)
+    fa.LIBRARY.check(err, "flash_attention")
+    return out
+
+
+def _rel(got, want):
+    return float(((got.double() - want).abs() / (1 + want.abs())).max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,causal,window", [
+    (2, 256, 256, 4, 4, 64, True, 0),
+    (2, 256, 256, 4, 4, 64, False, 0),  # bidirectional
+    (1, 200, 200, 8, 2, 112, True, 0),  # GQA g = 4, ragged rows and keys
+    (1, 200, 200, 8, 2, 112, False, 0),
+    (1, 77, 300, 4, 4, 128, True, 50),  # Sq < Sk, a window
+    (2, 130, 130, 8, 2, 128, False, 0),  # GQA, a ragged key tile
+    (1, 333, 1000, 8, 2, 112, True, 0),  # the prefill tail
+    (1, 96, 96, 2, 2, 32, True, 0),  # hd under one 64-column box
+])
+def test_cuda_flash_wgmma_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, window):
+    """bf16 with hd ≤ 128 goes to the tensor-core kernel: within 2e-2 of
+    the bf16 plain version, and no farther from the f64 plain version than
+    1.25 times the CUDA-core kernel on the same inputs."""
+    dev = _card()
+    g = torch.Generator().manual_seed(Sq + hd)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+               for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                             (B, Sk, KH, hd)))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+    assert fa.kernel_for(q.dtype, hd) == "flash_attention_wgmma"
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, flash_attention_wgmma=before[
+        "flash_attention_wgmma"] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    exact = fa.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    core = _cuda_core_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, exact) <= 1.25 * _rel(core, exact)
+
+
+def test_cuda_flash_bf16_over_128_takes_the_cuda_core_kernel():
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 70, 2, 256), generator=g).to(dev,
+                                                            torch.bfloat16)
+               for _ in range(3))
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, scale=0.0625)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, flash_attention=before[
+        "flash_attention"] + 1)
+    want = fa.flash_attention_ref(q, k, v, scale=0.0625)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("lo", [9, 20], ids=["31_edges", "20_edges"])
+@pytest.mark.parametrize("seed_plane", ["shared", "own", "vin_is_vout"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_cuda_dp_chunk_across_the_word_boundary(B, seed_plane, lo):
+    """Edges 39 … lo of a 40-edge plane (bits in words 1 and 0) in one
+    cooperative launch, from a shared (S, C) seed plane, an own (B, S, C)
+    one, or in place (``vin is vout``), with an odd and an even number of
+    edges (the ping-pong's two parities), on 2000 × 512 planes (several
+    cells per thread): plane and words bit-equal to the plain version,
+    words ORed into what they held."""
+    dev = _card()
+    rng = np.random.default_rng(B + lo)
+    E, c = 40, np.array([7, 7, 7])
+    A = np.minimum(rng.integers(1, 3, (3, E)), c[:, None])
+    tables = build_tables(A, c)
+    feas, offs = (torch.as_tensor(a, device=dev)
+                  for a in ops.prepare_tables(tables))
+    S, C = 2000, tables.n_states
+    u_hi = 40
+    ups = torch.as_tensor(rng.integers(0, u_hi + 1, (B, E)),
+                          dtype=torch.int32, device=dev)
+    sig = torch.as_tensor(rng.integers(1, 5000, (B, E)), dtype=torch.int32,
+                          device=dev)
+    alw = torch.as_tensor(rng.random((B, E)) < 0.75, device=dev).int()
+    v0 = initial_plane(S - 1, C, dev)
+    if seed_plane == "shared":
+        vin = v0
+    else:
+        vin = torch.as_tensor(rng.integers(-1000, 10 ** 6, (B, S, C)),
+                              dtype=torch.int32, device=dev)
+    words0 = torch.as_tensor(
+        rng.integers(-2 ** 31, 2 ** 31, (B, 2, S, C)), dtype=torch.int32,
+        device=dev)
+    Vp, Wp = ref.dp_chunk_ref(vin, words0.clone(), ups, sig, alw, feas, offs,
+                              lo, E)
+    vout = vin if seed_plane == "vin_is_vout" else torch.empty(
+        (B, S, C), dtype=torch.int32, device=dev)
+    words = words0.clone()
+    before = dict(LAUNCHES)
+    V, W = kernel.dp_chunk(vin, vout, words, ups, sig, alw, feas, offs, lo,
+                           E, u_max=u_hi + 1, off_max=int(offs.max()),
+                           block_s=u_hi + 1, block_c=C)
+    torch.cuda.synchronize()
+    assert LAUNCHES == dict(before, dp_chunk=before["dp_chunk"] + 1)
+    assert V is vout and W is words
+    assert torch.equal(V, Vp) and torch.equal(W, Wp)
 
 
 @pytest.mark.parametrize("B,S,H,P,N,Q", [

@@ -175,6 +175,39 @@ def test_wrapper_checks_and_counts_no_cpu_launches():
           fa.flash_attention(q, k, v, scale=0.25), 0)
 
 
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 8, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 112, "flash_attention_wgmma"),  # Zamba2-7B
+    (torch.bfloat16, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 136, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention"),
+    (torch.float32, 8, "flash_attention"),
+    (torch.float32, 112, "flash_attention"),
+    (torch.float32, 256, "flash_attention"),
+])
+def test_route_rule_picks_the_kernel_from_dtype_and_head_dim(dtype, hd, kernel):
+    """bf16 with hd ≤ 128 goes to the tensor-core kernel, f32 and hd in
+    (128, 256] to the CUDA-core one; nothing else decides."""
+    assert fa.kernel_for(dtype, hd) == kernel
+
+
+def test_route_rule_raises_for_what_neither_kernel_takes():
+    for hd in (0, 4, 12, 120 + 4, 264, 512):
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            fa.kernel_for(torch.bfloat16, hd)
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32 or all bfloat16"):
+            fa.kernel_for(dtype, 64)
+    # the wrapper raises the same on CPU tensors, before the plain version
+    half = torch.zeros(1, 4, 2, 64, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        fa.flash_attention(half, half, half, scale=0.125)
+    odd = torch.zeros(1, 4, 2, 20, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(odd, odd, odd, scale=0.125)
+
+
 def _c_params(source, fn):
     """ctypes types of the parameters of ``int fn(...)`` in a C source."""
     m = re.search(r"\bint " + fn + r"\(([^)]*)\)", source.read_text())
@@ -194,6 +227,7 @@ def _c_params(source, fn):
 
 @pytest.mark.parametrize("lib,fns", [
     ("flash_attention", ["flash_attention_launch"]),
+    ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
     ("ssd", ["ssd_scan_launch"]),
     ("budgeted_dp", ["dp_forward_launch", "dp_edge_launch",
                      "dp_chunk_launch", "dp_epilogue_launch"]),
@@ -202,7 +236,8 @@ def test_ctypes_declarations_match_the_c_entry_points(lib, fns):
     """Each library's declared argtypes follow its C signatures, type for
     type: a pointer or a 64-bit stride passed as a 32-bit int would be cut
     on the card."""
-    library = {"flash_attention": fa.LIBRARY, "ssd": ssd.LIBRARY,
+    library = {"flash_attention": fa.LIBRARY,
+               "flash_attention_wgmma": fa.WGMMA_LIBRARY, "ssd": ssd.LIBRARY,
                "budgeted_dp": build.LIBRARY}[lib]
     fake = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in fns})
     library._declare(fake)
