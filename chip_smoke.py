@@ -7,12 +7,16 @@ Run from the root of a checkout (it imports ``repro_torch`` from
 
 1. build the port's four CUDA libraries (budgeted DP, the two flash
    attention kernels, SSD scan), one nvcc each, all started together
-   (timed);
+   (timed); print ptxas's registers and spills for every kernel, and fail
+   if a budgeted-DP or SSD kernel spills;
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
    case whose DP sums reach [2^24, 2^29), and the fig-6 c_hi = 4
-   instance (a 160 KB plane); the per-edge and fused forwards on planes
+   instance (a 160 KB plane); the whole-plane forward alone on its other
+   cell layouts (the largest plane the gate admits, one resource of
+   C = 101 — threads that own no cell, small offsets —, C = 216 and
+   C = 1331); the per-edge and fused forwards on planes
    over one block's shared memory — fig-6 c_hi = 6 at T = 1500 and
    ``benchmarks/dp_bench.py``'s E16_C512_S4096 problem — and on its
    E40_K3 shape (chunks across the 32-bit word boundary), at B = 1, 7 and
@@ -27,7 +31,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    launches each); the same at fig-6 c_hi = 6, T = 1500 (fused forward,
    ⌈E/block_e⌉·T launches, no whole-plane launch), with the card's
    per-slot x equal to the CPU int32 reference on the same draws and
-   schedule; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over);
+   schedule; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over),
+   and the first 200 slots of ESDP on the whole-plane fig-6 planes
+   (c_hi = 4 at T = 2000, c_hi = 5 at T = 1500) against the CPU
+   reference;
    the solver registry without u_max on the c_hi = 6 plane at B = 1,
    which takes the per-edge forward; HSWF/LCF/LWTF with the quickstart's
    ASW lines;
@@ -38,11 +45,13 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    Zamba2-7B serving shape in bf16 and a ragged GQA Sq < Sk case in both;
    each bf16 case also held to the plain version run in f64, no farther
    from it than 1.25 times the CUDA-core kernel on the same inputs; the
-   SSD kernel (K7) against its plain version on
-   the four shapes of ``tests/test_kernels.py:66-71`` and the serving
-   shape, both f32: each held to the plain version run in f64, within
-   1e-4 or twice the f32 plain version's own distance from it (at
-   Q = 128 f32 itself is ~1e-4 off);
+   SSD kernels (K7) against their plain version on
+   the four shapes of ``tests/test_kernels.py:66-71``, the serving shape
+   on three seeds and Mamba2-2.7B's heads (N = 128) on four seeds and at
+   the serving length, all f32: each held to the plain version run in
+   f64, within 1e-4 or twice the f32 plain version's own distance from
+   it (at Q = 128 f32 itself is ~1e-4 off), each distance over its limit
+   printed and the largest for each N;
 6. the serving path: FULL Zamba2-7B (5.7 B parameters, 81 layers) in
    bf16, initialised on the card from a seed, ``greedy_generate`` of 32
    tokens after a 2048-token prompt at batch 4, with every launch count
@@ -57,12 +66,17 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    50%);
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
-   many launches of its C entry point (CUDA events around the same
-   back-to-back launches, divided by their number, where the trace has no
-   device time), beside the least time the card could take and, for
+   many launches of its C entry point, summed over the kernels one call
+   launches (K7's three, each one's share printed; CUDA events around the
+   same back-to-back launches, divided by their number, where the trace
+   has no device time), beside the least time the card could take and, for
    attention, ``scaled_dot_product_attention``'s time on the same inputs
    (a yardstick only: the port never calls it); attention in bf16 through
-   the tensor-core kernel and in f32 through the CUDA-core one.
+   the tensor-core kernel and in f32 through the CUDA-core one; and the
+   whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
+   at B = 1 and 64 with each cell layout forced (one capacity column a
+   thread, the launcher's pick there, against a column a cell), both held
+   bitwise to the plain version.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -86,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 67e12  # the card's non-tensor 32-bit rate (FP32 table)
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 # int32 operations per plane cell and edge of a forward: the budget shift
 # (sub, max), the capacity shift (sub), the mask (two compares, and), the
 # add, the take > V compare, the max and the bit OR
@@ -135,25 +150,55 @@ def per_call_ms(fn, calls, reps=5):
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, calls, kernel_name):
-    """Device milliseconds per launch of the CUDA kernel ``kernel_name``
-    over ``calls`` calls of ``fn``, read from a ``torch.profiler`` trace;
-    None when the trace holds no device time for it."""
+def profiled_ms(fn, calls, kernel_names):
+    """Device milliseconds per call of ``fn`` over ``calls`` calls, summed
+    over the CUDA kernels whose names contain one of ``kernel_names`` (one
+    call may launch several), read from a ``torch.profiler`` trace, and
+    each name's share; (None, shares) when the trace holds no device time
+    for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if isinstance(kernel_names, str):
+        kernel_names = (kernel_names,)
     with warnings.catch_warnings():  # its note on clearing events per cycle
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    shares = {name: 0.0 for name in kernel_names}
     for evt in prof.key_averages():
-        if kernel_name in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+        for name in kernel_names:
+            if name in evt.key:
+                shares[name] += getattr(
+                    evt, "device_time_total",
+                    getattr(evt, "cuda_time_total", 0.0)) / calls / 1e3
+    total = sum(shares.values())
+    return (total if total > 0 else None), shares
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill-store bytes) per entry function of an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+    out, name, spilled = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I(?:Lb[01]E)+)?", m.group(1))
+            args = re.findall(r"Lb([01])E", k.group(2) or "") if k else []
+            name = (k.group(1) if k else m.group(1)) + (
+                "<" + ", ".join("true" if a == "1" else "false"
+                                for a in args) + ">" if args else "")
+            spilled = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spilled = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spilled))
+            name = None
+    return out
 
 
 def dp_bench_problem(E, c, u_hi, B, seed=0, c_rand=None):
@@ -215,8 +260,8 @@ def main():
           "K5 _batched_fused_kernel), dp_epilogue (s* + backtrack) from "
           f"{SOURCE}; flash_attention_wgmma (K6 _flash_kernel, bf16 with "
           f"hd <= 128) from {FAW_SOURCE}; flash_attention (K6, f32 and "
-          f"hd > 128) from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel) from "
-          f"{SSD_SOURCE}", flush=True)
+          f"hd > 128) from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel: "
+          f"{', '.join(ssd.KERNELS)}) from {SSD_SOURCE}", flush=True)
     # a reference states both: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -228,6 +273,14 @@ def main():
     for lib in libraries:
         lib.load()
         print(f"   {lib.path().name}", flush=True)
+        kernels = ptxas_report(lib.build_log())
+        for name, regs, spilled in kernels:
+            print(f"      {name}: {regs} registers, {spilled} bytes spilled",
+                  flush=True)
+        # the kernels this round redesigned must not spill
+        if lib in (build.LIBRARY, ssd.LIBRARY) and (
+                not kernels or any(sp for _, _, sp in kernels)):
+            fail(f"{lib.source.name}: ptxas reports spills (or no report)")
     print(f"   built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -303,6 +356,40 @@ def main():
           "shared memory", flush=True)
     for B in (1, 7):
         compare(f"fig6 c_hi=4 B={B}", fig6, tables6, B, seed=10 + B)
+    # the forward's other cell layouts: the largest plane the gate admits
+    # and one resource of C = 101 (the tiled sweep, one capacity column a
+    # thread; at C = 101, 14 threads own no cell and offsets are small),
+    # and capacity axes too wide or too awkward for one column a thread (a
+    # column a cell)
+    rng_w = np.random.default_rng(3)
+    for label, A_w, c_w, S_w in (
+            ("largest plane (Table 2)", table2.A, table2.c,
+             tiling.SMEM_LIMIT_BYTES // 4 // tables2.n_states),
+            ("C=101 (one resource)", rng_w.integers(1, 6, (1, 20)), (100,),
+             200),
+            ("C=216", rng_w.integers(1, 3, (3, 20)), (5, 5, 5), 250),
+            ("C=1331", rng_w.integers(1, 4, (3, 12)), (10, 10, 10), 43)):
+        tables_w = build_tables(np.asarray(A_w), np.asarray(c_w))
+        feas, offs, v0 = operands(tables_w, S_w - 1)
+        E_w = offs.shape[0]
+        for B in (1, 7):
+            ups = torch.as_tensor(rng_w.integers(0, S_w // 8 + 1, (B, E_w)),
+                                  dtype=torch.int32, device=dev)
+            sig = torch.as_tensor(rng_w.integers(0, 2 ** 20, (B, E_w)),
+                                  dtype=torch.int32, device=dev)
+            alw = torch.as_tensor(rng_w.random((B, E_w)) < 0.7,
+                                  device=dev).int()
+            Vk, Wk = kernel.dp_forward_batched(ups, sig, alw, feas, offs, v0)
+            Vp, Wp = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+            torch.cuda.synchronize()
+            err = max(max_err(Vk, Vp), max_err(Wk, Wp))
+            worst["dp_forward_batched"] = max(worst["dp_forward_batched"],
+                                              err)
+            print(f"   {label}: S={S_w} C={tables_w.n_states} E={E_w} B={B} "
+                  f"({tiling.whole_plane_smem_bytes(S_w, tables_w.n_states)}"
+                  f" bytes) max |kernel - plain| {err}", flush=True)
+            if err != 0:
+                fail(f"{label} B={B}: kernel differs from its plain version")
     done(t0)
 
     # the tiled planes: (label, tables, s_cap, u_max, stats maker)
@@ -569,6 +656,34 @@ def main():
     print(f"   Table 2, T={Ts}: card (CUDA kernels) and CPU (int32 "
           "reference) ESDP make the same decisions on the same draws",
           flush=True)
+    # the whole-plane forward's two cell layouts on ESDP's main path: the
+    # fig-6 planes at c_hi = 4 (T = 2000) and 5 (T = 1500) take the tiled
+    # sweep; the first slots of a run on the full-size plane
+    Tw = 200
+    for c_hi, inst_w, tables_w, horizon in ((4, fig6, tables6, T),
+                                            (5, fig5, tables5, T6)):
+        pol_w = esdp.make_esdp_policy(inst_w, horizon, tables=tables_w)
+        S_w = stats.s_cap_for_horizon(horizon, inst_w.m) + 1
+        draws_w = make_draws(inst_w, Tw, 11, dev)
+        sched_w = stats.schedule_table(Tw, inst_w.m, device="cpu")
+        reset()
+        card_w = simulate(inst_w, pol_w, Tw, tables=tables_w, draws=draws_w,
+                          schedule=sched_w)
+        torch.cuda.synchronize()
+        n_w = read_counts()["dp_forward_batched"]
+        cpu_w = simulate(inst_w, pol_w, Tw, tables=tables_w, device="cpu",
+                         draws=moved(draws_w, lambda t: t.cpu()),
+                         schedule=sched_w)
+        if n_w != Tw:
+            fail(f"fig6 c_hi={c_hi}: {n_w} whole-plane launches in {Tw} "
+                 "slots")
+        if not np.array_equal(card_w.x, cpu_w.x):
+            fail(f"fig6 c_hi={c_hi}, horizon {horizon}: card and CPU "
+                 "reference ESDP differ on the same draws")
+        print(f"   fig6 c_hi={c_hi}, horizon {horizon} ({S_w} x "
+              f"{tables_w.n_states} plane, {Tw} slots, {n_w} whole-plane "
+              "launches): card and CPU int32 reference ESDP make the same "
+              "decisions on the same draws", flush=True)
     if not np.array_equal(fleet6.x[0], single6.x):
         fail("fig6 c_hi=6: simulate_batch row 0 differs from simulate in x")
     w0 = time.perf_counter()
@@ -718,11 +833,21 @@ def main():
     # JAX tests' tolerance), or no more than twice as far from it as the
     # plain version in f32
     # tests/test_kernels.py:66-71 (the third pads 80 steps to chunks of
-    # 32) and the serving shape
-    for B, S, H, P, N, Q in ((2, 128, 2, 32, 16, 32), (1, 96, 4, 64, 32, 32),
-                             (2, 80, 2, 32, 16, 32), (1, 256, 2, 64, 64, 64),
-                             (SERVE_B, SERVE_S, 112, 64, 64, 128)):
-        args = ssd_inputs(B, S, H, P, N, S + H)
+    # 32), the serving shape on three seeds, and Mamba2-2.7B's heads
+    # (80 × P 64, N 128, configs/mamba2_2_7b.py) over a ragged length on
+    # four seeds and at the serving length; each case's distance over its
+    # limit is printed, and the largest of them for each N
+    worst_ratio = {}
+    for B, S, H, P, N, Q, seed in (
+            (2, 128, 2, 32, 16, 32, 0), (1, 96, 4, 64, 32, 32, 0),
+            (2, 80, 2, 32, 16, 32, 0), (1, 256, 2, 64, 64, 64, 0),
+            (SERVE_B, SERVE_S, 112, 64, 64, 128, 0),
+            (SERVE_B, SERVE_S, 112, 64, 64, 128, 1),
+            (SERVE_B, SERVE_S, 112, 64, 64, 128, 2),
+            (2, 1000, 80, 64, 128, 128, 0), (2, 1000, 80, 64, 128, 128, 1),
+            (2, 1000, 80, 64, 128, 128, 2), (2, 1000, 80, 64, 128, 128, 3),
+            (SERVE_B, SERVE_S, 80, 64, 128, 128, 0)):
+        args = ssd_inputs(B, S, H, P, N, S + H + 7919 * seed)
         got = ssd.ssd_scan(*args, chunk=Q)
         want = ssd.ssd_ref(*args, chunk=Q)
         exact = ssd.ssd_ref(*(a.double() for a in args), chunk=Q)
@@ -733,14 +858,20 @@ def main():
         worst_abs["ssd_scan"] = max(
             [worst_abs["ssd_scan"]] + [float((a - b).abs().max())
                                        for a, b in zip(got, want)])
-        print(f"   B={B} S={S} H={H} P={P} N={N} Q={Q}, max over y and the "
-              "state of |a - b| / (1 + |b|): kernel - plain "
+        limit = max(1e-4, 2 * err_p)
+        worst_ratio[N] = max(worst_ratio.get(N, 0.0), err_k / limit)
+        print(f"   B={B} S={S} H={H} P={P} N={N} Q={Q} seed {seed}, max over "
+              "y and the state of |a - b| / (1 + |b|): kernel - plain "
               f"{err:.3g}; from the f64 plain version: kernel {err_k:.3g}, "
-              f"plain {err_p:.3g} (the kernel's tolerance "
-              f"{max(1e-4, 2 * err_p):.3g})", flush=True)
-        if not err_k <= max(1e-4, 2 * err_p):
-            fail(f"SSD scan {(B, S, H, P, N, Q)}: the kernel is {err_k:.3g} "
-                 f"from the f64 plain version, the f32 plain one {err_p:.3g}")
+              f"plain {err_p:.3g} (the kernel's tolerance {limit:.3g}, "
+              f"{err_k / limit:.3f} of it)", flush=True)
+        if not err_k <= limit:
+            fail(f"SSD scan {(B, S, H, P, N, Q)} seed {seed}: the kernel is "
+                 f"{err_k:.3g} from the f64 plain version, the f32 plain one "
+                 f"{err_p:.3g}")
+    print("   largest distance over its limit, by N: " + ", ".join(
+        f"N={n} {r:.3f}" for n, r in sorted(worst_ratio.items())),
+        flush=True)
     del args, got, want, exact
     done(t0)
 
@@ -989,9 +1120,12 @@ def main():
               f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} bytes, {nops} "
               f"{ops_kind} ops), launches {launches}", flush=True)
 
-    def timed(raw, wrapper, kernel_name, calls):
-        return (per_call_ms(raw, calls), per_call_ms(wrapper, calls),
-                profiled_ms(raw, calls, kernel_name))
+    def timed(raw, wrapper, kernel_names, calls):
+        prof_ms, shares = profiled_ms(raw, calls, kernel_names)
+        if len(shares) > 1:
+            print("   device ms per call by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in shares.items()), flush=True)
+        return per_call_ms(raw, calls), per_call_ms(wrapper, calls), prof_ms
 
     # whole plane and epilogue: Table 2, T = 2000
     s_cap = stats.s_cap_for_horizon(T, table2.m)
@@ -1064,6 +1198,50 @@ def main():
     row("dp_epilogue (s* + backtrack)", TPU + "ops.py:231",
         f"B={FLEET} S={S} C={C} E={E}", counts_fleet["dp_epilogue"],
         worst["dp_epilogue"], t3, p3, epi_bound(x_epi))
+
+    # the whole-plane forward's tiled sweep on the fig-6 planes that ESDP's
+    # main path sends to it (c_hi = 4 at T = 2000, c_hi = 5 at T = 1500):
+    # the layout dp_forward_launch picks there (one capacity column a
+    # thread) against a column a cell, each forced through
+    # dp_forward_sweep_launch on the same inputs and bit-equal to the plain
+    # version
+    for c_hi, inst_w, tables_w, horizon in ((4, fig6, tables6, T),
+                                            (5, fig5, tables5, T6)):
+        s_cap_w = stats.s_cap_for_horizon(horizon, inst_w.m)
+        S_w, C_w, E_w = s_cap_w + 1, tables_w.n_states, inst_w.n_edges
+        feas_w, offs_w, v0_w = operands(tables_w, s_cap_w)
+        ups_w, sig_w, _, alw_w = stats_case(inst_w, FLEET, 98,
+                                            horizon=horizon)
+        alw_w = alw_w.to(torch.int32)
+        for B in (1, FLEET):
+            u, s, a = (t[:B].contiguous() for t in (ups_w, sig_w, alw_w))
+            Vp, Wp = ref.dp_forward_ref(u, s, a, feas_w, offs_w, v0_w)
+            ms = {}
+            for one_col in (1, 0):
+                out = (torch.empty((B, S_w, C_w), dtype=torch.int32,
+                                   device=dev),
+                       torch.empty((B, kernel.packed_words(E_w), S_w, C_w),
+                                   dtype=torch.int32, device=dev))
+                keep.append(out)
+                raw = checked(lib.dp_forward_sweep_launch, (
+                    u.data_ptr(), s.data_ptr(), a.data_ptr(),
+                    feas_w.data_ptr(), offs_w.data_ptr(), v0_w.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(), B, E_w, S_w, C_w,
+                    one_col, stream))
+                raw()
+                torch.cuda.synchronize()
+                if not (torch.equal(out[0], Vp) and torch.equal(out[1], Wp)):
+                    fail(f"fig6 c_hi={c_hi} B={B}: the tiled sweep "
+                         f"(one_col={one_col}) differs from its plain "
+                         "version")
+                prof_ms, _ = profiled_ms(raw, 100, "dp_forward_kernel")
+                ms[one_col] = (per_call_ms(raw, 100) if prof_ms is None
+                               else prof_ms)
+            print(f"   whole-plane tiled sweep, fig6 c_hi={c_hi} "
+                  f"T={horizon} (S={S_w} C={C_w} E={E_w}) B={B}, device ms "
+                  f"a launch: one capacity column a thread (the launcher's "
+                  f"pick) {ms[1]:.4f}, a column a cell {ms[0]:.4f}; both "
+                  "bit-equal to the plain version", flush=True)
 
     # the tiled forwards: fig-6 c_hi = 6, T = 1500
     S, C = s_cap6 + 1, big6_tables.n_states
@@ -1179,30 +1357,40 @@ def main():
     H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_chunk
     xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)
+    n_chunks = -(-S // Q)
     y = torch.empty((B, S, H, P), device=dev)
     st = torch.empty((B, H, N, P), device=dev)
-    keep.append((y, st))
+    # the scratch the wrapper allocates: each chunk's state, and cum
+    states = torch.empty((B, H, n_chunks, N, P), device=dev)
+    cum = torch.empty((B, H, n_chunks, -(-Q // 16) * 16, 2), device=dev)
+    keep.append((y, st, states, cum))
     raw = checked(ssd.LIBRARY.load().ssd_scan_launch, (
         xs.data_ptr(), *xs.stride()[:3], dts.data_ptr(), *dts.stride(),
         As.data_ptr(), Bs.data_ptr(), *Bs.stride()[:2], Cs.data_ptr(),
-        *Cs.stride()[:2], y.data_ptr(), st.data_ptr(), B, S, H, P, N, Q,
-        stream))
+        *Cs.stride()[:2], y.data_ptr(), st.data_ptr(), states.data_ptr(),
+        cum.data_ptr(), B, S, H, P, N, Q, stream))
+    # one call of the entry point is its three kernels
     t_k = timed(raw, lambda: ssd.ssd_scan(xs, dts, As, Bs, Cs, Q),
-                "ssd_scan_kernel", 20)
+                ssd.KERNELS, 20)
     p_k = per_call_ms(lambda: ssd.ssd_ref(xs, dts, As, Bs, Cs, Q), 2,
                       reps=3)
-    # per (b, h, chunk): C·Bᵀ and M·x on the lower triangle, C·state and
-    # the state update, 2 flops per multiply-add; x, dt, A, B, C read and
-    # y and the state written once
+    # what these inputs need: C·Bᵀ on the lower triangle once per
+    # (b, chunk) (B and C are per batch row), and per (b, h, chunk) the
+    # masked product with x, C·state and the chunk state, 2 flops per
+    # multiply-add; the shipped route runs each as three TF32 products
+    # (split form) on the tensor cores.  x, dt, A, B, C read and y and the
+    # state written once; the chunk states are the design's own traffic
     tri = Q * (Q + 1) // 2
-    ssd_ops = B * H * (S // Q) * 2 * (tri * N + tri * P + 2 * Q * N * P)
+    ssd_ops = 2 * (B * n_chunks * tri * N
+                   + B * H * n_chunks * (tri * P + 2 * Q * N * P))
     ssd_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
                      + B * H * N * P)
     row("ssd_scan (K7 _ssd_kernel)", "src/repro/kernels/ssd/kernel.py:28",
-        f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32",
-        serve_counts["ssd_scan"], worst_abs["ssd_scan"], t_k, p_k,
-        (ssd_bytes, ssd_ops), source=SSD_SOURCE, ops_per_s=F32_OPS_PER_S,
-        ops_kind="f32")
+        f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32, "
+        f"{len(ssd.KERNELS)} kernels a call", serve_counts["ssd_scan"],
+        worst_abs["ssd_scan"], t_k, p_k, (ssd_bytes, 3 * ssd_ops),
+        source=SSD_SOURCE, ops_per_s=TF32_OPS_PER_S,
+        ops_kind="TF32 tensor-core (3 per f32 product)")
     print(f"   serving prefill {prefill_ms:.1f} ms: "
           f"{serve_counts['flash_attention_wgmma']} flash launches and "
           f"{serve_counts['ssd_scan']} SSD launches", flush=True)

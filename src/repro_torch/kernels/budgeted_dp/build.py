@@ -16,6 +16,8 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_forward_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.dp_forward_launch.restype = i
+    lib.dp_forward_sweep_launch.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.dp_forward_sweep_launch.restype = i
     lib.dp_edge_launch.argtypes = [p] * 6 + [i, p, p] + [i] * 5 + [p]
     lib.dp_edge_launch.restype = i
     lib.dp_chunk_launch.argtypes = [p] * 6 + [i] + [p] * 3 + [i] * 6 + [p]

@@ -26,8 +26,10 @@ __all__ = ["NVCC_FLAGS", "SMEM_LIMIT_BYTES", "CudaLibrary", "nvcc_argv",
 # dynamic shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT_BYTES = 232448
 
+# -Xptxas -v: ptxas reports each kernel's registers and spills; the
+# report is kept beside the library (CudaLibrary.build_log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch")
 
@@ -95,6 +97,7 @@ class CudaLibrary:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) building "
                     f"{self.source.name}:\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent build never sees half
         finally:
             if os.path.exists(tmp):
@@ -108,6 +111,12 @@ class CudaLibrary:
         if started is not None:
             self._finish(started)
         return self.path()
+
+    def build_log(self) -> str:
+        """nvcc's output of the build of the current source and flags
+        (ptxas's register and spill report), or "" if it was not kept."""
+        log = self.path().with_suffix(".log")
+        return log.read_text() if log.exists() else ""
 
     def load(self) -> ctypes.CDLL:
         """Build if needed, load once per process and declare the C

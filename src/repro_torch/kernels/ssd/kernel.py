@@ -1,7 +1,10 @@
-"""Wrapper of the SSD CUDA kernel (``csrc/ssd.cu``), K7's counterpart.
+"""Wrapper of the SSD CUDA kernels (``csrc/ssd.cu``), K7's counterpart.
 
+One call of :func:`ssd_scan` on the card is one call of the C entry point
+``ssd_scan_launch``, which launches three kernels back to back (chunk
+states, state passing, outputs) and counts as one ``ssd_scan`` launch.
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
-CUDA tensor launches the kernel or raises — there is no fallback.  The
+CUDA tensor launches the kernels or raises — there is no fallback.  The
 wrapper counts its launches in ``LAUNCHES``.
 """
 from __future__ import annotations
@@ -14,16 +17,22 @@ import torch
 from . import ref
 from ..nvcc import SMEM_LIMIT_BYTES, CudaLibrary
 
-__all__ = ["LAUNCHES", "LIBRARY", "smem_bytes", "ssd_scan"]
+__all__ = ["LAUNCHES", "LIBRARY", "KERNELS", "Q_MAX", "smem_bytes",
+           "ssd_scan"]
 
-# launches of the CUDA kernel (plain-version calls are not counted)
+# calls of the CUDA entry point (plain-version calls are not counted)
 LAUNCHES = {"ssd_scan": 0}
+# the kernels one call launches, in order
+KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel")
+# the longest chunk: a warp holds its tiles of C·Bᵀ in registers
+Q_MAX = 128
 
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_launch.argtypes = ([p, ll, ll, ll, p, ll, ll, ll, p, p, ll,
-                                     ll, p, ll, ll, p, p] + [i] * 6 + [p])
+                                     ll, p, ll, ll, p, p, p, p] + [i] * 6
+                                    + [p])
     lib.ssd_scan_launch.restype = i
 
 
@@ -33,13 +42,18 @@ LIBRARY = CudaLibrary(
 
 
 def smem_bytes(P: int, N: int, Q: int) -> int:
-    """Shared memory of one block (``ssd_smem_bytes`` in the source), f32:
-    with Qp = Q rounded up to 8, the chunk's x (Qp, P), C and B transposed
-    (N, Qp + 4), B (Qp, N), M (Qp, Qp), the state (N, P) and three (Qp,)
-    vectors."""
-    Qp = -(-Q // 8) * 8
-    return 4 * (Qp * P + 2 * N * (Qp + 4) + Qp * N + Qp * Qp + N * P
-                + 3 * Qp)
+    """Shared memory of the largest block one call launches, f32 (the
+    source's ``ssd_state_smem_bytes`` and ``ssd_output_smem_bytes``).
+    With Qp = Q rounded up to 16: the state kernel holds the chunk's B
+    (Qp, N rounded up to 16, + 8) and x (Qp, P rounded up to 64, + 8),
+    dt and w (Qp,) and the scan's 4 f64 warp totals; the output kernel a
+    64-column tile of C and one of x (Qp, 68 each), a 64 × 64 tile of the
+    state (64, 72), cum as (hi, lo) pairs (Qp, 2) and dt (Qp,), whatever N
+    and P."""
+    Qp, Nm, Pw = -(-Q // 16) * 16, -(-N // 16) * 16, -(-P // 64) * 64
+    state = 4 * (Qp * (Nm + 8) + Qp * (Pw + 8) + 2 * Qp + 8)
+    output = 4 * (2 * Qp * 68 + 64 * 72 + 3 * Qp)
+    return max(state, output)
 
 
 def _check(name, t, ndim, dev):
@@ -57,11 +71,11 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
     x: (B, S, H, P); dt: (B, S, H) post-softplus; A: (H,); B_, C_:
     (B, S, N) shared across heads; all f32 on one device, read through
     their strides (innermost stride 1; A contiguous); P and N multiples of
-    4.  Chunks of
-    Q = min(chunk, S) steps; a ragged last chunk is masked, not padded.
-    Returns (y (B, S, H, P), final_state (B, H, N, P)), f32, contiguous.
-    Raises ``ValueError`` when a chunk does not fit one block's shared
-    memory.
+    4.  Chunks of Q = min(chunk, S) ≤ ``Q_MAX`` steps; a ragged last chunk
+    is masked, not padded.  Returns (y (B, S, H, P), final_state
+    (B, H, N, P)), f32, contiguous.  Raises ``ValueError`` for a chunk
+    over ``Q_MAX`` steps, or one whose blocks do not fit one block's
+    shared memory.
     """
     dev = x.device
     _check("x", x, 4, dev)
@@ -82,6 +96,11 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
         raise ValueError(f"P={P} and N={N} must be multiples of 4 (the "
                          "kernel moves 16-byte vectors)")
     Q = min(chunk, S)
+    if Q > Q_MAX:
+        raise ValueError(
+            f"an SSD chunk of Q={Q} steps is over the kernel's limit of "
+            f"{Q_MAX}: each warp holds its tiles of the chunk's C·Bᵀ in "
+            "registers")
     need = smem_bytes(P, N, Q)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -96,14 +115,22 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
             or not A.is_contiguous()):
         raise ValueError("x, B_ and C_ need innermost stride 1 and A must "
                          "be contiguous")
+    n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=dev)
+    # scratch: each chunk's state (then the state it starts from) and cum
+    # as (hi, lo) pairs
+    states = torch.empty((Bb, H, n_chunks, N, P), dtype=torch.float32,
+                         device=dev)
+    cum = torch.empty((Bb, H, n_chunks, Qp, 2), dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):  # the library launches on the current one
         err = LIBRARY.load().ssd_scan_launch(
             x.data_ptr(), *x.stride()[:3], dt.data_ptr(), *dt.stride(),
             A.data_ptr(), B_.data_ptr(), *B_.stride()[:2], C_.data_ptr(),
-            *C_.stride()[:2], y.data_ptr(), state.data_ptr(), Bb, S, H, P, N,
-            Q, torch.cuda.current_stream(dev).cuda_stream)
+            *C_.stride()[:2], y.data_ptr(), state.data_ptr(),
+            states.data_ptr(), cum.data_ptr(), Bb, S, H, P, N, Q,
+            torch.cuda.current_stream(dev).cuda_stream)
     LIBRARY.check(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, state

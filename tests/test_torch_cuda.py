@@ -13,7 +13,9 @@ summation order only; 2e-2 in bf16 attention, where the plain version
 rounds q·k and p to bf16 and the kernels do not.  The tensor-core
 attention kernel is also held to the plain version run in f64 on the same
 inputs: no farther from it than 1.25 times the CUDA-core kernel, which
-runs both products in f32.
+runs both products in f32; the SSD scan at N = 128 and over several
+slabs is held to the f64 plain version too: within 1e-4, or twice the
+f32 plain version's distance.
 """
 import numpy as np
 import pytest
@@ -25,7 +27,8 @@ from repro_torch.core.dp import initial_plane
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd
-from repro_torch.kernels.budgeted_dp import LAUNCHES, kernel, ops, ref
+from repro_torch.kernels.budgeted_dp import (LAUNCHES, build, kernel, ops,
+                                             ref)
 from repro_torch.models import build_model
 
 
@@ -73,6 +76,100 @@ def test_cuda_solves_bit_equal_to_plain_versions(c_hi, seed, B):
                            want[1]["value_row"][b])
     assert LAUNCHES["dp_forward_batched"] == \
         before["dp_forward_batched"] + 1 + B
+
+
+def _plane(name):
+    """(tables, S) of a whole plane: Table 2 at T = 2000 (the register-held
+    forward), the largest plane the gate admits (its tiled sweep, one
+    capacity column a thread), 40 edges across the 32-bit word boundary,
+    one resource of C = 101 (the one-column sweep with 14 threads that own
+    no cell, and offsets small enough that a stray thread would reach cells
+    updated the same edge), and C = 216 and C = 1331 (a capacity column a
+    cell)."""
+    rng = np.random.default_rng(len(name))
+    if name in ("table2", "largest"):
+        inst = generate_instance(seed=0)
+        tables = build_tables(inst.A, inst.c)
+        S = stats.s_cap_for_horizon(2000, inst.m) + 1
+        if name == "largest":
+            S = 232448 // 4 // tables.n_states
+        return tables, S
+    A, c, S = {"e40_word_boundary": (rng.integers(1, 3, (3, 40)),
+                                     (2, 2, 2), 2000),
+               "c101_one_resource": (rng.integers(1, 6, (1, 20)),
+                                     (100,), 200),
+               "c216_cell_columns": (rng.integers(1, 3, (3, 20)),
+                                     (5, 5, 5), 250),
+               "c1331_cell_columns": (rng.integers(1, 4, (3, 12)),
+                                      (10, 10, 10), 43)}[name]
+    return build_tables(np.minimum(A, np.asarray(c)[:, None]),
+                        np.asarray(c)), S
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("plane", ["table2", "largest", "e40_word_boundary",
+                                   "c101_one_resource", "c216_cell_columns",
+                                   "c1331_cell_columns"])
+def test_cuda_whole_plane_forward_bit_equal_to_plain_version(plane, B):
+    """The whole-plane forward (K1 at B = 1, K2 beyond) on each of its cell
+    layouts: planes and words bit-equal to ``dp_forward_ref`` with
+    ``allowed`` masks and without, one launch each."""
+    dev = _card()
+    tables, S = _plane(plane)
+    assert 4 * S * tables.n_states <= 232448
+    feas, offs = (torch.as_tensor(a, device=dev)
+                  for a in ops.prepare_tables(tables))
+    v0 = initial_plane(S - 1, tables.n_states, dev)
+    E = offs.shape[0]
+    rng = np.random.default_rng(B)
+    ups = torch.as_tensor(rng.integers(0, S // 8 + 1, (B, E)),
+                          dtype=torch.int32, device=dev)
+    sig = torch.as_tensor(rng.integers(0, 2 ** 22, (B, E)),
+                          dtype=torch.int32, device=dev)
+    for alw in (torch.as_tensor(rng.random((B, E)) < 0.7, device=dev).int(),
+                None):
+        Vp, Wp = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+        before = dict(LAUNCHES)
+        V, W = kernel.dp_forward_batched(ups, sig, alw, feas, offs, v0)
+        torch.cuda.synchronize()
+        assert LAUNCHES == dict(before, dp_forward_batched=before[
+            "dp_forward_batched"] + 1)
+        assert torch.equal(V, Vp) and torch.equal(W, Wp)
+
+
+@pytest.mark.parametrize("one_col", [1, 0], ids=["column_a_thread",
+                                                 "column_a_cell"])
+@pytest.mark.parametrize("plane", ["largest", "c101_one_resource"])
+def test_cuda_forward_sweep_layouts_bit_equal_to_plain_version(plane, one_col):
+    """The tiled sweep with each cell layout forced through its C entry
+    point, on planes where both apply: bit-equal to ``dp_forward_ref``,
+    with a quarter of the edges at Υ̂ = 0."""
+    dev = _card()
+    tables, S = _plane(plane)
+    C = tables.n_states
+    feas, offs = (torch.as_tensor(a, device=dev)
+                  for a in ops.prepare_tables(tables))
+    v0 = initial_plane(S - 1, C, dev)
+    B, E = 7, offs.shape[0]
+    rng = np.random.default_rng(one_col)
+    ups = torch.as_tensor(rng.integers(0, S // 8 + 1, (B, E))
+                          * (rng.random((B, E)) > 0.25),
+                          dtype=torch.int32, device=dev)
+    sig = torch.as_tensor(rng.integers(0, 2 ** 22, (B, E)),
+                          dtype=torch.int32, device=dev)
+    alw = torch.as_tensor(rng.random((B, E)) < 0.7, device=dev).int()
+    Vp, Wp = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+    V = torch.empty((B, S, C), dtype=torch.int32, device=dev)
+    W = torch.empty((B, kernel.packed_words(E), S, C), dtype=torch.int32,
+                    device=dev)
+    lib = build.load()
+    err = lib.dp_forward_sweep_launch(
+        ups.data_ptr(), sig.data_ptr(), alw.data_ptr(), feas.data_ptr(),
+        offs.data_ptr(), v0.data_ptr(), V.data_ptr(), W.data_ptr(), B, E, S,
+        C, one_col, torch.cuda.current_stream().cuda_stream)
+    build.LIBRARY.check(err, "dp_forward_sweep")
+    torch.cuda.synchronize()
+    assert torch.equal(V, Vp) and torch.equal(W, Wp)
 
 
 @pytest.mark.parametrize("pipeline,B", [("per_edge", 1), ("fused", 1),
@@ -286,6 +383,7 @@ def test_cuda_dp_chunk_across_the_word_boundary(B, seed_plane, lo):
     (2, 128, 2, 32, 16, 32),
     (2, 80, 2, 32, 16, 32),  # a ragged last chunk
     (1, 300, 3, 64, 64, 128),  # the serving chunk, ragged
+    (2, 20, 3, 16, 8, 32),  # S < chunk: one chunk of S steps
 ])
 def test_cuda_ssd_matches_plain_version(B, S, H, P, N, Q):
     dev = _card()
@@ -303,6 +401,36 @@ def test_cuda_ssd_matches_plain_version(B, S, H, P, N, Q):
     assert ssd.LAUNCHES["ssd_scan"] == before + 1
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (1, 300, 3, 64, 128, 128),  # Mamba2-2.7B's state, ragged
+    (2, 200, 5, 64, 128, 64),  # over two 64-wide state slabs, ragged
+    (1, 150, 2, 72, 12, 128),  # P over one 64-column slab, N under 16
+])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_cuda_ssd_held_to_the_f64_plain_version(B, S, H, P, N, Q, seed):
+    """K7 against the plain version run in f64 on the same inputs (the
+    referee of ``chip_smoke.py``): within 1e-4, or no farther than twice
+    the f32 plain version, which itself is ~1e-4 off at N = 128; on four
+    seeds each."""
+    dev = _card()
+    g = torch.Generator().manual_seed(S + N + 7919 * seed)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    xbc = torch.randn((B, S, 2 * N), generator=g)
+    args = [t.to(dev) for t in (x, dt, A)] + list(
+        xbc.to(dev).split([N, N], dim=-1))
+    before = ssd.LAUNCHES["ssd_scan"]
+    got = ssd.ssd_scan(*args, Q)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_scan"] == before + 1
+    plain = ssd.ssd_ref(*args, Q)
+    exact = ssd.ssd_ref(*(t.double() for t in args), Q)
+    err_k = max(_rel(a, b) for a, b in zip(got, exact))
+    err_p = max(_rel(a, b) for a, b in zip(plain, exact))
+    assert err_k <= max(1e-4, 2 * err_p)
 
 
 def test_cuda_reduced_zamba2_prefill_matches_the_cpu():

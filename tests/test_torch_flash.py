@@ -229,8 +229,9 @@ def _c_params(source, fn):
     ("flash_attention", ["flash_attention_launch"]),
     ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
     ("ssd", ["ssd_scan_launch"]),
-    ("budgeted_dp", ["dp_forward_launch", "dp_edge_launch",
-                     "dp_chunk_launch", "dp_epilogue_launch"]),
+    ("budgeted_dp", ["dp_forward_launch", "dp_forward_sweep_launch",
+                     "dp_edge_launch", "dp_chunk_launch",
+                     "dp_epilogue_launch"]),
 ])
 def test_ctypes_declarations_match_the_c_entry_points(lib, fns):
     """Each library's declared argtypes follow its C signatures, type for

@@ -45,6 +45,7 @@ SHAPES = [
     (2, 80, 2, 32, 16, 32),  # a ragged last chunk
     (1, 256, 2, 64, 64, 64),
     (2, 20, 3, 16, 8, 32),  # S < chunk: one chunk of S steps
+    (1, 96, 2, 32, 128, 32),  # Mamba2-2.7B's state size, N = 128
 ]
 
 
@@ -170,11 +171,31 @@ def test_wrapper_checks_and_counts_no_cpu_launches():
         ssd.ssd_scan(x, dt, A, Bm[:, :10], Cm, chunk=32)
     with pytest.raises(ValueError, match="shape"):
         ssd.ssd_scan(x, dt, A[:1], Bm, Cm, chunk=32)
-    # Mamba2-2.7B's N = 128 at Q = 128 does not fit one block
-    assert ssd.smem_bytes(64, 64, 128) <= 232448 < ssd.smem_bytes(64, 128,
-                                                                  128)
+    # the largest block: the output kernel's 64-column tiles whatever N and
+    # P, or the state kernel's (the chunk's B and x) at N = 128; either
+    # way two blocks share an SM's 228 KB at Q = 128
+    assert ssd.smem_bytes(64, 64, 128) == 4 * (2 * 128 * 68 + 64 * 72
+                                               + 3 * 128) == 89600
+    assert ssd.smem_bytes(64, 128, 128) == 4 * (
+        128 * (128 + 8) + 128 * (64 + 8) + 2 * 128 + 8) == 107552
+    assert ssd.smem_bytes(16, 8, 32) == 4 * (2 * 32 * 68 + 64 * 72 + 96)
+    for n in (64, 128):
+        assert 2 * (ssd.smem_bytes(64, n, 128) + 1024) <= 233472
+    # Mamba2-2.7B's N = 128 at Q = 128 passes the wrapper's checks (and
+    # runs the plain version here)
     big = torch.zeros(1, 128, 1, 64)
     bc = torch.zeros(1, 128, 128)
+    y, st = ssd.ssd_scan(big, torch.zeros(1, 128, 1), torch.zeros(1), bc, bc,
+                         chunk=128)
+    assert y.shape == (1, 128, 1, 64) and st.shape == (1, 1, 128, 64)
+    assert ssd.LAUNCHES == before
+    # what the new blocks cannot take: a chunk over Q_MAX steps, or a state
+    # whose chunk of B over one block's shared memory
+    with pytest.raises(ValueError, match="limit of 128"):
+        ssd.ssd_scan(torch.zeros(1, 256, 1, 64), torch.zeros(1, 256, 1),
+                     torch.zeros(1), torch.zeros(1, 256, 64),
+                     torch.zeros(1, 256, 64), chunk=256)
+    huge = torch.zeros(1, 128, 512)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd.ssd_scan(big, torch.zeros(1, 128, 1), torch.zeros(1), bc, bc,
+        ssd.ssd_scan(big, torch.zeros(1, 128, 1), torch.zeros(1), huge, huge,
                      chunk=128)
