@@ -38,6 +38,18 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    the solver registry without u_max on the c_hi = 6 plane at B = 1,
    which takes the per-edge forward; HSWF/LCF/LWTF with the quickstart's
    ASW lines;
+   the dispatch path: ``sched.ClusterSim`` on ``examples/
+   dispatch_cluster.py``'s fleet (E 15, C 216, S 201 at T = 800, pod-b
+   browned out) for ESDP cold, ``incremental="cache"`` and ``"warm"``,
+   HSWF, LCF and LWTF, each with its launch counts (cold: one whole-plane
+   forward and one epilogue a slot; cache: forwards = misses; warm:
+   forwards = segments launched, one tabled epilogue a solve; baselines:
+   none) and its per-slot x and solve_stats equal to the same run on the
+   CPU, then ``run_batch`` over 8 seeds (one K2 forward a slot, each seed
+   equal to its own ``run()``); warm_tiled: ``WarmCudaSolver`` over 50
+   solves of an ESDP trajectory on the fig-6 c_hi = 6 plane, each equal
+   to the cold solve, ``dp_chunk`` launches = segments launched, and the
+   device ms of a warm solve against a cold one;
 5. the attention kernels (K6) against their plain version on the card:
    the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the CUDA-core
    kernel, tolerance 2e-5) and bf16 (the tensor-core kernel, 2e-2: the
@@ -51,7 +63,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    the serving length, all f32: each held to the plain version run in
    f64, within 1e-4 or twice the f32 plain version's own distance from
    it (at Q = 128 f32 itself is ~1e-4 off), each distance over its limit
-   printed and the largest for each N;
+   printed and the largest for each N; attention_vh: a v head dim other
+   than q/k's at deepseek-v3's widths (q/k 192, v 128: the CUDA-core
+   kernel) and at q/k 64, v 32 (the tensor-core kernel), bf16, one launch
+   each, within 2e-2 of the plain version;
 6. the serving path: FULL Zamba2-7B (5.7 B parameters, 81 layers) in
    bf16, initialised on the card from a seed, ``greedy_generate`` of 32
    tokens after a 2048-token prompt at batch 4, with every launch count
@@ -76,7 +91,9 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
    thread, the launcher's pick there, against a column a cell), both held
-   bitwise to the plain version.
+   bitwise to the plain version; the dispatch path's kernels at its
+   plane (the whole-plane forward at B = 1 and 8, the epilogue's tabled
+   instance) and ``dp_chunk`` on one warm segment of 8 edges.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -111,6 +128,9 @@ FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FAW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_wgmma.cu")
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+# warm_tiled: solves WARM_FROM .. WARM_FROM + N_WARM of an ESDP run on the
+# fig-6 c_hi = 6 plane, re-solved in segments of WARM_K edges
+WARM_FROM, N_WARM, WARM_K = 1000, 50, 8
 # the Zamba2-7B serving shape (configs/zamba2_7b.py FULL)
 SERVE_B, SERVE_S, SERVE_GEN = 4, 2048, 32
 
@@ -241,6 +261,11 @@ def main():
                                   simulate, simulate_batch, stats)
     from repro_torch.core import baselines
     from repro_torch.core.dp import initial_plane
+    from repro_torch.core.solvers import Solver
+    from repro_torch.launch.dispatch import SEED as DSEED
+    from repro_torch.launch.dispatch import T as TD
+    from repro_torch.launch.dispatch import brownout, dispatch_instance
+    from repro_torch.sched import ClusterSim
     from repro_torch.kernels.budgeted_dp import (build, kernel, ops, ref,
                                                  tiling)
     from repro_torch.kernels import flash_attention as fa
@@ -734,6 +759,206 @@ def main():
           f"simulate_batch mean {fleet6.asw[:, -1].mean():.1f}", flush=True)
     done(t0)
 
+    # ------------------------------------------------- dispatch path
+    # the cluster dispatcher (sched/) on examples/dispatch_cluster.py's
+    # fleet: E = 15 channels, C = 216 capacity states, S = 201 at T = 800
+    # (a 174 KB whole plane), pod-b browned out in the middle third; one
+    # schedule for the card and the CPU runs (their float32 log may differ
+    # by an ulp)
+    d_inst = dispatch_instance()
+    d_speed = brownout(TD, d_inst.n_servers)
+    d_sched = stats.schedule_table(TD, d_inst.m, stats.delta_default,
+                                   stats.g_logt_only, "cpu")
+
+    def dispatch_sim(device=None, **kw):
+        return ClusterSim(d_inst, TD, speed_fn=d_speed, seed=DSEED,
+                          device=device, schedule=d_sched, **kw)
+
+    d_S = stats.s_cap_for_horizon(TD, d_inst.m) + 1
+    d_C = build_tables(d_inst.A, d_inst.c).n_states
+    t0 = phase(f"dispatch path: ClusterSim on the dispatch_cluster fleet, "
+               f"T={TD}, brownout, on the card (E={d_inst.n_edges}, "
+               f"C={d_C}, S={d_S}, "
+               f"{tiling.whole_plane_smem_bytes(d_S, d_C)} bytes a plane)")
+    modes = (("esdp cold", "esdp", {}),
+             ("esdp incremental=cache", "esdp", dict(incremental="cache")),
+             ("esdp incremental=warm", "esdp", dict(incremental="warm")),
+             ("hswf", "hswf", {}), ("lcf", "lcf", {}), ("lwtf", "lwtf", {}))
+    d_runs, d_counts = {}, {}
+    for label, pol, kw in modes:
+        sim = dispatch_sim(**kw)
+        reset()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = sim.run(pol, tiebreak=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        counts = read_counts()
+        st = out.solve_stats or {}
+        if pol != "esdp":
+            want = {}
+        elif "incremental" not in kw:
+            want = dict(dp_forward_batched=TD, dp_epilogue=TD)
+        elif kw["incremental"] == "cache":
+            want = dict(dp_forward_batched=st["misses"],
+                        dp_epilogue=st["misses"])
+        else:
+            want = dict(dp_forward_batched=st["segments_launched"],
+                        dp_epilogue=st["solves"])
+        print(f"   {label}: ASW {out.asw:.1f}, cumRegret "
+              f"{float(out.cum_regret[-1]):.1f}; "
+              + (f"hit rate {st['cache_hit_rate']:.4f} ({st['hits']} hits, "
+                 f"{st['misses']} misses); " if "hits" in st else "")
+              + (f"edge-skip rate {st['edge_skip_rate']:.4f} "
+                 f"({st['segments_launched']} segments launched, "
+                 f"{st['segments_skipped']} skipped, {st['full_hits']} full "
+                 "hits); " if "edge_skip_rate" in st else "")
+              + f"launches {counts}; {wall / TD * 1e3:.3f} ms per slot",
+              flush=True)
+        if not expect(counts, **want):
+            fail(f"dispatch {label} launched {counts}, expected {want}")
+        d_runs[label], d_counts[label] = (out, wall / TD * 1e3), counts
+    w0 = time.perf_counter()
+    for label, pol, kw in modes:
+        out = d_runs[label][0]
+        ref_out = dispatch_sim("cpu", **kw).run(pol, tiebreak=0.0)
+        if not np.array_equal(out.x, ref_out.x):
+            slot = int(np.flatnonzero((out.x != ref_out.x).any(axis=1))[0])
+            fail(f"dispatch {label}: the card's x differs from the CPU run's "
+                 f"at slot {slot}")
+        if out.solve_stats != ref_out.solve_stats:
+            fail(f"dispatch {label}: solve_stats {out.solve_stats} on the "
+                 f"card, {ref_out.solve_stats} on the CPU")
+        if not (np.isfinite(out.sw).all() and out.x.shape == (
+                TD, d_inst.n_edges)):
+            fail(f"dispatch {label}: non-finite welfare or x of shape "
+                 f"{out.x.shape}")
+    esdp_x = d_runs["esdp cold"][0].x
+    for label in ("esdp incremental=cache", "esdp incremental=warm"):
+        if not np.array_equal(d_runs[label][0].x, esdp_x):
+            fail(f"dispatch {label}: x differs from the cold run's")
+    mid = slice(TD // 3, 2 * TD // 3)
+    share = d_runs["esdp cold"][0].dispatch_share[:, 1]
+    print(f"   every mode's per-slot x equals its CPU run's (plain versions, "
+          f"{time.perf_counter() - w0:.1f} s on the CPU) and solve_stats "
+          f"match; the incremental modes' x equal the cold run's; ESDP "
+          f"pod-b share before/during/after the brownout "
+          f"{share[:TD // 3].mean():.3f} / {share[mid].mean():.3f} / "
+          f"{share[2 * TD // 3:].mean():.3f}", flush=True)
+    d_seeds = [DSEED + i for i in range(8)]
+    reset()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    d_fleet = dispatch_sim().run_batch(d_seeds, "esdp", tiebreak=0.0)
+    torch.cuda.synchronize()
+    d_fleet_ms = (time.perf_counter() - w0) / TD * 1e3
+    d_fleet_counts = read_counts()
+    print(f"   run_batch over {len(d_seeds)} seeds: launches "
+          f"{d_fleet_counts}; {d_fleet_ms:.3f} ms per slot", flush=True)
+    if not expect(d_fleet_counts, dp_forward_batched=TD, dp_epilogue=TD):
+        fail(f"dispatch run_batch launched {d_fleet_counts}, expected one "
+             f"K2 forward and one epilogue per slot ({TD} each)")
+    for s, out in zip(d_seeds, d_fleet):
+        one = ClusterSim(d_inst, TD, speed_fn=d_speed, seed=s,
+                         schedule=d_sched).run("esdp", tiebreak=0.0)
+        if not (np.array_equal(out.x, one.x) and np.array_equal(
+                out.sw, one.sw) and np.array_equal(out.regret, one.regret)):
+            fail(f"dispatch run_batch: seed {s} differs from its run()")
+    print("   each seed's run_batch output equals its own run()", flush=True)
+    # where a cold ESDP slot's time goes: kernels by name, launches and the
+    # device's idle share over the whole T = TD cold run, under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    sim = dispatch_sim()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            sim.run("esdp", tiebreak=0.0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+    d_kernels = sorted(
+        ((getattr(e, "device_time_total", 0.0) / 1e3, e.count, e.key)
+         for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+        reverse=True)
+    busy = sum(ms for ms, _, _ in d_kernels)
+    n_launch = sum(n for _, n, _ in d_kernels)
+    print(f"   cold ESDP slot under the profiler (T={TD}, S={d_S}, all "
+          f"{TD} slots): {wall / TD:.3f} ms a slot, kernels "
+          f"{busy / TD:.4f} ms and {n_launch / TD:.1f} launches a slot, "
+          f"device idle "
+          f"{max(0.0, 1 - busy / wall) * 100:.1f}%", flush=True)
+    for ms, n, key in d_kernels[:6]:
+        print(f"      {ms / TD:8.4f} ms a slot {n / TD:6.1f}x  "
+              f"{key[:80]}", flush=True)
+    done(t0)
+
+    # warm re-solves on the fig-6 c_hi = 6 plane (S 801, C 126: the fused
+    # route): a real ESDP statistics trajectory, recorded through the
+    # solver registry, replayed through WarmCudaSolver
+    t0 = phase(f"warm_tiled: WarmCudaSolver on the fig6 c_hi=6 plane "
+               f"({s_cap6 + 1} x {big6_tables.n_states}), {N_WARM} solves "
+               "of an ESDP trajectory")
+    recorded = []
+
+    def recording(ups, sig, tables, s_cap, s_limit, allowed=None,
+                  u_max=None):
+        recorded.append((ups[0].clone(), sig[0].clone(), allowed[0].clone(),
+                         s_limit[0].clone()))
+        return cuda_solver(ups, sig, tables, s_cap, s_limit, allowed, u_max)
+
+    rec_policy = esdp.make_esdp_policy(
+        big6, T6, tables=big6_tables,
+        solver=Solver("recording", recording, accepts_batch=True))
+    simulate(big6, rec_policy, WARM_FROM + N_WARM, seed=SEED,
+             tables=big6_tables)
+    traj = recorded[WARM_FROM:]
+    del recorded[:]
+
+    def warm_solver():
+        return ops.WarmCudaSolver(big6_tables, s_cap6, u_max=u_max6,
+                                  checkpoint_every=WARM_K, device=dev)
+
+    def warm_pass(warm):
+        return [warm(u, s, big6_tables, s_cap6, lim, allowed=a,
+                     u_max=u_max6) for u, s, a, lim in traj]
+
+    def cold_pass():
+        return [cuda_solver(u[None], s[None], big6_tables, s_cap6, lim,
+                            allowed=a[None], u_max=u_max6)
+                for u, s, a, lim in traj]
+
+    warm = warm_solver()
+    reset()
+    torch.cuda.synchronize()
+    warm_out = warm_pass(warm)
+    torch.cuda.synchronize()
+    warm_counts = read_counts()
+    wst = warm.stats
+    want = dict(dp_chunk=wst["segments_launched"], dp_epilogue=N_WARM)
+    print(f"   stats {wst}, edge-skip rate {warm.skip_rate:.4f}; launches "
+          f"{warm_counts}", flush=True)
+    if not expect(warm_counts, **want):
+        fail(f"warm_tiled launched {warm_counts}, expected {want}")
+    for i, ((x, info), (cx, cinfo)) in enumerate(zip(warm_out, cold_pass())):
+        if not (torch.equal(x, cx[0]) and int(info["s_star"]) == int(
+                cinfo["s_star"][0]) and torch.equal(
+                    info["value_row"], cinfo["value_row"][0])):
+            fail(f"warm_tiled: solve {i} differs from the cold solve")
+    w_ms, _ = profiled_ms(lambda: warm_pass(warm_solver()), 1,
+                          ("dp_chunk_kernel", "dp_epilogue_kernel"))
+    c_ms, _ = profiled_ms(cold_pass, 1,
+                          ("dp_chunk_kernel", "dp_epilogue_kernel"))
+    warm_ms = None if w_ms is None else w_ms / N_WARM
+    cold_ms = None if c_ms is None else c_ms / N_WARM
+    print(f"   every warm solve equals the cold solve bitwise; device ms a "
+          f"solve (profiler, dp_chunk + dp_epilogue, averaged over the "
+          f"{N_WARM} solves from a fresh solver): warm "
+          f"{'not measured' if warm_ms is None else f'{warm_ms:.4f}'}, "
+          f"cold {'not measured' if cold_ms is None else f'{cold_ms:.4f}'}",
+          flush=True)
+    done(t0)
+
     # --------------------------------------- attention and SSD vs plain
     def rel_err(got, want):
         """max |got − want| / (1 + |want|) over the elements, in f32."""
@@ -812,6 +1037,38 @@ def main():
             fail(f"flash attention bf16 {(B, Sq, Sk, H, KH, hd)}: the "
                  f"tensor-core kernel is {e_new:.4g} from the f64 plain "
                  f"version, over 1.25x the CUDA-core kernel's {e_core:.4g}")
+    del q, k, v, got, want
+    done(t0)
+
+    t0 = phase("attention_vh: a v head dim other than q/k's (zero columns "
+               "up to the kernel's width) vs the plain version on the card")
+    # deepseek-v3's MLA widths (q/k 192, v 128: the CUDA-core kernel, at a
+    # cut of its 128 heads) and q/k 64, v 32 (the tensor-core kernel)
+    for B, S, H, KH, hd, vh, name in (
+            (1, 1024, 16, 16, 192, 128, "flash_attention"),
+            (2, 512, 8, 2, 64, 32, "flash_attention_wgmma")):
+        g = torch.Generator(dev).manual_seed(hd + vh)
+        q, k = (torch.randn(shape, generator=g, device=dev).bfloat16()
+                for shape in ((B, S, H, hd), (B, S, KH, hd)))
+        v = torch.randn((B, S, KH, vh), generator=g, device=dev).bfloat16()
+        before = dict(fa.LAUNCHES)
+        got = fa.flash_attention(q, k, v, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        launched = {kk: fa.LAUNCHES[kk] - before[kk] for kk in fa.LAUNCHES}
+        want = fa.flash_attention_ref(q, k, v, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"   bf16 B={B} S={S} H={H} KH={KH} q/k {hd} v {vh}: output "
+              f"{tuple(got.shape)}, launches {launched}, max |kernel - "
+              f"plain| / (1 + |plain|) {err:.3g} (tolerance {tols['bf16']})",
+              flush=True)
+        if tuple(got.shape) != (B, S, H, vh) or launched[name] != 1 or \
+                sum(launched.values()) != 1:
+            fail(f"attention_vh q/k {hd} v {vh}: shape {tuple(got.shape)}, "
+                 f"launches {launched}")
+        if not err <= tols["bf16"]:
+            fail(f"attention_vh q/k {hd} v {vh}: kernel differs from its "
+                 "plain version")
     del q, k, v, got, want
     done(t0)
 
@@ -1180,7 +1437,7 @@ def main():
     keep.append(epi_out)
     t3 = timed(checked(lib.dp_epilogue_launch, (
         V.data_ptr(), Wd.data_ptr(), ups.data_ptr(), offs.data_ptr(),
-        slim.data_ptr(), tables2.full_state, FLEET, E, S, C,
+        slim.data_ptr(), None, None, tables2.full_state, FLEET, E, W, S, C,
         epi_out[0].data_ptr(), epi_out[1].data_ptr(), epi_out[2].data_ptr(),
         stream)),
         lambda: kernel.dp_epilogue(V, Wd, ups, offs, slim,
@@ -1311,6 +1568,149 @@ def main():
         TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, one thread per "
         "cell", counts_edge["dp_edge"], worst["dp_edge"], t_k,
         p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C))
+    # the dispatch path's kernels at its plane (S 201, C 216, E 15): the
+    # whole-plane forward at B = 1 (run) and B = 8 (run_batch), and the
+    # epilogue's tabled instance on the warm solver's segmented words;
+    # dp_chunk on one warm segment of the fig-6 c_hi = 6 plane
+    d_tables = build_tables(d_inst.A, d_inst.c)
+    d_s_cap, d_E = d_S - 1, d_inst.n_edges
+    d_u_max = stats.u_max_for_horizon(TD, d_inst.m)
+    feas, offs, v0 = operands(d_tables, d_s_cap)
+    d_W = kernel.packed_words(d_E)
+    ups, sig, slim, alw = stats_case(d_inst, 8, 97, horizon=TD)
+    alw_i = alw.to(torch.int32)
+    for B, label, launches in ((1, "esdp cold", d_counts["esdp cold"]),
+                               (8, "run_batch", d_fleet_counts)):
+        u, s, a = (t[:B].contiguous() for t in (ups, sig, alw_i))
+        Vk, Wk = kernel.dp_forward_batched(u, s, a, feas, offs, v0)
+        Vp, Wp = ref.dp_forward_ref(u, s, a, feas, offs, v0)
+        torch.cuda.synchronize()
+        err = max(max_err(Vk, Vp), max_err(Wk, Wp))
+        if err:
+            fail(f"dispatch plane B={B}: the forward differs from its plain "
+                 "version")
+        out = (torch.empty((B, d_S, d_C), dtype=torch.int32, device=dev),
+               torch.empty((B, d_W, d_S, d_C), dtype=torch.int32,
+                           device=dev))
+        keep.append(out)
+        raw = checked(lib.dp_forward_launch, (
+            u.data_ptr(), s.data_ptr(), a.data_ptr(), feas.data_ptr(),
+            offs.data_ptr(), v0.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), B, d_E, d_S, d_C, stream))
+        t_k = timed(raw, lambda: kernel.dp_forward_batched(u, s, a, feas,
+                                                           offs, v0),
+                    "dp_forward_kernel", 200)
+        p_k = per_call_ms(lambda: ref.dp_forward_ref(u, s, a, feas, offs,
+                                                     v0), 3, reps=3)
+        nbytes = 4 * (3 * B * d_E + d_E * d_C + d_E + d_S * d_C
+                      + B * d_S * d_C + B * d_W * d_S * d_C)
+        row(f"dp_forward_batched B={B} "
+            f"({'K1 _dp_kernel' if B == 1 else 'K2 _dp_kernel_batched'}, "
+            f"dispatch {label})",
+            TPU + ("kernel.py:409" if B == 1 else "kernel.py:484"),
+            f"B={B} S={d_S} C={d_C} E={d_E}",
+            launches["dp_forward_batched"], err, t_k, p_k,
+            (nbytes, FWD_OPS_PER_CELL * B * d_E * d_S * d_C))
+    warm_d = ops.WarmCudaSolver(d_tables, d_s_cap, u_max=d_u_max,
+                                checkpoint_every=8, device=dev)
+    warm_d(ups[0], sig[0], d_tables, d_s_cap, slim[0], allowed=alw[0])
+    V_d = warm_d._planes[-1][None]
+    words_d = warm_d._words_cat
+    u1, s1 = ups[:1].contiguous(), slim[:1].contiguous()
+    got = kernel.dp_epilogue(V_d, words_d, u1, offs, s1, d_tables.full_state,
+                             warm_d._w_rows, warm_d._bits)
+    want = ref.dp_epilogue_ref(V_d, words_d, u1, offs, s1,
+                               d_tables.full_state, warm_d._w_rows,
+                               warm_d._bits)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    if err:
+        fail("the tabled epilogue differs from its plain version")
+    epi_out = (torch.empty((1, d_E), dtype=torch.int32, device=dev),
+               torch.empty((1,), dtype=torch.int32, device=dev),
+               torch.empty((1, d_S), dtype=torch.int32, device=dev))
+    keep.append(epi_out)
+    raw = checked(lib.dp_epilogue_launch, (
+        V_d.data_ptr(), words_d.data_ptr(), u1.data_ptr(), offs.data_ptr(),
+        s1.data_ptr(), warm_d._w_rows.data_ptr(), warm_d._bits.data_ptr(),
+        d_tables.full_state, 1, d_E, words_d.shape[1], d_S, d_C,
+        epi_out[0].data_ptr(), epi_out[1].data_ptr(), epi_out[2].data_ptr(),
+        stream))
+    t_k = timed(raw, lambda: kernel.dp_epilogue(
+        V_d, words_d, u1, offs, s1, d_tables.full_state, warm_d._w_rows,
+        warm_d._bits), "dp_epilogue_kernel", 500)
+    p_k = per_call_ms(lambda: ref.dp_epilogue_ref(
+        V_d, words_d, u1, offs, s1, d_tables.full_state, warm_d._w_rows,
+        warm_d._bits), 3, reps=3)
+    # the default epilogue on the same plane shape, for comparison
+    Vc, Wc = kernel.dp_forward_batched(u1, sig[:1].contiguous(),
+                                       alw_i[:1].contiguous(), feas, offs, v0)
+    keep.append((Vc, Wc))
+    default_ms, _ = profiled_ms(checked(lib.dp_epilogue_launch, (
+        Vc.data_ptr(), Wc.data_ptr(), u1.data_ptr(), offs.data_ptr(),
+        s1.data_ptr(), None, None, d_tables.full_state, 1, d_E, d_W, d_S,
+        d_C, epi_out[0].data_ptr(), epi_out[1].data_ptr(),
+        epi_out[2].data_ptr(), stream)), 500, "dp_epilogue_kernel")
+    print(f"   the default epilogue at the same shape (B=1 S={d_S} C={d_C} "
+          f"E={d_E}): {default_ms} ms (profiler device time)", flush=True)
+    # as the default epilogue's bound, plus the table (2E words)
+    x_t = got[0]
+    nbytes = 4 * ((2 * d_S + 4 * d_E + 2) + int(x_t.sum())
+                  + int(x_t.any(0).sum()))
+    row("dp_epilogue tabled (warm segments: word row, bit per edge)",
+        TPU + "ops.py:687", f"B=1 S={d_S} C={d_C} E={d_E}, "
+        f"{words_d.shape[1]} word rows", d_counts["esdp incremental=warm"][
+            "dp_epilogue"], err, t_k, p_k, (nbytes, 5 * d_S + 6 * d_E))
+    # dp_chunk on one warm segment: the first WARM_K fold steps of the
+    # fig-6 c_hi = 6 plane, from the cold-start plane
+    S, C = s_cap6 + 1, big6_tables.n_states
+    feas6, offs6, v06 = operands(big6_tables, s_cap6)
+    lo6 = E6 - WARM_K
+    u6, s6, a6 = fig6_stats(1, 96)
+    seg = [t[:, lo6:].contiguous() for t in (u6, s6, a6.to(torch.int32))]
+    f_seg, o_seg = feas6[lo6:].contiguous(), offs6[lo6:].contiguous()
+    Vp, Wp = ref.dp_forward_ref(*seg, f_seg, o_seg, v06)
+    Vk = torch.empty((1, S, C), dtype=torch.int32, device=dev)
+    Wk = torch.zeros((1, 1, S, C), dtype=torch.int32, device=dev)
+    kernel.dp_chunk(v06, Vk, Wk, *seg, f_seg, o_seg, 0, WARM_K,
+                    u_max=u_max6, off_max=int(offs6.max()), block_s=auto6[1],
+                    block_c=auto6[2])
+    torch.cuda.synchronize()
+    err = max(max_err(Vk, Vp), max_err(Wk, Wp))
+    if err:
+        fail("dp_chunk on a warm segment differs from its plain version")
+    out = (torch.empty((1, S, C), dtype=torch.int32, device=dev),
+           torch.empty((1, S, C), dtype=torch.int32, device=dev),
+           torch.zeros((1, 1, S, C), dtype=torch.int32, device=dev))
+    keep.append((out, seg, f_seg, o_seg))
+    raw = checked(lib.dp_chunk_launch, (
+        seg[0].data_ptr(), seg[1].data_ptr(), seg[2].data_ptr(),
+        f_seg.data_ptr(), o_seg.data_ptr(), v06.data_ptr(), 0,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), 1, WARM_K,
+        S, C, 0, WARM_K, stream))
+
+    def seg_wrapped():
+        kernel.dp_chunk(v06, torch.empty((1, S, C), dtype=torch.int32,
+                                         device=dev),
+                        torch.zeros((1, 1, S, C), dtype=torch.int32,
+                                    device=dev), *seg, f_seg, o_seg, 0,
+                        WARM_K, u_max=u_max6, off_max=int(offs6.max()),
+                        block_s=auto6[1], block_c=auto6[2])
+
+    t_k = timed(raw, seg_wrapped, "dp_chunk_kernel", 20)
+    p_k = per_call_ms(lambda: ref.dp_forward_ref(*seg, f_seg, o_seg, v06), 3,
+                      reps=3)
+    nbytes = 4 * (3 * WARM_K + WARM_K * C + WARM_K + 2 * S * C + S * C)
+    row(f"dp_chunk B=1 (K4 _fused_chunk_kernel, one warm segment of "
+        f"{WARM_K} edges)", TPU + "kernel.py:697",
+        f"B=1 S={S} C={C} {WARM_K} edges, one cooperative launch",
+        warm_counts["dp_chunk"], err, t_k, p_k,
+        (nbytes, FWD_OPS_PER_CELL * WARM_K * S * C))
+    print(f"   dispatch slot (ms, host clock, T={TD}): "
+          + ", ".join(f"{k} {v[1]:.3f}" for k, v in d_runs.items())
+          + f"; run_batch B=8 {d_fleet_ms:.3f}; warm_tiled device ms a "
+          f"solve: warm {warm_ms}, cold {cold_ms}", flush=True)
+
     # K6 and K7 at the Zamba2-7B serving shapes; K6 in bf16 (the serving
     # path's tensor-core kernel) and in f32 (the f32 prefill's CUDA-core
     # kernel)

@@ -4,7 +4,7 @@ The port has the hybrid family (zamba2-7b) so far; every other
 architecture of the JAX package raises ``NotImplementedError``.
 """
 from . import zamba2_7b
-from .base import ModelConfig, Shape
+from .base import SHAPES, ModelConfig, Shape, shape_applicable
 
 _MODULES = {"zamba2-7b": zamba2_7b}
 
@@ -25,4 +25,5 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.FULL
 
 
-__all__ = ["ARCHS", "ModelConfig", "Shape", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "Shape", "get_config",
+           "shape_applicable"]

@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig", "Shape"]
+__all__ = ["ModelConfig", "Shape", "SHAPES", "shape_applicable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +122,20 @@ class Shape:
     global_batch: int
     kind: str  # train | prefill | decode
 
+
+
+SHAPES: dict[str, Shape] = {
+    "train_4k":    Shape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  Shape("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   Shape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(config: ModelConfig, shape: Shape) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped): long_500k needs sub-quadratic
+    attention."""
+    if shape.name == "long_500k" and not config.sub_quadratic:
+        return False, ("long_500k needs sub-quadratic attention; "
+                       f"{config.name} is full-attention (family={config.family})")
+    return True, ""

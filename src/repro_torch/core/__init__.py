@@ -5,6 +5,8 @@ Public API:
   generate_instance / Instance / instance_from_arrays — problem instances
   build_tables / solve_budgeted_dp      — Algorithm 2 (int32 reference)
   get_solver / Solver                   — backends (reference | cuda | auto)
+  CachedSolver / SolveCache             — quantized-statistics solve cache
+  solve_budgeted_dp_warm / WarmCarry    — warm-started re-solves across slots
   make_esdp_policy / esdp_factory       — Algorithm 1 (ESDP)
   make_hswf_policy / make_lcf_policy / make_lwtf_policy — paper baselines
   simulate / simulate_batch / SimResult — the slot simulator
@@ -20,12 +22,16 @@ from .env import (Draws, Scenario, SimResult, default_scenario, make_draws,
                   simulate, simulate_batch)
 from .esdp import Policy, PolicyFactory, Slot, esdp_factory, make_esdp_policy
 from .graph import Instance, generate_instance, instance_from_arrays
-from .solvers import SOLVER_NAMES, Solver, get_solver
+from .incremental import (CacheStats, SolveCache, WarmCarry,
+                          solve_budgeted_dp_warm, warm_carry_init)
+from .solvers import SOLVER_NAMES, CachedSolver, Solver, get_solver
 
 __all__ = [
     "Instance", "generate_instance", "instance_from_arrays",
     "DPTables", "build_tables", "solve_budgeted_dp", "oracle_knapsack",
     "SOLVER_NAMES", "Solver", "get_solver",
+    "CachedSolver", "SolveCache", "CacheStats",
+    "WarmCarry", "warm_carry_init", "solve_budgeted_dp_warm",
     "Policy", "PolicyFactory", "Slot", "make_esdp_policy", "esdp_factory",
     "make_hswf_policy", "make_lcf_policy", "make_lwtf_policy",
     "make_msr_greedy_policy", "make_msr_index_policy",

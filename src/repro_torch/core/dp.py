@@ -26,7 +26,8 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["NEG", "FNEG", "DPTables", "build_tables", "solve_budgeted_dp",
-           "oracle_knapsack", "oracle_value", "dp_edge_fold", "initial_plane"]
+           "oracle_knapsack", "oracle_value", "dp_edge_fold", "initial_plane",
+           "select_and_backtrack"]
 
 NEG = -(2 ** 29)  # -inf sentinel; NEG + any value < 2²⁹ stays negative
 FNEG = -1e30
@@ -184,6 +185,25 @@ def solve_budgeted_dp(
         V, decisions[e] = dp_edge_fold(V, upsilon[:, e], sigma2[:, e], feas,
                                        next_state[:, e], rows)
 
+    x, s_star, v_row = select_and_backtrack(V, decisions.__getitem__,
+                                            upsilon, s_limit, tables)
+    if single:
+        return x[0], {"s_star": s_star[0], "value_row": v_row[0]}
+    return x, {"s_star": s_star, "value_row": v_row}
+
+
+def select_and_backtrack(V, decision, upsilon, s_limit, tables: DPTables):
+    """The eq.-17 s* rule and the backtrack over B folded planes.
+
+    ``V`` (B, S, C) int32 after all E edges; ``decision(e)`` the (B, S, C)
+    bool decision plane of edge e; ``upsilon`` (B, E); ``s_limit`` (B,).
+    Returns ``x`` (B, E) int32, ``s_star`` (B,) int32 and the raw value
+    row (B, S) at the full capacity state.
+    """
+    B, S, _ = V.shape
+    E = upsilon.shape[1]
+    dev = V.device
+    _, next_state = _device_tables(tables, dev)
     v_row = V[:, :, tables.full_state]  # (B, S)
     s_vals = torch.arange(S, device=dev, dtype=torch.int32)
     # feasible ⇔ value ≥ 0: Σ̂² ≥ 0, while NEG-seeded chains stay < 0
@@ -198,13 +218,11 @@ def solve_budgeted_dp(
     cs = torch.full((B,), tables.full_state, dtype=torch.long, device=dev)
     x = torch.zeros((B, E), dtype=torch.int32, device=dev)
     for e in range(E):
-        d = decisions[e][b_idx, s, cs]
+        d = decision(e)[b_idx, s, cs]
         x[:, e] = d.to(torch.int32)
         s = torch.where(d, torch.clamp(s - upsilon[:, e], min=0), s)
         cs = torch.where(d, next_state[cs, e], cs)
-    if single:
-        return x[0], {"s_star": s_star[0], "value_row": v_row[0]}
-    return x, {"s_star": s_star, "value_row": v_row}
+    return x, s_star, v_row
 
 
 def _oracle_fold(values, tables: DPTables, take_allowed, decisions=None):

@@ -164,6 +164,8 @@ def make_draws(instance: Instance, T: int, seed: int, device=None) -> Draws:
 def _to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
+    if hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(_to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_numpy(v) for v in tree)
     return tree

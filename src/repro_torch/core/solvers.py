@@ -29,8 +29,11 @@ back to ``auto``; an explicit name in code wins over the env var, except
 that explicit ``"auto"`` lets the env var refine it.  An invalid env value
 warns and falls back to ``auto``; an invalid name in code raises.
 
-The cache and fallback wrappers of the JAX package (``CachedSolver``,
-``FallbackSolver``) come with the incremental re-solve slice.
+Incremental layer: :class:`CachedSolver` wraps any backend with the
+quantized-statistics solve cache (``core.incremental.SolveCache``) — the
+same call contract, ``accepts_batch`` passed through, no solve on a hit.
+The JAX package's degradation wrapper (``FallbackSolver``) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -39,11 +42,13 @@ import os
 import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .dp import NEG, DPTables, solve_budgeted_dp
 
-__all__ = ["SOLVER_ENV_VAR", "SOLVER_NAMES", "Solver", "get_solver"]
+__all__ = ["SOLVER_ENV_VAR", "SOLVER_NAMES", "Solver", "get_solver",
+           "CachedSolver"]
 
 SOLVER_ENV_VAR = "REPRO_DP_SOLVER"
 SOLVER_NAMES = ("auto", "reference", "cuda")
@@ -134,9 +139,107 @@ _SOLVERS = {
 }
 
 
-def get_solver(name: "str | Solver | None" = None) -> Solver:
+class CachedSolver:
+    """A backend wrapped with the quantized-statistics solve cache.
+
+    Same call contract as :class:`Solver`, and ``accepts_batch`` follows
+    the wrapped backend.  The cache is host-side: each call copies its
+    inputs to the host to key them (one sync on the card), ticks the
+    staleness clock once and, on a hit, returns the stored tensors without
+    a solve.  The JAX package lets traced inputs bypass the cache; the
+    port has no tracing, so every call is keyed (``stats.bypasses`` stays
+    0).
+
+    Batched (B, E) inputs are keyed per row.  A full hit skips the solve;
+    any miss solves the whole batch in one batched call, as the JAX
+    package does, and refreshes every row (so a quantized cache stores the
+    fresh solutions of rows that hit, and their ticks restart).
+
+    With the default quanta the cache is exact: hits are bit-identical to
+    cold solves.  ``exact`` says which mode this wrapper is in.
+    """
+
+    def __init__(self, base: Solver, cache=None, **cache_kwargs):
+        from .incremental import SolveCache
+        self.base = base
+        self.cache = cache if cache is not None else SolveCache(**cache_kwargs)
+
+    @property
+    def name(self) -> str:
+        return f"cached:{self.base.name}"
+
+    @property
+    def accepts_batch(self) -> bool:
+        return self.base.accepts_batch
+
+    @property
+    def exact(self) -> bool:
+        return self.cache.exact
+
+    @property
+    def stats(self):
+        return self.cache.stats
+
+    def __call__(
+        self,
+        upsilon,
+        sigma2,
+        tables: DPTables,
+        s_cap: int,
+        s_limit,
+        allowed=None,
+        u_max=None,
+    ):
+        from .incremental import host
+        ups_t = torch.as_tensor(upsilon)
+        dev = ups_t.device
+        sig_t = torch.as_tensor(sigma2, device=dev)
+        ups, sig = host(ups_t), host(sig_t)
+        self.cache.tick()
+        if ups.ndim == 1:
+            key = self.cache.key(ups, sig, allowed, int(host(s_limit)))
+            hit = self.cache.get(key)
+            if hit is not None:
+                self.cache.stats.launches_saved += 1
+                return hit
+            alw = (None if allowed is None
+                   else torch.as_tensor(allowed, device=dev))
+            out = self.base(ups_t, sig_t, tables, s_cap,
+                            torch.as_tensor(s_limit, device=dev),
+                            allowed=alw, u_max=u_max)
+            self.cache.put(key, out)
+            return out
+
+        B = ups.shape[0]
+        slim = np.broadcast_to(host(s_limit), (B,))
+        alw = (np.ones(ups.shape, bool) if allowed is None
+               else np.broadcast_to(host(allowed).astype(bool), ups.shape))
+        keys = [self.cache.key(ups[b], sig[b], alw[b], int(slim[b]))
+                for b in range(B)]
+        hits = [self.cache.get(k) for k in keys]
+        if all(h is not None for h in hits):
+            self.cache.stats.launches_saved += 1
+            return (torch.stack([h[0] for h in hits]),
+                    {k: torch.stack([h[1][k] for h in hits])
+                     for k in ("s_star", "value_row")})
+        x, info = self.base(ups_t, sig_t, tables, s_cap,
+                            torch.as_tensor(np.array(slim), device=dev),
+                            allowed=torch.as_tensor(np.array(alw),
+                                                    device=dev),
+                            u_max=u_max)
+        for b, k in enumerate(keys):
+            self.cache.put(k, (x[b], {"s_star": info["s_star"][b],
+                                      "value_row": info["value_row"][b]}))
+        return x, info
+
+
+def get_solver(name: "str | Solver | None" = None):
     """The backend ``name`` selects (see the module docstring); a
-    ``Solver`` passes through unchanged."""
-    if isinstance(name, Solver):
+    ``Solver``, or a solver-shaped wrapper (callable, with ``name`` and
+    ``accepts_batch``, as :class:`CachedSolver`), passes through
+    unchanged."""
+    if isinstance(name, Solver) or (
+            callable(name) and hasattr(name, "accepts_batch")
+            and hasattr(name, "name")):
         return name
     return _SOLVERS[_requested(name)]

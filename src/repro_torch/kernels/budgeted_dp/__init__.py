@@ -1,11 +1,12 @@
 """Budgeted-DP kernels (paper Algorithm 2) for Hopper, with their plain
 PyTorch versions (``ref``), the tile choice (``tiling``) and the solve
-wrapper (``ops``)."""
+wrappers (``ops``: the cold solve and the warm-started one)."""
 from .kernel import (LAUNCHES, dp_chunk, dp_edge, dp_epilogue,
                      dp_forward_batched, dp_forward_blocked,
                      dp_forward_fused)
-from .ops import (VALUE_BOUND, max_achievable_value, prepare_tables,
-                  solve_budgeted_dp_batched, validate_value_row)
+from .ops import (VALUE_BOUND, WarmCudaSolver, max_achievable_value,
+                  prepare_tables, solve_budgeted_dp_batched,
+                  validate_value_row)
 from .tiling import (SMEM_LIMIT_BYTES, check_tiling, choose_tiling,
                      fused_smem_bytes, whole_plane_smem_bytes)
 
@@ -13,5 +14,6 @@ __all__ = ["LAUNCHES", "dp_forward_batched", "dp_edge", "dp_chunk",
            "dp_forward_blocked", "dp_forward_fused", "dp_epilogue",
            "VALUE_BOUND", "prepare_tables", "max_achievable_value",
            "validate_value_row", "solve_budgeted_dp_batched",
+           "WarmCudaSolver",
            "SMEM_LIMIT_BYTES", "check_tiling", "choose_tiling",
            "fused_smem_bytes", "whole_plane_smem_bytes"]

@@ -22,8 +22,7 @@ def _declare(lib) -> None:
     lib.dp_edge_launch.restype = i
     lib.dp_chunk_launch.argtypes = [p] * 6 + [i] + [p] * 3 + [i] * 6 + [p]
     lib.dp_chunk_launch.restype = i
-    lib.dp_epilogue_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                       p, p, p, p]
+    lib.dp_epilogue_launch.argtypes = [p] * 7 + [i] * 6 + [p] * 4
     lib.dp_epilogue_launch.restype = i
 
 

@@ -99,7 +99,10 @@
 //
 // Epilogue.  One block per instance: a block-wide first-index argmax of
 // s + sqrtf((float)v) over the feasible s <= s_limit, then one thread walks
-// the E edges from (s*, full_state).  It must be compiled WITHOUT
+// the E edges from (s*, full_state).  Its tabled instance reads edge e's
+// decision where a table puts it, for a forward run in segments that pack
+// their own words (the warm re-solve's carried planes, ops.WarmCudaSolver;
+// the JAX package's jnp select_back in kernels/budgeted_dp/ops.py).  It must be compiled WITHOUT
 // --use_fast_math: the score needs IEEE-rounded sqrtf or s* flips.
 //
 // The int32 arithmetic with NEG = -2^29 keeps every NEG-seeded chain below
@@ -467,18 +470,23 @@ dp_chunk_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
   }
 }
 
+// TABLED: edge e's decision is bit bits[e] of word word_rows[e] (a forward
+// run in segments that number their edges from 0, W words in all); else
+// bit e % 32 of word e / 32, with W = ceil(E / 32).
+template <bool TABLED>
 __global__ void __launch_bounds__(EPI_THREADS)
 dp_epilogue_kernel(const int* __restrict__ vout,
                    const unsigned* __restrict__ words,
                    const int* __restrict__ ups, const int* __restrict__ offs,
-                   const int* __restrict__ s_limit, int full_state, int E,
-                   int S, int C, int* __restrict__ x,
+                   const int* __restrict__ s_limit,
+                   const int* __restrict__ word_rows,
+                   const int* __restrict__ bits, int full_state, int E,
+                   int W, int S, int C, int* __restrict__ x,
                    int* __restrict__ s_star, int* __restrict__ value_row) {
   __shared__ float best_score[EPI_THREADS];
   __shared__ int best_s[EPI_THREADS];
   const int b = blockIdx.x;
   const int SC = S * C;
-  const int W = (E + 31) >> 5;
   const int* v_b = vout + (size_t)b * SC;
   const int lim = s_limit[b];
 
@@ -520,8 +528,10 @@ dp_epilogue_kernel(const int* __restrict__ vout,
     int s = star;
     int cs = full_state;
     for (int e = 0; e < E; ++e) {
-      const unsigned w = words_b[(size_t)(e >> 5) * SC + s * C + cs];
-      const int d = (int)((w >> (e & 31)) & 1u);
+      const int row = TABLED ? word_rows[e] : e >> 5;
+      const int bit = TABLED ? bits[e] : e & 31;
+      const unsigned w = words_b[(size_t)row * SC + s * C + cs];
+      const int d = (int)((w >> bit) & 1u);
       x[(size_t)b * E + e] = d;
       if (d) {
         s = max(s - ups_b[e], 0);
@@ -647,13 +657,25 @@ int dp_chunk_launch(const int* ups, const int* sig, const int* alw,
   return (int)cudaGetLastError();
 }
 
+// The epilogue for B instances, one block each.  word_rows and bits are
+// both null (edge e in bit e % 32 of word e / 32, W = ceil(E / 32)) or
+// both an (E,) table over W words a plane.
 int dp_epilogue_launch(const int* vout, const unsigned* words, const int* ups,
-                       const int* offs, const int* s_limit, int full_state,
-                       int B, int E, int S, int C, int* x, int* s_star,
+                       const int* offs, const int* s_limit,
+                       const int* word_rows, const int* bits, int full_state,
+                       int B, int E, int W, int S, int C, int* x, int* s_star,
                        int* value_row, void* stream) {
-  dp_epilogue_kernel<<<B, EPI_THREADS, 0, (cudaStream_t)stream>>>(
-      vout, words, ups, offs, s_limit, full_state, E, S, C, x, s_star,
-      value_row);
+  if ((word_rows == nullptr) != (bits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (word_rows == nullptr) {
+    dp_epilogue_kernel<false><<<B, EPI_THREADS, 0, (cudaStream_t)stream>>>(
+        vout, words, ups, offs, s_limit, nullptr, nullptr, full_state, E,
+        (E + 31) >> 5, S, C, x, s_star, value_row);
+  } else {
+    dp_epilogue_kernel<true><<<B, EPI_THREADS, 0, (cudaStream_t)stream>>>(
+        vout, words, ups, offs, s_limit, word_rows, bits, full_state, E, W,
+        S, C, x, s_star, value_row);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -265,27 +265,44 @@ def dp_forward_fused(
     return V, words
 
 
-def dp_epilogue(V, words, upsilon, offsets, s_limit, full_state: int):
+def dp_epilogue(
+    V, words, upsilon, offsets, s_limit, full_state: int, word_rows=None, bits=None
+):
     """s* (eq. 17), the backtrack and the value row for B instances.
 
-    ``V`` (B, S, C), ``words`` (B, ⌈E/32⌉, S, C), ``upsilon`` (B, E),
-    ``offsets`` (E,), ``s_limit`` (B,), all int32 on one device.  Returns
-    ``x`` (B, E), ``s_star`` (B,) and ``value_row`` (B, S) int32, the
-    value row NEG at budget-infeasible entries.
+    ``V`` (B, S, C), ``words`` (B, W, S, C), ``upsilon`` (B, E),
+    ``offsets`` (E,), ``s_limit`` (B,), all int32 on one device.  Edge
+    e's decision is bit e % 32 of word e // 32 (W = ⌈E/32⌉), or, with the
+    optional (E,) int32 table ``word_rows``/``bits``, bit ``bits[e]`` of
+    word ``word_rows[e]`` (any W): the packing of a forward run in
+    segments (``ops.WarmCudaSolver``).  Returns ``x`` (B, E), ``s_star``
+    (B,) and ``value_row`` (B, S) int32, the value row NEG at
+    budget-infeasible entries.
     """
     B, S, C = V.shape
     E = upsilon.shape[1]
     dev = V.device
+    W = packed_words(E) if word_rows is None else words.shape[1]
     _check("V", V, (B, S, C), dev)
-    _check("words", words, (B, packed_words(E), S, C), dev)
+    _check("words", words, (B, W, S, C), dev)
     _check("upsilon", upsilon, (B, E), dev)
     _check("offsets", offsets, (E,), dev)
     _check("s_limit", s_limit, (B,), dev)
+    if (word_rows is None) != (bits is None):
+        raise ValueError("word_rows and bits go together")
+    if word_rows is not None:
+        _check("word_rows", word_rows, (E,), dev)
+        _check("bits", bits, (E,), dev)
+        # on the card a bad entry reads outside ``words`` (one host read)
+        if bool(((word_rows < 0) | (word_rows >= W) | (bits < 0)
+                 | (bits >= 32)).any()):
+            raise ValueError(f"word_rows outside [0, {W}) or bits outside "
+                             "[0, 32)")
     if not 0 <= full_state < C:
         raise ValueError(f"full_state={full_state} outside [0, {C})")
     if dev.type == "cpu":
         return ref.dp_epilogue_ref(V, words, upsilon, offsets, s_limit,
-                                   full_state)
+                                   full_state, word_rows, bits)
     _device(dev)
     x = torch.empty((B, E), dtype=torch.int32, device=dev)
     s_star = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -293,8 +310,9 @@ def dp_epilogue(V, words, upsilon, offsets, s_limit, full_state: int):
     with torch.cuda.device(dev):
         err = build.load().dp_epilogue_launch(
             V.data_ptr(), words.data_ptr(), upsilon.data_ptr(),
-            offsets.data_ptr(), s_limit.data_ptr(), full_state, B, E, S, C,
-            x.data_ptr(), s_star.data_ptr(), value_row.data_ptr(),
+            offsets.data_ptr(), s_limit.data_ptr(), _ptr(word_rows),
+            _ptr(bits), full_state, B, E, W, S, C, x.data_ptr(),
+            s_star.data_ptr(), value_row.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.LIBRARY.check(err, "dp_epilogue")
     LAUNCHES["dp_epilogue"] += 1

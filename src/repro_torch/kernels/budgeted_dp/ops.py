@@ -1,12 +1,14 @@
 """ESDP Algorithm 2 on the budgeted-DP kernels: operands, checks, solves.
 
-Counterpart of the JAX package's ``kernels/budgeted_dp/ops.py`` (its
-``WarmPallasSolver`` waits for the incremental re-solve slice).
-``solve_budgeted_dp_batched`` is the one solve entry point, batch-first
-(B ≥ 1): the forward — the whole-plane kernel, or the fused or per-edge
-pipeline on tiles when the plane outgrows one block's shared memory
-(``tiling.choose_tiling``) — then the epilogue (``kernel.dp_epilogue``:
-s*, backtrack, value row), with no host sync.
+Counterpart of the JAX package's ``kernels/budgeted_dp/ops.py``.
+``solve_budgeted_dp_batched`` is the one cold solve entry point,
+batch-first (B ≥ 1): the forward — the whole-plane kernel, or the fused or
+per-edge pipeline on tiles when the plane outgrows one block's shared
+memory (``tiling.choose_tiling``) — then the epilogue
+(``kernel.dp_epilogue``: s*, backtrack, value row), with no host sync.
+:class:`WarmCudaSolver` (the JAX package's ``WarmPallasSolver``) re-solves
+one instance slot after slot, launching only the fold segments after the
+first changed edge.
 
 VALUE_BOUND: the int32 plane with ``core.dp.NEG = -2**29`` is exact while
 every DP partial sum stays below 2²⁹ (NEG-seeded chains then stay
@@ -24,12 +26,14 @@ import torch
 
 from ...core import dp as core_dp
 from ...core.dp import DPTables
+from ...device import resolve_device
 from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
-                     dp_forward_fused)
+                     dp_forward_fused, packed_words)
 from .tiling import check_tiling, choose_tiling
 
 __all__ = ["VALUE_BOUND", "prepare_tables", "max_achievable_value",
-           "validate_value_row", "solve_budgeted_dp_batched"]
+           "validate_value_row", "solve_budgeted_dp_batched",
+           "WarmCudaSolver"]
 
 VALUE_BOUND = 2 ** 29  # int32 plane: NEG + any partial sum stays negative
 
@@ -164,6 +168,21 @@ def _s_limit(s_limit, B: int, device) -> torch.Tensor:
     return s_limit.reshape(-1).expand(B).contiguous()
 
 
+def _forward(args, tiling, u_max, off_max):
+    """The forward pipeline ``tiling = (block_e, block_s, block_c)``
+    selects, on ``args = (ups, sig, alw, feas, offs, v0)``: the whole plane
+    (``block_c`` None), the per-edge one (``block_e`` None) or the fused
+    one.  Returns ``(V, words)``."""
+    block_e, block_s, block_c = tiling
+    if block_c is None:
+        return dp_forward_batched(*args)
+    if block_e is None:
+        return dp_forward_blocked(*args)
+    return dp_forward_fused(*args, block_e=block_e, u_max=u_max,
+                            off_max=off_max, block_s=block_s,
+                            block_c=block_c)
+
+
 def solve_budgeted_dp_batched(
     upsilon,
     sigma2,
@@ -228,15 +247,197 @@ def solve_budgeted_dp_batched(
     ups = upsilon.to(torch.int32).contiguous()
     sig = sigma2.to(torch.int32).contiguous()
     alw = None if allowed is None else allowed.to(torch.int32).contiguous()
-    args = (ups, sig, alw, feas, offs, v0)
-    if block_c is None:
-        V, words = dp_forward_batched(*args)
-    elif block_e is None:
-        V, words = dp_forward_blocked(*args)
-    else:
-        V, words = dp_forward_fused(*args, block_e=block_e, u_max=u_max,
-                                    off_max=off_max, block_s=block_s,
-                                    block_c=block_c)
+    V, words = _forward((ups, sig, alw, feas, offs, v0),
+                        (block_e, block_s, block_c), u_max, off_max)
     x, s_star, row = dp_epilogue(V, words, ups, offs,
                                  _s_limit(s_limit, B, dev), tables.full_state)
     return x, {"s_star": s_star, "value_row": row}
+
+
+class WarmCudaSolver:
+    """Warm-started solves of one instance: carried value planes and
+    per-segment forward launches (the JAX package's ``WarmPallasSolver``).
+
+    The fold (edges E−1 … 0) is split into fixed segments of
+    ``checkpoint_every`` fold steps, segment si covering edges
+    ``[max(E−(si+1)k, 0), E−si·k)``.  Each segment is one forward of the
+    cold path on the segment's contiguous slices of Υ̂, Σ̂², allowed,
+    feasible and offsets, seeded with the previous segment's plane: on a
+    whole plane one ``dp_forward_batched`` launch (K1 at B = 1), on a
+    tiled one ``dp_chunk`` launches (K4, one per ≤ 32 edges) or, without a
+    fused tile, ``dp_edge`` ones — the tiling ``choose_tiling`` picks for
+    the segment's edge count, as the JAX package does.  Chaining launches
+    through a plane is the same int32 operation sequence as one launch, so
+    the split is bit-invisible.  Across calls the solver keeps every
+    inter-segment plane and each segment's packed words: when the new
+    inputs leave a prefix of fold steps unchanged (Υ̂, Σ̂² and allowed, in
+    fold order), every fully unchanged segment is skipped and the fold
+    resumes from the stored plane before the first touched one.  A call
+    whose only change is ``s_limit`` launches no forward.
+
+    The words are packed per segment in local edge numbering and stacked
+    along the word axis; the epilogue (one launch a call) reads edge e at
+    the (word row, bit) of a table made here.  ``stats`` counts solves,
+    segments launched and skipped, edges folded and skipped and full hits,
+    under the JAX package's keys, and ``skip_rate`` the skipped share of
+    edges.
+
+    One instance is bound to one (tables, s_cap) problem on one device
+    (``None`` is the card; on the CPU the wrappers run the plain
+    versions).  Inputs may be tensors on that device or host arrays; the
+    delta mask is computed on the host (one copy a call).  Nothing catches
+    a failed launch.  ``accepts_batch`` is False: batched fleets use the
+    solve cache (``core.solvers.CachedSolver``).
+    """
+
+    accepts_batch = False
+
+    def __init__(
+        self,
+        tables: DPTables,
+        s_cap: int,
+        u_max=None,
+        checkpoint_every: int = 8,
+        device=None,
+    ):
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:  # as tensors report it
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.tables = tables
+        self.s_cap = int(s_cap)
+        self.u_max = int(u_max) if u_max is not None else self.s_cap + 1
+        self.k = k = int(checkpoint_every)
+        if k < 1:
+            raise ValueError("checkpoint_every must be >= 1")
+        feas, offs, v0 = _operands(tables, self.s_cap, self.device)
+        self._feas, self._offs, self._v0 = feas, offs, v0
+        E = offs.shape[0]
+        S, C = self.s_cap + 1, tables.n_states
+        self._E = E
+        off_max = _off_max(tables)
+        self._off_max = off_max
+
+        # fold-order segments: segment si covers fold steps
+        # [si·k, (si+1)·k) = edges [max(E−(si+1)k, 0), E−si·k)
+        self._n_seg = max(1, -(-E // k))
+        self._bounds = [(max(E - (si + 1) * k, 0), E - si * k)
+                        for si in range(self._n_seg)]
+        word_off, off = [], 0
+        for lo, hi in self._bounds:
+            word_off.append(off)
+            off += packed_words(hi - lo)
+        # global edge e → its word row and bit in the stacked packing
+        e_ids = np.arange(E)
+        si_of = np.minimum((E - 1 - e_ids) // k, self._n_seg - 1)
+        lo_of = np.array([self._bounds[si][0] for si in si_of], np.int64)
+        local = e_ids - lo_of
+        rows = np.array([word_off[si] for si in si_of], np.int64)
+        self._w_rows = torch.as_tensor((rows + local // 32).astype(np.int32),
+                                       device=self.device)
+        self._bits = torch.as_tensor((local % 32).astype(np.int32),
+                                     device=self.device)
+        self._segments = [
+            (lo, hi, feas[lo:hi].contiguous(), offs[lo:hi].contiguous(),
+             choose_tiling(S, C, hi - lo, self.u_max, off_max))
+            for lo, hi in self._bounds]
+        self.reset()
+        self.stats = {"solves": 0, "segments_launched": 0,
+                      "segments_skipped": 0, "edges_folded": 0,
+                      "edges_skipped": 0, "full_hits": 0}
+
+    @property
+    def name(self) -> str:
+        return "warm:cuda"
+
+    @property
+    def skip_rate(self) -> float:
+        n = self.stats["edges_folded"] + self.stats["edges_skipped"]
+        return self.stats["edges_skipped"] / n if n else 0.0
+
+    def reset(self) -> None:
+        """Drop the carried solve (the next call folds everything)."""
+        self._planes = [self._v0] + [None] * self._n_seg
+        self._words = [None] * self._n_seg
+        self._words_cat = None
+        self._prev = None  # host (ups, sig, alw) of the carried solve
+
+    def _segment_forward(self, seg, ups, sig, alw, vin):
+        """One segment's forward from the (S, C) plane ``vin``: the cold
+        path's pipeline for the segment's tiling."""
+        lo, hi, feas, offs, tiling = seg
+        args = (ups[:, lo:hi].contiguous(), sig[:, lo:hi].contiguous(),
+                alw[:, lo:hi].contiguous(), feas, offs, vin)
+        return _forward(args, tiling, self.u_max, self._off_max)
+
+    def _tensor(self, a, dtype):
+        if isinstance(a, torch.Tensor) and a.device != self.device:
+            raise ValueError(f"input on {a.device}; this WarmCudaSolver is "
+                             f"bound to {self.device}")
+        return torch.as_tensor(a, device=self.device).to(dtype)
+
+    def __call__(
+        self,
+        upsilon,
+        sigma2,
+        tables: DPTables,
+        s_cap: int,
+        s_limit,
+        allowed=None,
+        u_max=None,
+    ):
+        from ...core.incremental import host
+        if tables is not self.tables or int(s_cap) != self.s_cap:
+            raise ValueError(
+                "WarmCudaSolver is bound to one (tables, s_cap) problem; "
+                "build a new instance for a different one")
+        E = self._E
+        ups_t = self._tensor(upsilon, torch.int32).reshape(1, E)
+        sig_t = self._tensor(sigma2, torch.int32).reshape(1, E)
+        alw_t = (torch.ones((1, E), dtype=torch.int32, device=self.device)
+                 if allowed is None
+                 else self._tensor(allowed, torch.int32).reshape(1, E))
+        _check_value_bound(sig_t, self.tables)
+        _check_u_max(ups_t, self.u_max)
+        ups, sig = host(ups_t)[0], host(sig_t)[0]
+        alw = host(alw_t)[0].astype(bool)
+
+        # delta mask in fold order → longest unchanged fold prefix
+        if self._prev is None:
+            p = 0
+        else:
+            pu, ps, pa = self._prev
+            changed = ((ups[::-1] != pu[::-1]) | (sig[::-1] != ps[::-1])
+                       | (alw[::-1] != pa[::-1]))
+            nz = np.flatnonzero(changed)
+            p = int(nz[0]) if nz.size else E
+        si_r = self._n_seg if p >= E else p // self.k
+
+        self.stats["solves"] += 1
+        self.stats["segments_skipped"] += si_r
+        self.stats["segments_launched"] += self._n_seg - si_r
+        folded = 0
+        if si_r == self._n_seg:
+            self.stats["full_hits"] += 1
+        else:
+            V = self._planes[si_r]
+            for si in range(si_r, self._n_seg):
+                V, words = self._segment_forward(
+                    self._segments[si], ups_t, sig_t, alw_t, V)
+                V = V[0]
+                self._planes[si + 1] = V
+                self._words[si] = words
+                lo, hi = self._bounds[si]
+                folded += hi - lo
+            self._words_cat = torch.cat(self._words, dim=1)
+            self._prev = (ups.copy(), sig.copy(), alw.copy())
+        self.stats["edges_folded"] += folded
+        self.stats["edges_skipped"] += E - folded
+
+        x, s_star, row = dp_epilogue(
+            self._planes[self._n_seg][None], self._words_cat, ups_t,
+            self._offs, _s_limit(self._tensor(s_limit, torch.int32), 1,
+                                 self.device),
+            self.tables.full_state, self._w_rows, self._bits)
+        return x[0], {"s_star": s_star[0], "value_row": row[0],
+                      "edges_folded": folded}

@@ -87,7 +87,9 @@ def dp_forward_ref(upsilon, sigma2, allowed, feasible, offsets, v0):
     return V.expand(B, S, C).contiguous(), words
 
 
-def dp_epilogue_ref(V, words, upsilon, offsets, s_limit, full_state: int):
+def dp_epilogue_ref(
+    V, words, upsilon, offsets, s_limit, full_state: int, word_rows=None, bits=None
+):
     """The eq.-17 selection and the backtrack, per instance.
 
     ``V`` (B, S, C) and ``words`` (B, W, S, C) from the forward,
@@ -95,6 +97,10 @@ def dp_epilogue_ref(V, words, upsilon, offsets, s_limit, full_state: int):
     s* is the first argmax of ``s + sqrt(float(v))`` over ``s ≤ s_limit``
     with ``v = V[s, full_state] ≥ 0``; the walk starts at (s*, full_state)
     and, on each taken edge, moves to (max(s−Υ̂_e, 0), c − off_e).
+    Edge e's decision is bit ``bits[e]`` of word ``word_rows[e]``: the
+    packing of a forward run in segments, each numbering its edges from
+    0 (``ops.WarmCudaSolver``); without the table, bit e % 32 of word
+    e // 32, and then W = ⌈E/32⌉.
 
     Returns ``x`` (B, E) int32, ``s_star`` (B,) int32 and the value row
     (B, S) int32 with exactly NEG at budget-infeasible entries.
@@ -114,7 +120,9 @@ def dp_epilogue_ref(V, words, upsilon, offsets, s_limit, full_state: int):
     cs = torch.full((B,), full_state, dtype=torch.long, device=dev)
     x = torch.zeros((B, E), dtype=torch.int32, device=dev)
     for e in range(E):
-        d = (words[b_idx, e // 32, s, cs] >> (e % 32)) & 1
+        w, bit = ((e // 32, e % 32) if word_rows is None
+                  else (int(word_rows[e]), int(bits[e])))
+        d = (words[b_idx, w, s, cs] >> bit) & 1
         x[:, e] = d
         taken = d > 0
         s = torch.where(taken, torch.clamp(s - upsilon[:, e], min=0), s)

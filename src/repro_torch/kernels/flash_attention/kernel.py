@@ -10,7 +10,9 @@ Two kernels, chosen by the inputs alone (:func:`kernel_for`):
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches its kernel or raises — there is no fallback.  The
-wrapper counts each kernel's launches in ``LAUNCHES``.
+wrapper counts each kernel's launches in ``LAUNCHES``.  A v head dim
+other than q/k's runs the kernel at the wider of the two, on zero columns
+(:func:`flash_attention`).
 """
 from __future__ import annotations
 
@@ -18,12 +20,13 @@ import ctypes
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
 from . import ref
 from ..nvcc import CudaLibrary
 
 __all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "MAX_HEAD_DIM",
-           "WGMMA_MAX_HEAD_DIM", "kernel_for", "flash_attention"]
+           "WGMMA_MAX_HEAD_DIM", "kernel_for", "zero_pad", "flash_attention"]
 
 # launches of each CUDA kernel (plain-version calls are not counted)
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
@@ -73,17 +76,29 @@ def kernel_for(dtype, hd: int) -> str:
     return "flash_attention"
 
 
+def zero_pad(q, k, v, width: int):
+    """q, k and v with zero columns appended up to head dim ``width``: the
+    extra columns add exact zeros to every q·k, and give output columns
+    past v's own that the caller cuts away."""
+    return tuple(t if t.shape[-1] == width
+                 else F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+
+
 def flash_attention(
     q, k, v, *, scale: float, causal: bool = True, window: int = 0, chunk: int = 1024
 ):
     """Forward attention, f32 online softmax.
 
-    q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) with H = KH·g; contiguous,
-    one dtype (float32 or bfloat16), one device; hd a multiple of 8 up to
-    256.  Causal and ``window`` > 0 masks; query i sits at position
-    i + Sk − Sq.  Returns (B, Sq, H, hd) in q's dtype.  On the card the
-    kernel is :func:`kernel_for`'s.  ``chunk`` is the plain version's KV
-    chunk (its summation order); the kernels' tiles are their own.
+    q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, vh) with
+    H = KH·g; contiguous, one dtype (float32 or bfloat16), one device;
+    max(hd, vh) a multiple of 8 up to 256.  Causal and ``window`` > 0
+    masks; query i sits at position i + Sk − Sq.  Returns (B, Sq, H, vh)
+    in q's dtype.  On the card the kernel is :func:`kernel_for`'s at
+    width max(hd, vh): where vh ≠ hd, the narrower of (q, k) and v gets
+    zero columns up to that width, which add exact zeros to q·k and to
+    p·v, and the output is cut back to vh.  ``chunk`` is the plain
+    version's KV chunk (its summation order); the kernels' tiles are
+    their own.
     """
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
@@ -91,12 +106,15 @@ def flash_attention(
                          "be (B, S, heads, hd)")
     B, Sq, H, hd = q.shape
     _, Sk, KH, _ = k.shape
-    if tuple(k.shape) != (B, Sk, KH, hd) or tuple(v.shape) != tuple(k.shape):
+    if tuple(k.shape) != (B, Sk, KH, hd) or v.dim() != 4 or \
+            tuple(v.shape[:3]) != (B, Sk, KH):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                         f"({B}, Sk, KH, {hd})")
+                         f"({B}, Sk, KH, {hd}) and ({B}, Sk, KH, vh)")
     if KH < 1 or H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
-    name = kernel_for(q.dtype, hd)
+    vh = v.shape[-1]
+    width = max(hd, vh)
+    name = kernel_for(q.dtype, width)
     for t_name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{t_name} is {t.dtype}: q, k and v must all be "
@@ -110,9 +128,11 @@ def flash_attention(
                                        window=window, chunk=chunk)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if vh != hd:
+        q, k, v = zero_pad(q, k, v, width)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    tail = (B, Sq, Sk, H, KH, hd, float(scale), int(causal), int(window))
+    tail = (B, Sq, Sk, H, KH, width, float(scale), int(causal), int(window))
     with torch.cuda.device(dev):  # the libraries launch on the current one
         stream = torch.cuda.current_stream(dev).cuda_stream
         if name == "flash_attention_wgmma":
@@ -125,4 +145,4 @@ def flash_attention(
                 *ptrs, int(q.dtype == torch.bfloat16), *tail, stream)
     library.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return out if vh == width else out[..., :vh].contiguous()

@@ -25,9 +25,10 @@ __all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode"]
 def chunked_attention(
     q, k, v, *, scale: float, causal: bool = True, window=None, chunk: int = 1024
 ):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) with H = KH·g.  ``window``
-    None or ≤ 0 means no sliding window.  Returns (B, Sq, H, hd) in q's
-    dtype; f32 softmax state regardless of input dtype."""
+    """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, vh) with
+    H = KH·g.  ``window`` None or ≤ 0 means no sliding window.  Returns
+    (B, Sq, H, vh) in q's dtype; f32 softmax state regardless of input
+    dtype."""
     return flash_attention_op(q, k, v, scale=scale, causal=causal,
                               window=window, chunk=chunk)
 

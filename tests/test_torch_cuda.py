@@ -451,3 +451,154 @@ def test_cuda_reduced_zamba2_prefill_matches_the_cpu():
     assert (fa.LAUNCHES["flash_attention"] - before[0],
             ssd.LAUNCHES["ssd_scan"] - before[1]) == (3, 10)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _warm_sequence(inst, T, n, seed):
+    """``n`` solves of drifting statistics at a horizon-T plane: each step
+    changes one low-index edge (a late fold step), the first edge, the
+    budget only, eligibility, or nothing."""
+    rng = np.random.default_rng(seed)
+    E, m = inst.n_edges, inst.m
+    xi = stats.u_max_for_horizon(T, m) - 1
+    ups = rng.integers(0, xi + 1, E).astype(np.int32)
+    sig = rng.integers(1, 2 ** 16, E).astype(np.int32)
+    alw = rng.random(E) < 0.8
+    s_cap = stats.s_cap_for_horizon(T, m)
+    lim, out = s_cap, []
+    for i in range(n):
+        kind = i % 5
+        if kind == 0:
+            e = int(rng.integers(0, E // 4))
+            ups[e], sig[e] = rng.integers(0, xi + 1), rng.integers(1, 2 ** 16)
+        elif kind == 1:
+            sig[E - 1] = rng.integers(1, 2 ** 16)
+        elif kind == 2:
+            lim = int(rng.integers(0, s_cap + 1))
+        elif kind == 3:
+            alw[int(rng.integers(0, E))] ^= True
+        out.append((ups.copy(), sig.copy(), alw.copy(), lim))
+    return out
+
+
+@pytest.mark.parametrize("c_hi,seed,T,k", [(2, 0, 2000, 8), (6, 2, 1500, 8),
+                                           (6, 2, 1500, 20)],
+                         ids=["table2_whole", "fig6_tiled", "fig6_tiled_k20"])
+def test_cuda_warm_solver_bit_equal_to_cold_solves(c_hi, seed, T, k):
+    """``WarmCudaSolver`` on the card: every solve bit-equal to the cold
+    CUDA solve, on a whole plane (one ``dp_forward_batched`` launch a
+    segment) and on the fig-6 c_hi = 6 plane (``dp_chunk`` launches);
+    forward launches = ``segments_launched``, one epilogue a solve."""
+    dev = _card()
+    inst = generate_instance(seed=seed, c_lo=1, c_hi=c_hi)
+    tables = build_tables(inst.A, inst.c)
+    s_cap = stats.s_cap_for_horizon(T, inst.m)
+    u_max = stats.u_max_for_horizon(T, inst.m)
+    warm = ops.WarmCudaSolver(tables, s_cap, u_max=u_max,
+                              checkpoint_every=k, device=dev)
+    fwd = "dp_forward_batched" if c_hi == 2 else "dp_chunk"
+    before = dict(LAUNCHES)
+    seq = _warm_sequence(inst, T, 25, seed)
+    for u, s, a, lim in seq:
+        x, info = warm(torch.as_tensor(u, device=dev),
+                       torch.as_tensor(s, device=dev), tables, s_cap, lim,
+                       allowed=torch.as_tensor(a, device=dev))
+        cx, cinfo = ops.solve_budgeted_dp_batched(
+            torch.as_tensor(u[None], device=dev),
+            torch.as_tensor(s[None], device=dev), tables, s_cap, lim,
+            u_max=u_max, allowed=torch.as_tensor(a[None], device=dev))
+        torch.cuda.synchronize()
+        assert torch.equal(x, cx[0])
+        assert int(info["s_star"]) == int(cinfo["s_star"][0])
+        assert torch.equal(info["value_row"], cinfo["value_row"][0])
+    st = warm.stats
+    assert st["solves"] == len(seq) and st["segments_skipped"] > 0
+    assert LAUNCHES[fwd] - before[fwd] == st["segments_launched"] + len(seq)
+    assert LAUNCHES["dp_epilogue"] - before["dp_epilogue"] == 2 * len(seq)
+
+
+def test_cuda_tabled_epilogue_bit_equal_to_plain_version():
+    """The epilogue's tabled instance on a segmented packing — three
+    instances, E = 40 folded in segments of 8 edges chained through each
+    instance's plane, each segment packed from bit 0 of its own word —
+    against its plain version, and against the default epilogue on the
+    same forward packed by global edge id."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    E, B, s_cap, k = 40, 3, 200, 8
+    A = rng.integers(1, 3, (3, E))
+    c = np.array([5, 5, 5])
+    tables = build_tables(np.minimum(A, c[:, None]), c)
+    feas, offs = (torch.as_tensor(a) for a in ops.prepare_tables(tables))
+    ups = torch.as_tensor(rng.integers(0, 5, (B, E)), dtype=torch.int32)
+    sig = torch.as_tensor(rng.integers(1, 2 ** 16, (B, E)),
+                          dtype=torch.int32)
+    alw = torch.as_tensor(rng.random((B, E)) < 0.8).int()
+    slim = torch.as_tensor(rng.integers(0, s_cap + 1, B), dtype=torch.int32)
+    v0 = initial_plane(s_cap, tables.n_states, "cpu")
+    bounds = [(max(E - (si + 1) * k, 0), E - si * k)
+              for si in range(-(-E // k))]
+    rows = np.concatenate([np.full(hi - lo, si) for si, (lo, hi) in
+                           enumerate(bounds)][::-1]).astype(np.int32)
+    bits = np.concatenate([np.arange(hi - lo) for lo, hi in bounds][::-1])
+    rows, bits = torch.as_tensor(rows), torch.as_tensor(bits.astype(np.int32))
+    planes, packs = [], []
+    for b in range(B):
+        vin, ws = v0, []
+        for lo, hi in bounds:
+            V, W = ref.dp_forward_ref(*(t[b:b + 1, lo:hi].contiguous()
+                                        for t in (ups, sig, alw)),
+                                      feas[lo:hi].contiguous(),
+                                      offs[lo:hi].contiguous(), vin)
+            vin = V[0]
+            ws.append(W)
+        planes.append(vin)
+        packs.append(torch.cat(ws, dim=1))
+    V, words = torch.stack(planes), torch.cat(packs)
+    want = ref.dp_epilogue_ref(V, words, ups, offs, slim, tables.full_state,
+                               rows, bits)
+    Vg, Wg = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+    for a, b in zip(want, ref.dp_epilogue_ref(Vg, Wg, ups, offs, slim,
+                                              tables.full_state)):
+        assert torch.equal(a, b)
+    before = LAUNCHES["dp_epilogue"]
+    got = kernel.dp_epilogue(V.to(dev), words.to(dev), ups.to(dev),
+                             offs.to(dev), slim.to(dev), tables.full_state,
+                             rows.to(dev), bits.to(dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["dp_epilogue"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    # an entry outside the packing is refused before the launch
+    for bad_rows, bad_bits in ((rows + words.shape[1], bits),
+                               (rows, bits + 32)):
+        with pytest.raises(ValueError, match="outside"):
+            kernel.dp_epilogue(V.to(dev), words.to(dev), ups.to(dev),
+                               offs.to(dev), slim.to(dev), tables.full_state,
+                               bad_rows.to(dev), bad_bits.to(dev))
+    assert LAUNCHES["dp_epilogue"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,hd,vh,kernel_name", [
+    ("bfloat16", 192, 128, "flash_attention"),  # deepseek-v3 MLA widths
+    ("bfloat16", 64, 32, "flash_attention_wgmma"),
+    ("float32", 24, 16, "flash_attention"),
+    ("float32", 16, 24, "flash_attention"),
+])
+def test_cuda_flash_attention_with_v_head_dim_other_than_qk(dtype, hd, vh, kernel_name):
+    """v's head dim differs from q/k's: the wrapper runs the kernel at
+    max(hd, vh) on zero columns and returns (…, vh), within the K6
+    tolerances of the plain version (2e-5 f32, 2e-2 bf16)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(hd + vh)
+    q = torch.randn((2, 150, 8, hd), generator=g).to(dev, dt)
+    k = torch.randn((2, 150, 2, hd), generator=g).to(dev, dt)
+    v = torch.randn((2, 150, 2, vh), generator=g).to(dev, dt)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, scale=hd ** -0.5, window=64)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[kernel_name] == before[kernel_name] + 1
+    assert tuple(got.shape) == (2, 150, 8, vh) and got.dtype == dt
+    want = fa.flash_attention_ref(q, k, v, scale=hd ** -0.5, window=64)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

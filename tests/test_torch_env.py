@@ -259,15 +259,95 @@ def test_device_none_raises_without_cuda(table2, monkeypatch):
         make_draws(inst, 10, 0)
 
 
-def test_esdp_cache_modes_wait_for_incremental_slice(table2):
+@pytest.fixture(scope="module")
+def small():
+    """The JAX incremental tests' instance (``tests/test_incremental.py``)
+    in both packages, with tables."""
+    jinst = jax_generate_instance(seed=3, n_ports=4, n_servers=10,
+                                  edge_prob=0.3)
+    inst = instance_from_arrays(**dataclasses.asdict(jinst))
+    return (jinst, jax_build_tables(jinst.A, jinst.c), inst,
+            build_tables(inst.A, inst.c))
+
+
+# g(t): the paper's default, which moves Σ̂² every slot (so the memo
+# never hits), and a constant g, under which the statistics repeat
+G_CASES = {"g_default": (jax_stats.g_default, stats.g_default),
+           "g_constant": (lambda t, m: jnp.full_like(t, 2.0),
+                          lambda t, m: torch.full_like(t, 2.0))}
+
+
+def _cache_policies(small, T, mode, g):
+    jinst, jtables, inst, tables = small
+    jg, tg = G_CASES[g]
+    return (jax_esdp.make_esdp_policy(jinst, T, tables=jtables, g_fn=jg,
+                                      solver="reference", cache=mode),
+            esdp.make_esdp_policy(inst, T, tables=tables, g_fn=tg,
+                                  solver="reference", cache=mode),
+            _jax_schedule(T, inst.m, jax_stats.delta_default, jg))
+
+
+@pytest.mark.parametrize("g", list(G_CASES))
+@pytest.mark.parametrize("mode", ["memo", "warm"])
+def test_esdp_cache_modes_match_jax_simulate(small, mode, g):
+    """``cache="memo"``/``"warm"`` through ``simulate`` on injected draws
+    and schedule: per-slot x bit-equal to the JAX run with the same mode,
+    and the ``finalize`` dicts (hits or folded edges, solves, rates)
+    equal — nonzero under the constant g."""
+    jinst, jtables, inst, tables = small
+    T, seed = 120, 4  # a seed whose draws make the memo hit 10 times
+    jp, tp, schedule = _cache_policies(small, T, mode, g)
+    want = jax_simulate(jinst, _recording(jp, T, inst.n_edges), T,
+                        seed=seed, tables=jtables)
+    got = simulate(inst, tp, T, tables=tables, device="cpu",
+                   draws=_jax_draws([seed], T, inst.n_ports, inst.n_edges),
+                   schedule=schedule)
+    _assert_parity(got, want.policy_final[1], want)
+    stats_got = tp.finalize(got.policy_final)
+    assert stats_got == jp.finalize(want.policy_final[0])
+    assert stats_got["cache_solves"] == T
+    if g == "g_constant":
+        assert stats_got.get("cache_hits", 1) > 0
+        assert stats_got.get("edge_skip_rate", 1) > 0
+
+
+@pytest.mark.parametrize("g", list(G_CASES))
+@pytest.mark.parametrize("mode", ["memo", "warm"])
+def test_esdp_cache_modes_match_jax_simulate_batch(small, mode, g):
+    """The same through ``simulate_batch`` over three seeds: every run's
+    x bit-equal to the JAX fleet's row and each run's ``finalize`` equal
+    to the JAX one of that row (the counters are per run)."""
+    jinst, jtables, inst, tables = small
+    T, seeds = 80, (3, 4, 5)
+    jp, tp, schedule = _cache_policies(small, T, mode, g)
+    want = jax_simulate_batch(jinst, _recording(jp, T, inst.n_edges), T,
+                              seeds, tables=jtables)
+    got = simulate_batch(inst, tp, T, seeds, tables=tables, device="cpu",
+                         draws=_jax_draws(seeds, T, inst.n_ports,
+                                          inst.n_edges),
+                         schedule=schedule)
+    _assert_parity(got, want.policy_final[1], want)
+    for i in range(len(seeds)):
+        row = jax.tree.map(lambda a: np.asarray(a)[i], want.policy_final[0])
+        assert tp.finalize(got.policy_final, row=i) == jp.finalize(row)
+
+
+def test_esdp_cache_mode_validation(table2):
+    """Unknown modes raise; ``cache="warm"`` takes the reference backend
+    only, as in the JAX package; factories keep their overrides."""
     _, _, inst, tables = table2
-    for mode in ("memo", "warm"):
-        with pytest.raises(NotImplementedError, match="incremental"):
-            esdp.make_esdp_policy(inst, 10, tables=tables, cache=mode)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="cache mode"):
         esdp.make_esdp_policy(inst, 10, tables=tables, cache="bogus")
+    for solver in ("cuda", "auto"):
+        with pytest.raises(ValueError, match="reference"):
+            esdp.make_esdp_policy(inst, 10, tables=tables, solver=solver,
+                                  cache="warm")
+    assert esdp.make_esdp_policy(inst, 10, tables=tables,
+                                 solver="cuda", cache="memo").finalize
+    assert esdp.make_esdp_policy(inst, 10, tables=tables).finalize is None
     factory = esdp.esdp_factory(g_fn=stats.g_logt_only)
     assert factory(inst, 10, tables).g_fn is stats.g_logt_only
+    assert factory(inst, 10, tables, cache="memo").finalize is not None
 
 
 def test_clipped_normal_mean_matches_jax():

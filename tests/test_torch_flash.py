@@ -115,6 +115,45 @@ def test_chunked_attention_matches_jax(Sq, Sk, window, chunk):
     close(got, want, F32_TOL)
 
 
+@pytest.mark.parametrize("hd,vh", [(24, 16), (16, 24)])
+@pytest.mark.parametrize("window", [None, 9], ids=["causal", "windowed"])
+def test_chunked_attention_with_v_head_dim_other_than_qk_matches_jax(hd, vh, window):
+    """v's head dim differs from q/k's (MLA's shape, reduced): the port's
+    ``chunked_attention`` returns (…, vh) and equals the JAX function, f32
+    within 2e-5, GQA 4:2, causal and windowed, over several KV chunks."""
+    rng = np.random.default_rng(hd + vh)
+    q = rng.standard_normal((2, 40, 4, hd)).astype(np.float32)
+    k = rng.standard_normal((2, 40, 2, hd)).astype(np.float32)
+    v = rng.standard_normal((2, 40, 2, vh)).astype(np.float32)
+    got = attention.chunked_attention(*map(torch.as_tensor, (q, k, v)),
+                                      scale=0.3, window=window, chunk=16)
+    want = jax_attn.chunked_attention(*map(jnp.asarray, (q, k, v)),
+                                      scale=0.3, window=window, chunk=16)
+    assert tuple(got.shape) == (2, 40, 4, vh) == tuple(want.shape)
+    close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("hd,vh", [(24, 16), (16, 24), (192, 128)])
+def test_zero_padding_to_the_kernel_width_leaves_attention_unchanged(hd, vh):
+    """What the wrapper hands the kernel where vh ≠ hd: q, k and v padded
+    with zero columns to max(hd, vh), the output cut back to vh.  The
+    plain version on the padded inputs equals it on the unpadded ones,
+    f32 within 2e-5 (the zero columns only lengthen the sums)."""
+    rng = np.random.default_rng(vh)
+    q, k = (torch.as_tensor(rng.standard_normal((1, 24, 4, hd)),
+                            dtype=torch.float32) for _ in range(2))
+    k = k[:, :, :2].contiguous()
+    v = torch.as_tensor(rng.standard_normal((1, 24, 2, vh)),
+                        dtype=torch.float32)
+    width = max(hd, vh)
+    padded = fa.zero_pad(q, k, v, width)
+    assert all(t.shape[-1] == width for t in padded)
+    got = fa.flash_attention_ref(*padded, scale=0.2, window=7)[..., :vh]
+    close(got, fa.flash_attention_ref(q, k, v, scale=0.2, window=7), F32_TOL)
+    assert fa.kernel_for(torch.bfloat16, width) == (
+        "flash_attention" if width > 128 else "flash_attention_wgmma")
+
+
 def test_attn_train_and_decode_match_jax_with_carried_weights():
     """The reduced Zamba2 attention block: prefill output and its post-RoPE
     (k, v), then decode steps against a cache that holds them."""
