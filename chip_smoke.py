@@ -5,10 +5,12 @@
 Run from the root of a checkout (it imports ``repro_torch`` from
 ``src/``).  Phases, each asserted; any failure exits non-zero:
 
-1. build the port's four CUDA libraries (budgeted DP, the two flash
-   attention kernels, SSD scan), one nvcc each, all started together
-   (timed); print ptxas's registers and spills for every kernel, and fail
-   if a budgeted-DP or SSD kernel spills;
+1. build the port's five CUDA libraries (budgeted DP, the three flash
+   attention kernels — bf16 on wgmma, f32 in split TF32, and the f32-FMA
+   referee —, SSD scan), one nvcc each, all started together (timed);
+   print ptxas's registers and spills for every kernel, and fail if a
+   budgeted-DP, SSD or TF32 attention kernel, or the wgmma attention at
+   D = 192 or 256, spills;
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
@@ -51,12 +53,14 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    to the cold solve, ``dp_chunk`` launches = segments launched, and the
    device ms of a warm solve against a cold one;
 5. the attention kernels (K6) against their plain version on the card:
-   the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the CUDA-core
-   kernel, tolerance 2e-5) and bf16 (the tensor-core kernel, 2e-2: the
-   plain version rounds q·k and p to bf16, the kernels do not), the
-   Zamba2-7B serving shape in bf16 and a ragged GQA Sq < Sk case in both;
-   each bf16 case also held to the plain version run in f64, no farther
-   from it than 1.25 times the CUDA-core kernel on the same inputs; the
+   the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the split-TF32
+   kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
+   version rounds q·k and p to bf16, the kernels do not), the Zamba2-7B
+   serving shape in bf16, a ragged GQA Sq < Sk case in both, and bf16 at
+   hd 136, 192, 200 and 256 (ragged GQA Sq < Sk and windowed cases among
+   them); each case's distance from the plain version run in f64 printed
+   beside the CUDA-core referee's (launched raw), and each bf16 case no
+   farther from it than 1.25 times the referee; the
    SSD kernels (K7) against their plain version on
    the four shapes of ``tests/test_kernels.py:66-71``, the serving shape
    on three seeds and Mamba2-2.7B's heads (N = 128) on four seeds and at
@@ -64,9 +68,8 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    f64, within 1e-4 or twice the f32 plain version's own distance from
    it (at Q = 128 f32 itself is ~1e-4 off), each distance over its limit
    printed and the largest for each N; attention_vh: a v head dim other
-   than q/k's at deepseek-v3's widths (q/k 192, v 128: the CUDA-core
-   kernel) and at q/k 64, v 32 (the tensor-core kernel), bf16, one launch
-   each, within 2e-2 of the plain version;
+   than q/k's at deepseek-v3's widths (q/k 192, v 128) and at q/k 64, v
+   32, bf16, one wgmma launch each, within 2e-2 of the plain version;
 6. the serving path: FULL Zamba2-7B (5.7 B parameters, 81 layers) in
    bf16, initialised on the card from a seed, ``greedy_generate`` of 32
    tokens after a 2048-token prompt at batch 4, with every launch count
@@ -76,7 +79,7 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    prefill and the decode timed apart, each with its counts; the
    kernels' prefill logits against the plain versions' on the same
    weights and tokens, in f32 (relative L2 ≤ 1e-3; the f32 prefill goes
-   through the CUDA-core attention kernel, 13 launches) and in bf16 (no
+   through the split-TF32 attention kernel, 13 launches) and in bf16 (no
    further from the f32 plain logits than the bf16 plain ones, within
    50%);
 7. kernel and plain-version times at the main paths' shapes: each
@@ -86,8 +89,12 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    same back-to-back launches, divided by their number, where the trace
    has no device time), beside the least time the card could take and, for
    attention, ``scaled_dot_product_attention``'s time on the same inputs
-   (a yardstick only: the port never calls it); attention in bf16 through
-   the tensor-core kernel and in f32 through the CUDA-core one; and the
+   (a yardstick only: the port never calls it; the backend it takes is
+   printed); attention at the Zamba2-7B shape in bf16 (wgmma) and f32
+   (split TF32, its bound three TF32 products per f32 product, the f32-FMA
+   bound beside it), and in bf16 at gemma-7b's (hd 256) and deepseek-v3's
+   MLA (q/k 192, v 128, zero-padded to 192) attention, with the CUDA-core
+   referee's time at the f32 and those two shapes; and the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
    thread, the launcher's pick there, against a column a cell), both held
@@ -127,6 +134,8 @@ TPU = "src/repro/kernels/budgeted_dp/"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FAW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_wgmma.cu")
+FAT_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_tf32.cu")
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 # warm_tiled: solves WARM_FROM .. WARM_FROM + N_WARM of an ESDP run on the
 # fig-6 c_hi = 6 plane, re-solved in segments of WARM_K edges
@@ -199,17 +208,35 @@ def profiled_ms(fn, calls, kernel_names):
 
 def ptxas_report(log):
     """(kernel, registers, spill-store bytes) per entry function of an
-    ``nvcc -Xptxas -v`` log."""
+    ``nvcc -Xptxas -v`` log; a template instance is named by its bool and
+    int arguments, as ``dp_epilogue_kernel<true>`` or
+    ``flash_fwd_tf32_kernel<128, 8, 64>``."""
     import re
     out, name, spilled = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:Lb[01]E)+)?", m.group(1))
-            args = re.findall(r"Lb([01])E", k.group(2) or "") if k else []
-            name = (k.group(1) if k else m.group(1)) + (
-                "<" + ", ".join("true" if a == "1" else "false"
-                                for a in args) + ">" if args else "")
+            mangled, name, end = m.group(1), m.group(1), 0
+            # the kernel's name is the one "<length><name>" ending in
+            # "_kernel" (a file's hash may run into the length's digits)
+            for run in re.finditer(r"\d+", mangled):
+                for i in range(len(run.group())):
+                    n = int(run.group()[i:])
+                    cand = mangled[run.end():run.end() + n]
+                    if len(cand) == n and re.fullmatch(
+                            r"[a-z][a-z0-9_]*_kernel", cand):
+                        name, end = cand, run.end() + n
+                        break
+                if end:
+                    break
+            args = []
+            if end and mangled[end:end + 1] == "I":  # template arguments
+                targs = mangled[end:mangled.find("Ev", end)]
+                args = [{"Lb1": "true", "Lb0": "false", "If": "float",
+                         "I13__nv_bfloat16": "bf16"}.get(a, a[2:])
+                        for a in re.findall(
+                            r"^I(?:f|13__nv_bfloat16)|L[bi]\d+(?=E)", targs)]
+            name += "<" + ", ".join(args) + ">" if args else ""
             spilled = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -283,9 +310,10 @@ def main():
           "_dp_kernel_batched), dp_edge (K3 _edge_tile_kernel/"
           "_edge_stile_kernel), dp_chunk (K4 _fused_chunk_kernel at B = 1, "
           "K5 _batched_fused_kernel), dp_epilogue (s* + backtrack) from "
-          f"{SOURCE}; flash_attention_wgmma (K6 _flash_kernel, bf16 with "
-          f"hd <= 128) from {FAW_SOURCE}; flash_attention (K6, f32 and "
-          f"hd > 128) from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel: "
+          f"{SOURCE}; flash_attention_wgmma (K6 _flash_kernel, bf16) from "
+          f"{FAW_SOURCE}; flash_attention_tf32 (K6, f32) from {FAT_SOURCE}; "
+          f"the f32-FMA referee flash_fwd_kernel (no input routed to it) "
+          f"from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel: "
           f"{', '.join(ssd.KERNELS)}) from {SSD_SOURCE}", flush=True)
     # a reference states both: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,7 +321,8 @@ def main():
 
     # ------------------------------------------------------------- build
     t0 = phase("build (one nvcc per library, all started together)")
-    libraries = (build.LIBRARY, fa.WGMMA_LIBRARY, fa.LIBRARY, ssd.LIBRARY)
+    libraries = (build.LIBRARY, fa.WGMMA_LIBRARY, fa.TF32_LIBRARY,
+                 fa.LIBRARY, ssd.LIBRARY)
     nvcc.build_all(libraries)
     for lib in libraries:
         lib.load()
@@ -302,10 +331,15 @@ def main():
         for name, regs, spilled in kernels:
             print(f"      {name}: {regs} registers, {spilled} bytes spilled",
                   flush=True)
-        # the kernels this round redesigned must not spill
-        if lib in (build.LIBRARY, ssd.LIBRARY) and (
-                not kernels or any(sp for _, _, sp in kernels)):
-            fail(f"{lib.source.name}: ptxas reports spills (or no report)")
+        # the redesigned kernels must not spill: every DP, SSD and TF32
+        # attention kernel, and the wgmma attention at D = 192 and 256
+        gated = {fa.LIBRARY: [], fa.WGMMA_LIBRARY: [
+            k for k in kernels if k[0].endswith(("<192>", "<256>"))]}.get(
+                lib, kernels)
+        if (lib is not fa.LIBRARY and not gated) or any(
+                sp for _, _, sp in gated):
+            fail(f"{lib.source.name}: ptxas reports spills (or no report): "
+                 f"{gated}")
     print(f"   built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -971,14 +1005,14 @@ def main():
                      for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
                                    (B, Sk, KH, hd)))
 
-    fa_worst = {"f32": 0.0, "bf16": 0.0}
-    worst_abs = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0,
+    worst_abs = {"flash_attention_wgmma": 0.0, "flash_attention_tf32": 0.0,
                  "ssd_scan": 0.0}
     stream0 = torch.cuda.current_stream().cuda_stream
 
     def cuda_core_attention(q, k, v, scale, causal, window):
-        """The CUDA-core kernel on inputs the wrapper sends to the
-        tensor-core one: a raw launch, for the accuracy comparison."""
+        """The CUDA-core kernel, the f32-FMA referee that no input is routed
+        to, on the wrapper's inputs: a raw launch, for the accuracy
+        comparison."""
         B, Sq, H, hd = q.shape
         _, Sk, KH, _ = k.shape
         out = torch.empty_like(q)
@@ -989,8 +1023,14 @@ def main():
         return out
 
     t0 = phase("flash attention (K6) vs its plain version on the card")
+    # the f32 plain version's products stay f32: never TF32
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is True: the f32 plain "
+             "version would run its products in TF32")
     # tests/test_kernels.py:28-58 as (B, Sq, Sk, H, KH, hd, causal,
-    # window), the serving shape, and a ragged GQA Sq < Sk
+    # window), the serving shape, a ragged GQA Sq < Sk, and bf16 head dims
+    # over 128 (three and four 64-column boxes: deepseek-v3's q/k 192,
+    # gemma-7b's 256), ragged GQA Sq < Sk and windowed among them
     fa_cases = [(2, 256, 256, 4, 4, 64, True, 0),
                 (1, 256, 256, 8, 2, 64, True, 0),
                 (2, 128, 128, 4, 1, 32, True, 0),
@@ -1001,7 +1041,15 @@ def main():
                 + [((SERVE_B, SERVE_S, SERVE_S, 32, 32, 112, True, 0),
                     "bf16"),
                    ((2, 333, 1000, 8, 2, 112, True, 0), "bf16"),
-                   ((2, 333, 1000, 8, 2, 112, True, 0), "f32")])
+                   ((2, 333, 1000, 8, 2, 112, True, 0), "f32")]
+                + [(c, "bf16") for c in (
+                    (2, 512, 512, 8, 2, 136, True, 0),
+                    (1, 333, 1000, 16, 4, 192, True, 0),
+                    (2, 256, 256, 4, 4, 192, True, 100),
+                    (1, 300, 777, 8, 2, 200, True, 0),
+                    (2, 512, 512, 16, 16, 256, True, 0),
+                    (1, 333, 1000, 8, 2, 256, True, 0),
+                    (1, 512, 512, 4, 4, 256, True, 128))])
     tols = {"f32": 2e-5, "bf16": 2e-2}
     for (B, Sq, Sk, H, KH, hd, causal, window), dt in fa_cases:
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
@@ -1012,20 +1060,20 @@ def main():
         want = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        fa_worst[dt] = max(fa_worst[dt], err)
         worst_abs[name] = max(worst_abs[name],
                               float((got.float() - want.float()).abs().max()))
-        extra = ""
-        if name == "flash_attention_wgmma":
-            exact = fa.flash_attention_ref(q.double(), k.double(), v.double(),
-                                           **kw)
-            core = cuda_core_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            e_new, e_core = rel_err(got, exact), rel_err(core, exact)
-            extra = (f"; from the f64 plain version: tensor-core kernel "
-                     f"{e_new:.4g}, CUDA-core kernel {e_core:.4g} (limit "
-                     f"1.25x: {1.25 * e_core:.4g})")
-            del exact, core
+        # both kernels' distance from the plain version run in f64, beside
+        # the CUDA-core referee's; in bf16 a gate (1.25x), in f32 a report
+        exact = fa.flash_attention_ref(q.double(), k.double(), v.double(),
+                                       **kw)
+        core = cuda_core_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e_new, e_core = rel_err(got, exact), rel_err(core, exact)
+        extra = (f"; from the f64 plain version: {name} {e_new:.4g}, "
+                 f"CUDA-core kernel {e_core:.4g}" + (
+                     f" (limit 1.25x: {1.25 * e_core:.4g})"
+                     if dt == "bf16" else ""))
+        del exact, core
         print(f"   {dt} {name} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} hd={hd} "
               f"causal={causal} window={window}: max |kernel - plain| / "
               f"(1 + |plain|) {err:.3g} (tolerance {tols[dt]}){extra}",
@@ -1033,19 +1081,19 @@ def main():
         if not err <= tols[dt]:
             fail(f"flash attention {dt} {(B, Sq, Sk, H, KH, hd)} differs "
                  "from its plain version")
-        if extra and not e_new <= 1.25 * e_core:
+        if dt == "bf16" and not e_new <= 1.25 * e_core:
             fail(f"flash attention bf16 {(B, Sq, Sk, H, KH, hd)}: the "
-                 f"tensor-core kernel is {e_new:.4g} from the f64 plain "
+                 f"wgmma kernel is {e_new:.4g} from the f64 plain "
                  f"version, over 1.25x the CUDA-core kernel's {e_core:.4g}")
     del q, k, v, got, want
     done(t0)
 
     t0 = phase("attention_vh: a v head dim other than q/k's (zero columns "
                "up to the kernel's width) vs the plain version on the card")
-    # deepseek-v3's MLA widths (q/k 192, v 128: the CUDA-core kernel, at a
-    # cut of its 128 heads) and q/k 64, v 32 (the tensor-core kernel)
+    # deepseek-v3's MLA widths (q/k 192, v 128, at a cut of its 128 heads)
+    # and q/k 64, v 32, both on the wgmma kernel
     for B, S, H, KH, hd, vh, name in (
-            (1, 1024, 16, 16, 192, 128, "flash_attention"),
+            (1, 1024, 16, 16, 192, 128, "flash_attention_wgmma"),
             (2, 512, 8, 2, 64, 32, "flash_attention_wgmma")):
         g = torch.Generator(dev).manual_seed(hd + vh)
         q, k = (torch.randn(shape, generator=g, device=dev).bfloat16()
@@ -1287,7 +1335,7 @@ def main():
     logits_k32, _ = prefill32(params, {"tokens": prompt})
     torch.cuda.synchronize()
     f32_counts = read_counts()
-    per_prefill32 = dict(flash_attention=G, ssd_scan=G * M + tail)
+    per_prefill32 = dict(flash_attention_tf32=G, ssd_scan=G * M + tail)
     print(f"   f32 prefill through the kernels: launches {f32_counts}",
           flush=True)
     if not expect(f32_counts, **per_prefill32):
@@ -1711,49 +1759,100 @@ def main():
           + f"; run_batch B=8 {d_fleet_ms:.3f}; warm_tiled device ms a "
           f"solve: warm {warm_ms}, cold {cold_ms}", flush=True)
 
-    # K6 and K7 at the Zamba2-7B serving shapes; K6 in bf16 (the serving
-    # path's tensor-core kernel) and in f32 (the f32 prefill's CUDA-core
-    # kernel)
-    B, S, H, hd = SERVE_B, SERVE_S, 32, 112
-    scale = hd ** -0.5
-    # q·k and p·v over the causal triangle; q, k, v read, o written once
-    fa_ops = 4 * hd * B * H * (S * (S + 1) // 2)
-    for dtype, launches in ((torch.bfloat16, serve_counts),
-                            (torch.float32, f32_counts)):
-        q, k, v = qkv(B, S, S, H, H, hd, dtype, 7)
-        o = torch.empty_like(q)
+    # K6 at the Zamba2-7B serving shape in bf16 (the serving path's wgmma
+    # kernel) and in f32 (the f32 prefill's split-TF32 kernel), and the
+    # wgmma kernel at gemma-7b's attention (configs/gemma_7b.py: 16 heads,
+    # hd 256) and deepseek-v3's MLA (configs/deepseek_v3_671b.py: 128
+    # heads, q/k 192 = nope 128 + rope 64, v 128), prompt 2048, causal;
+    # then K7 at its serving shape
+    B, S = SERVE_B, SERVE_S
+
+    def sdpa(q, k, v, scale):
+        """scaled_dot_product_attention's ms on the same inputs (causal),
+        and the backend it takes: a yardstick, never called by the port."""
+        import torch.nn.attention
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        try:  # a private helper: where it is missing, say so
+            backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+                qt, kt, vt, is_causal=True, scale=scale)).name
+        except Exception as err:
+            backend = f"not known ({type(err).__name__})"
+        ms = per_call_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), 20)
+        return ms, backend
+
+    def referee_ms(qp, kp, vp, scale):
+        """The CUDA-core kernel (no input routed to it) raw on the same
+        padded inputs: the time of what the tensor-core routes replaced."""
+        Bq, Sq_, Hq, width = qp.shape
+        o = torch.empty_like(qp)
         keep.append(o)
-        name = fa.kernel_for(dtype, hd)
+        raw = checked(fa.LIBRARY.load().flash_attention_launch, (
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            int(qp.dtype == torch.bfloat16), Bq, Sq_, Sq_, Hq, Hq, width,
+            scale, 1, 0, stream))
+        prof_ms, _ = profiled_ms(raw, 5, "flash_fwd_kernel")
+        return per_call_ms(raw, 3, reps=3) if prof_ms is None else prof_ms
+
+    for label, Bf, H, hd, vh, dtype, launches, with_referee in (
+            ("Zamba2-7B", SERVE_B, 32, 112, 112, torch.bfloat16,
+             serve_counts, False),
+            ("Zamba2-7B", SERVE_B, 32, 112, 112, torch.float32, f32_counts,
+             True),
+            ("gemma-7b", SERVE_B, 16, 256, 256, torch.bfloat16,
+             serve_counts, True),
+            ("deepseek-v3 MLA", 1, 128, 192, 128, torch.bfloat16,
+             serve_counts, True)):
+        q, k, v = qkv(Bf, S, S, H, H, hd, dtype, 7)
+        if vh != hd:
+            v = v[..., :vh].contiguous()
+        scale = hd ** -0.5
+        width = max(hd, vh)
+        qp, kp, vp = fa.zero_pad(q, k, v, width)  # the wrapper's, if vh < hd
+        o = torch.empty_like(qp)
+        keep.append(o)
+        name = fa.kernel_for(dtype, width)
+        args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), Bf,
+                S, S, H, H, width, scale, 1, 0, stream)
         if name == "flash_attention_wgmma":
             raw = checked(fa.WGMMA_LIBRARY.load().flash_attention_wgmma_launch,
-                          (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), B, S, S, H, H, hd, scale, 1, 0,
-                           stream))
+                          args)
             kname, src = "flash_fwd_wgmma_kernel", FAW_SOURCE
-            rate, kind = BF16_OPS_PER_S, "bf16 tensor-core"
         else:
-            raw = checked(fa.LIBRARY.load().flash_attention_launch, (
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0, B,
-                S, S, H, H, hd, scale, 1, 0, stream))
-            kname, src, rate, kind = ("flash_fwd_kernel", FA_SOURCE,
-                                      F32_OPS_PER_S, "f32")
+            raw = checked(fa.TF32_LIBRARY.load().flash_attention_tf32_launch,
+                          args)
+            kname, src = "flash_fwd_tf32_kernel", FAT_SOURCE
         t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale),
                     kname, 20)
         p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v,
                                                          scale=scale),
                           2, reps=3)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = per_call_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale), 20)
+        lib_ms, backend = sdpa(q, k, v, scale)
+        # q·k and p·v over the causal triangle (the function's own widths,
+        # not the padded one); q, k, v read and o written once.  f32 runs
+        # each product as three TF32 products on the tensor cores
+        f_ops = 2 * (hd + vh) * Bf * H * (S * (S + 1) // 2)
+        f_bytes = (2 * q.numel() + 2 * v.numel()) * q.element_size()
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
-        row(f"{name} (K6 _flash_kernel, {dt})",
+        if dt == "f32":
+            ops, rate, kind = (3 * f_ops, TF32_OPS_PER_S,
+                               "TF32 tensor-core (3 per f32 product)")
+        else:
+            ops, rate, kind = f_ops, BF16_OPS_PER_S, "bf16 tensor-core"
+        row(f"{name} (K6 _flash_kernel, {dt}, {label})",
             "src/repro/kernels/flash_attention/kernel.py:24",
-            f"B={B} Sq=Sk={S} H=KH={H} hd={hd} {dt} causal",
-            launches[name], worst_abs[name], t_k, p_k,
-            (4 * q.numel() * q.element_size(), fa_ops), source=src,
-            ops_per_s=rate, ops_kind=kind, library_ms=lib_ms)
-        del q, k, v, qt, kt, vt
+            f"B={Bf} Sq=Sk={S} H=KH={H} q/k {hd} v {vh} (kernel width "
+            f"{width}) {dt} causal", launches[name], worst_abs[name], t_k,
+            p_k, (f_bytes, ops), source=src, ops_per_s=rate, ops_kind=kind,
+            library_ms=lib_ms)
+        core = (f"{referee_ms(qp, kp, vp, scale):.4f} ms" if with_referee
+                else "not timed")
+        print(f"   {label} {dt}: SDPA backend {backend}; f32-FMA bound "
+              f"{f_ops / F32_OPS_PER_S * 1e3:.4f} ms; the CUDA-core "
+              f"referee flash_fwd_kernel at width {width}: {core}",
+              flush=True)
+        del q, k, v, qp, kp, vp
     H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_chunk
     xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)

@@ -1,19 +1,22 @@
 // Forward attention on Hopper's tensor cores (sm_90a): bf16 q, k, v with a
-// head dim hd that is a multiple of 8 up to 128.
+// head dim hd that is a multiple of 8 up to 256.
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   kernels/flash_attention/kernel.py::_flash_kernel (K6, via
 //   flash_attention and ops.flash_attention_op)
-// with flash_fwd_wgmma_kernel for those inputs; f32 inputs and hd in
-// (128, 256] stay on flash_fwd_kernel (flash_attention.cu).  The wrapper
-// (kernel.py) picks the kernel from the dtype and hd alone.
+// with flash_fwd_wgmma_kernel for bf16 inputs; f32 inputs go to
+// flash_fwd_tf32_kernel (flash_attention_tf32.cu).  The wrapper
+// (kernel.py) picks the kernel from the dtype alone.
 //
 // What bounds it: at the Zamba2-7B serving shape (B = 4, Sq = Sk = 2048,
 // 32 heads, hd = 112, causal) the two products are ~120 GFLOP, 0.12 ms at
 // the tensor cores' 989 TFLOP/s in bf16, over 235 MB of q, k, v and o
 // (0.07 ms at 3.35 TB/s): operations.  flash_fwd_kernel ran them as f32
 // FMAs on the CUDA cores (67 TFLOP/s at most, 1.8 ms even at full rate;
-// 7.1 ms measured).  This kernel runs both on the tensor cores:
+// 7.1 ms measured).  This kernel runs both on the tensor cores.  At
+// gemma-7b's attention (B = 4, S = 2048, 16 heads, hd = 256, causal) the
+// products are 137.5 GFLOP, 0.139 ms at 989 TFLOP/s, over 268 MB (0.08
+// ms): operations again.
 //
 // - A block takes BM = 128 folded rows f = qi * g + gi of one (kv head,
 //   batch row) — query position qi of each of the g heads that share kv
@@ -24,7 +27,7 @@
 //   end, zero columns past hd) into the 128-byte-swizzled layout that
 //   wgmma reads; K/V tiles of FK = 64 keys arrive by TMA (4-D tensor maps
 //   over (hd, KH, Sk, B), built on the host per call and passed as
-//   __grid_constant__ parameters) into a ring of three stages, each with
+//   __grid_constant__ parameters) into a ring of stages (Layout), each with
 //   an mbarrier that counts the bytes.  Rows of 64 columns (128 bytes) are
 //   the swizzle's span, so hd = 112 is two boxes per row; TMA fills the
 //   columns >= hd and the keys >= Sk with zeros.
@@ -50,11 +53,32 @@
 // - O is normalised in registers, staged in the warpgroup's own rows of
 //   the Q buffer and written with 16-byte stores.
 //
-// One producer warp beside the two warpgroups: its first thread keeps
-// three K/V tiles in flight and refills a stage when every consumer thread
-// has arrived on the stage's "empty" mbarrier, so the two warpgroups run
-// apart and one's softmax overlaps the other's products.  hd <= 64 runs on
-// one 64-column box (D = 64), hd <= 128 on two (D = 128).
+// One producer warp beside the two consumer warpgroups (up to D = 128;
+// below for wider rows): its first thread keeps the K/V stages in flight
+// and refills a stage when every consumer thread has arrived on the
+// stage's "empty" mbarrier, so the two warpgroups run apart and one's
+// softmax overlaps the other's products.
+//
+// Head dims: hd runs on D = 64 ceil(hd / 64) padded columns, one to four
+// 64-column boxes a row (D = 64, 128, 192, 256).  S = Q K^T takes D / 16
+// k-steps of m64n64k16; O += p V is one m64nDk16 per 16 keys, N = D up to
+// wgmma's 256.  Shared memory (Layout) is Q plus STAGES x (K, V): three
+// stages up to D = 192 (192 KB there), two at D = 256 (three would need
+// 256 KB of the 227 KB a block may have); each instance static_asserts
+// its total.  Registers: at D = 256 a consumer thread holds the O
+// accumulator (64 x 256 f32 over 128 threads, 128 registers), S (32) and
+// p's two bf16 A fragments (32).  Each of an SM's four sub-partitions
+// has 16,384 registers for the warps it holds: 288 threads (9 warps,
+// three on one sub-partition) cap a thread at 168, where D = 192 and 256
+// spill (setmaxnreg with a producer warpgroup left ptxas's cap at 168
+// too).  So from D = 192 the block is the two consumer warpgroups alone,
+// 256 threads, 8 warps, 255 registers a thread: thread 0 starts the
+// first STAGES tiles, and after each tile the warpgroup that releases its
+// stage second (a named barrier over its 128 threads, then an atomic
+// count per stage in shared memory) loads the tile STAGES ahead, so a
+// refill waits for no one.  D = 64 and 128 keep the producer warp (126
+// and 154 registers, no spills).  chip_smoke.py prints ptxas's registers
+// and spills of every instance and fails if D = 192 or 256 spills.
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_bf16.h>
@@ -66,18 +90,28 @@ namespace {
 
 constexpr int BM = 128;        // folded rows per block
 constexpr int FK = 64;         // keys per K/V tile
-constexpr int STAGES = 3;      // K/V tiles in flight
 constexpr int CONSUMERS = 256; // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+// and a producer warp up to D = 128; from D = 192 none: the warpgroup
+// that releases a stage last refills it (see the header)
+__host__ __device__ constexpr bool own_producer(int D) { return D <= 128; }
+__host__ __device__ constexpr int threads_for(int D) {
+  return CONSUMERS + (own_producer(D) ? 32 : 0);
+}
 constexpr int ROW_BYTES = 128;  // one swizzled row: 64 bf16 columns
 constexpr float NEG = -1e30f;
 
-// Dynamic shared memory of one block, for D = 64 or 128 padded columns:
-// Q (D/64 boxes of BM rows), then STAGES x (K, V) (D/64 boxes of FK rows
-// each), then the full and empty mbarriers of each stage; +1024 bytes to
-// align the base for the swizzle.
-template <int D>
+// K/V tiles in flight at D padded columns: three where they fit
+__host__ __device__ constexpr int stages_for(int D) {
+  return D == 256 ? 2 : 3;
+}
+
+// Dynamic shared memory of one block, for D = 64, 128, 192 or 256 padded
+// columns: Q (D/64 boxes of BM rows), then STAGES x (K, V) (D/64 boxes of
+// FK rows each), then the full and empty mbarriers of each stage; +1024
+// bytes to align the base for the swizzle.
+template <int D, int STAGES_ = stages_for(D)>
 struct Layout {
+  static constexpr int STAGES = STAGES_;
   static constexpr int BOXES = D / 64;
   static constexpr int Q_BOX = BM * ROW_BYTES;
   static constexpr int KV_BOX = FK * ROW_BYTES;
@@ -87,6 +121,13 @@ struct Layout {
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int TOTAL = BAR_OFF + 16 * STAGES + 1024;
 };
+
+// a block may use 232,448 bytes of dynamic shared memory on sm_90
+constexpr int SMEM_LIMIT = 232448;
+static_assert(Layout<64>::TOTAL <= SMEM_LIMIT, "D = 64: shared memory");
+static_assert(Layout<128>::TOTAL <= SMEM_LIMIT, "D = 128: shared memory");
+static_assert(Layout<192>::TOTAL <= SMEM_LIMIT, "D = 192: shared memory");
+static_assert(Layout<256>::TOTAL <= SMEM_LIMIT, "D = 256: shared memory");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -253,6 +294,118 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 192, f32) += A(64 x 16) B(16 x 192): A bf16 in registers (the
+// accumulator's fragment layout), B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 256, f32) += A(64 x 16) B(16 x 256): A bf16 in registers (the
+// accumulator's fragment layout), B bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
@@ -269,6 +422,18 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               uint64_t db) {
   wgmma_rs_n128(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n192(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(d, a, db);
+}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -278,7 +443,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 // warpgroup holds rows w*16 + l/4 (i = 0) and w*16 + l/4 + 8 (i = 1),
 // columns 8j + 2(l%4) + c at register 4j + 2i + c.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
+__global__ void __launch_bounds__(threads_for(D), 1) flash_fwd_wgmma_kernel(
     __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v,
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
@@ -313,12 +478,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
   const float scale_log2 = scale * 1.4426950408889634f;
 
   // bars[s]: stage s is full (TMA bytes landed); bars[STAGES + s]: stage
-  // s is empty (every consumer thread is done with it).  The producer
-  // thread sets them up and starts the first tiles before Q is loaded.
+  // s is empty (every consumer thread is done with it), or, without a
+  // producer warp, a count of the warpgroups' releases of stage s.  The
+  // loading thread sets them up and starts the first tiles before Q is
+  // loaded.
   const CUtensorMap* map_k = &tm_k;
   const CUtensorMap* map_v = &tm_v;
   auto load = [=](int t) {  // K and V of tile t into stage t % STAGES
-    const int s = t % STAGES;
+    const int s = t % L::STAGES;
     const uint32_t bar = smem_addr(&bars[s]);
     uint8_t* k_dst = sKV + s * L::STAGE_BYTES;
     mbar_expect_tx(bar, L::STAGE_BYTES);
@@ -330,18 +497,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
                   c * 64, kh, t * FK, b);
     }
   };
-  if (tid == CONSUMERS) {
-    for (int s = 0; s < STAGES; ++s) {
+  int* released = reinterpret_cast<int*>(&bars[L::STAGES]);
+  if (tid == (own_producer(D) ? CONSUMERS : 0)) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(smem_addr(&bars[s]), 1);
-      mbar_init(smem_addr(&bars[STAGES + s]), CONSUMERS);
+      if (own_producer(D))
+        mbar_init(smem_addr(&bars[L::STAGES + s]), CONSUMERS);
+      else
+        released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < min(n_tiles, STAGES); ++t) load(t);
+    for (int t = 0; t < min(n_tiles, L::STAGES); ++t) load(t);
   }
 
   // Q, 16 bytes a thread, into the swizzled layout: chunk ch of row r at
   // chunk ch ^ (r % 8), as TMA's 128-byte swizzle places it
-  for (int i = tid; i < BM * (D / 8); i += THREADS) {
+  for (int i = tid; i < BM * (D / 8); i += threads_for(D)) {
     const int r = i / (D / 8);
     const int c8 = i % (D / 8);
     const int f = row0 + r;
@@ -359,9 +530,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
     // the producer warp: one thread keeps STAGES tiles of K and V in
     // flight, refilling a stage once both warpgroups have released it
     if (tid == CONSUMERS) {
-      for (int t = STAGES; t < n_tiles; ++t) {
-        mbar_wait(smem_addr(&bars[STAGES + t % STAGES]),
-                  (t / STAGES + 1) & 1);
+      for (int t = L::STAGES; t < n_tiles; ++t) {
+        mbar_wait(smem_addr(&bars[L::STAGES + t % L::STAGES]),
+                  (t / L::STAGES + 1) & 1);
         load(t);
       }
     }
@@ -383,10 +554,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
   const uint32_t q_base = smem_addr(sQ) + wg * 64 * ROW_BYTES;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
+    const int s = t % L::STAGES;
     const int k0 = t * FK;
     // every consumer waits, so no load is in flight when a stage refills
-    mbar_wait(smem_addr(&bars[s]), (t / STAGES) & 1);
+    mbar_wait(smem_addr(&bars[s]), (t / L::STAGES) & 1);
     __syncwarp();  // wgmma needs the warp converged
     if (wg_live && !(causal && k0 > wg_last_pos)) {
       const uint32_t k_base = smem_addr(sKV + s * L::STAGE_BYTES);
@@ -490,7 +661,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma_kernel(
       wgmma_wait_all();
       fence_regs(acc);
     }
-    mbar_arrive(smem_addr(&bars[STAGES + s]));  // this thread is done
+    if constexpr (own_producer(D)) {
+      mbar_arrive(smem_addr(&bars[L::STAGES + s]));  // this thread is done
+    } else {
+      // this warpgroup is done with stage s; the second of the two to
+      // release it (an odd count before its own) loads tile t + STAGES
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+      if ((tid & 127) == 0) {
+        __threadfence_block();
+        const int before = atomicAdd(&released[s], 1);
+        __threadfence_block();
+        if ((before & 1) && t + L::STAGES < n_tiles) load(t + L::STAGES);
+      }
+    }
   }
 
   // normalise, stage this warpgroup's 64 rows of O (bf16) in its own rows
@@ -561,7 +744,8 @@ EncodeTiled encoder() {
 
 // (B, Sk, KH, hd) bf16, contiguous, as a 4-D map over (hd, KH, Sk, B) with
 // boxes of 64 columns x 1 head x FK keys x 1 batch row, 128-byte swizzle,
-// zeros out of bounds.
+// zeros out of bounds (the columns of the last box past hd, as at hd =
+// 112, 136 or 200, and the keys past Sk).
 int kv_map(CUtensorMap* map, const void* base, int B, int Sk, int KH,
            int hd) {
   const EncodeTiled fn = encoder();
@@ -596,7 +780,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((H / KH * Sq + BM - 1) / BM, KH, B);
-  flash_fwd_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_wgmma_kernel<D><<<grid, threads_for(D), smem, stream>>>(
       tm_k, tm_v, (const __nv_bfloat16*)q, (__nv_bfloat16*)o, Sq, Sk, H, KH,
       hd, scale, causal, window);
   return (int)cudaGetLastError();
@@ -607,19 +791,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Sk,KH,hd) and o (B,Sq,H,hd), contiguous bf16;
-// hd a multiple of 8 up to 128, H % KH == 0.  Returns 0 on success, else
+// hd a multiple of 8 up to 256, H % KH == 0.  Returns 0 on success, else
 // a cudaError_t or one of this library's codes (faw_error_string).
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int Sq, int Sk, int H,
                                  int KH, int hd, float scale, int causal,
                                  int window, void* stream) {
-  if (hd % 8 != 0 || hd < 8 || hd > 128 || KH < 1 || H % KH != 0)
+  if (hd % 8 != 0 || hd < 8 || hd > 256 || KH < 1 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
-  if (hd <= 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                      window, (cudaStream_t)stream);
-  return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal, window,
-                     (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch ((hd + 63) / 64) {  // 64-column boxes a row
+    case 1:
+      return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
+                        window, st);
+    case 2:
+      return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
+                         window, st);
+    case 3:
+      return launch<192>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
+                         window, st);
+    default:
+      return launch<256>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
+                         window, st);
+  }
 }
 
 const char* faw_error_string(int err) {

@@ -9,11 +9,13 @@ only PyTorch for CUDA:
 Integer outputs must be bit-equal (tolerance 0).  The float kernels
 (attention K6, SSD K7) are held to their plain versions run on the same
 card: 2e-5 in f32 attention and 1e-4 in f32 SSD, where the two differ in
-summation order only; 2e-2 in bf16 attention, where the plain version
-rounds q·k and p to bf16 and the kernels do not.  The tensor-core
+summation order only (the f32 attention kernel runs each product as
+three TF32 products, ~2^-21 relative); 2e-2 in bf16 attention, where the
+plain version rounds q·k and p to bf16 and the kernels do not.  The bf16
 attention kernel is also held to the plain version run in f64 on the same
-inputs: no farther from it than 1.25 times the CUDA-core kernel, which
-runs both products in f32; the SSD scan at N = 128 and over several
+inputs: no farther from it than 1.25 times the CUDA-core kernel (the
+f32-FMA referee, launched raw), which runs both products in f32; the SSD
+scan at N = 128 and over several
 slabs is held to the f64 plain version too: within 1e-4, or twice the
 f32 plain version's distance.
 """
@@ -262,15 +264,15 @@ def test_cuda_flash_attention_matches_plain_version(
 
 
 def _cuda_core_attention(q, k, v, scale, causal, window):
-    """The CUDA-core kernel (flash_fwd_kernel) on bf16 inputs that the
-    wrapper sends to the tensor-core one: a raw launch, for comparison."""
+    """The CUDA-core kernel (flash_fwd_kernel, the f32-FMA referee that no
+    input is routed to) on the same inputs: a raw launch, for comparison."""
     B, Sq, H, hd = q.shape
     _, Sk, KH, _ = k.shape
     out = torch.empty_like(q)
     err = fa.LIBRARY.load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, Sq,
-        Sk, H, KH, hd, scale, int(causal), window,
-        torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KH, hd, scale,
+        int(causal), window, torch.cuda.current_stream().cuda_stream)
     fa.LIBRARY.check(err, "flash_attention")
     return out
 
@@ -288,11 +290,18 @@ def _rel(got, want):
     (2, 130, 130, 8, 2, 128, False, 0),  # GQA, a ragged key tile
     (1, 333, 1000, 8, 2, 112, True, 0),  # the prefill tail
     (1, 96, 96, 2, 2, 32, True, 0),  # hd under one 64-column box
+    (1, 200, 200, 8, 2, 136, True, 0),  # three boxes, the third mostly zeros
+    (1, 77, 300, 4, 2, 192, True, 50),  # deepseek-v3's q/k, Sq < Sk, window
+    (2, 130, 130, 4, 4, 192, False, 0),
+    (1, 150, 333, 8, 2, 200, True, 0),  # four boxes, ragged GQA Sq < Sk
+    (1, 200, 200, 4, 4, 256, True, 0),  # gemma-7b's hd
+    (1, 96, 260, 4, 1, 256, True, 70),  # MQA, a window
 ])
 def test_cuda_flash_wgmma_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, window):
-    """bf16 with hd ≤ 128 goes to the tensor-core kernel: within 2e-2 of
-    the bf16 plain version, and no farther from the f64 plain version than
-    1.25 times the CUDA-core kernel on the same inputs."""
+    """bf16 goes to the wgmma kernel at every hd up to 256 (one to four
+    64-column boxes): within 2e-2 of the bf16 plain version, and no
+    farther from the f64 plain version than 1.25 times the CUDA-core
+    kernel on the same inputs."""
     dev = _card()
     g = torch.Generator().manual_seed(Sq + hd)
     q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
@@ -315,7 +324,7 @@ def test_cuda_flash_wgmma_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, wi
     assert _rel(got, exact) <= 1.25 * _rel(core, exact)
 
 
-def test_cuda_flash_bf16_over_128_takes_the_cuda_core_kernel():
+def test_cuda_flash_bf16_hd_256_takes_the_wgmma_kernel():
     dev = _card()
     g = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn((1, 70, 2, 256), generator=g).to(dev,
@@ -324,11 +333,87 @@ def test_cuda_flash_bf16_over_128_takes_the_cuda_core_kernel():
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, scale=0.0625)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == dict(before, flash_attention=before[
-        "flash_attention"] + 1)
+    assert fa.LAUNCHES == dict(before, flash_attention_wgmma=before[
+        "flash_attention_wgmma"] + 1)
     want = fa.flash_attention_ref(q, k, v, scale=0.0625)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,causal,window", [
+    (1, 40, 40, 4, 4, 8, True, 0),  # the narrowest head
+    (2, 256, 256, 4, 4, 64, False, 0),  # bidirectional
+    (1, 200, 200, 8, 2, 112, True, 0),  # GQA g = 4, ragged rows and keys
+    (1, 333, 1000, 8, 2, 112, True, 0),  # the prefill tail
+    (1, 77, 300, 4, 4, 128, True, 50),  # Sq < Sk, a window
+    (1, 130, 130, 4, 1, 136, True, 0),  # MQA, the D = 256 instance
+    (1, 150, 333, 8, 2, 200, True, 40),
+    (1, 77, 300, 4, 4, 256, True, 50),
+    (2, 100, 100, 2, 2, 256, False, 0),
+])
+def test_cuda_flash_tf32_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, window):
+    """f32 goes to the split-TF32 kernel at every hd up to 256: one launch,
+    within 2e-5 of the f32 plain version, and no farther from the f64
+    plain version than the CUDA-core kernel's distance plus 2e-5."""
+    dev = _card()
+    g = torch.Generator().manual_seed(Sq + hd)
+    q, k, v = (torch.randn(shape, generator=g).to(dev)
+               for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                             (B, Sk, KH, hd)))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, flash_attention_tf32=before[
+        "flash_attention_tf32"] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    exact = fa.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    core = _cuda_core_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, exact) <= _rel(core, exact) + 2e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_refuses_inputs_off_a_16_byte_boundary(dtype):
+    """Both kernels read rows in 16-byte pieces: a contiguous view that
+    starts 8 bytes into its storage raises before any launch."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q = torch.randn((1, 64, 2, 64), device=dev).to(dt)
+    shifted = torch.empty(q.numel() + 8, device=dev, dtype=dt)[
+        8 // q.element_size():8 // q.element_size() + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_attention(shifted, q, q, scale=0.125)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_pv_key_order_on_distinct_keys(dtype):
+    """p·V's key permutation within each group of 8 (p's fragment comes
+    from S's accumulator as it is, V's from keys 2t and 2t + 1): every key
+    of V holds its own values, and a sharp softmax (scale 1) puts nearly
+    all of a row's weight on one key, so a key taken for its neighbour
+    shows at full size.  Within the K6 tolerance of the plain version."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    B, S, H, hd = 1, 192, 4, 64
+    g = torch.Generator().manual_seed(5)
+    q, k = (torch.randn((B, S, H, hd), generator=g).to(dev, dt)
+            for _ in range(2))
+    j = torch.arange(S, dtype=torch.float32)[:, None, None]
+    d = torch.arange(hd, dtype=torch.float32)
+    h = torch.arange(H, dtype=torch.float32)[:, None]
+    v = ((j * hd + d + 0.5 * h) / (S * hd))[None].to(dev, dt).contiguous()
+    assert torch.unique(v[0, :, 0, 0]).numel() == S
+    got = fa.flash_attention(q, k, v, scale=1.0)
+    want = fa.flash_attention_ref(q, k, v, scale=1.0)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("lo", [9, 20], ids=["31_edges", "20_edges"])
@@ -445,10 +530,10 @@ def test_cuda_reduced_zamba2_prefill_matches_the_cpu():
                            generator=torch.Generator().manual_seed(1))
     want, _ = model.prefill(params, {"tokens": tokens})
     params.to(dev)
-    before = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_scan"])
+    before = (fa.LAUNCHES["flash_attention_tf32"], ssd.LAUNCHES["ssd_scan"])
     got, _ = model.prefill(params, {"tokens": tokens.to(dev)})
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES["flash_attention"] - before[0],
+    assert (fa.LAUNCHES["flash_attention_tf32"] - before[0],
             ssd.LAUNCHES["ssd_scan"] - before[1]) == (3, 10)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
@@ -579,10 +664,10 @@ def test_cuda_tabled_epilogue_bit_equal_to_plain_version():
 
 
 @pytest.mark.parametrize("dtype,hd,vh,kernel_name", [
-    ("bfloat16", 192, 128, "flash_attention"),  # deepseek-v3 MLA widths
+    ("bfloat16", 192, 128, "flash_attention_wgmma"),  # deepseek-v3 MLA
     ("bfloat16", 64, 32, "flash_attention_wgmma"),
-    ("float32", 24, 16, "flash_attention"),
-    ("float32", 16, 24, "flash_attention"),
+    ("float32", 24, 16, "flash_attention_tf32"),
+    ("float32", 16, 24, "flash_attention_tf32"),
 ])
 def test_cuda_flash_attention_with_v_head_dim_other_than_qk(dtype, hd, vh, kernel_name):
     """v's head dim differs from q/k's: the wrapper runs the kernel at

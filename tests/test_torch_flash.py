@@ -54,6 +54,14 @@ SHAPES = [
     (2, 256, 256, 4, 4, 64, False, 0),  # bidirectional
     (1, 128, 512, 4, 4, 64, True, 0),  # Sq < Sk: the prefill tail
 ]
+# head dims over 128 (deepseek-v3's q/k 192, gemma-7b's 256), GQA and
+# windowed, in the plain-version comparison only
+WIDE_SHAPES = [
+    (1, 128, 128, 2, 1, 192, True, 0),  # GQA g = 2
+    (1, 96, 128, 2, 2, 192, True, 40),  # Sq < Sk, a window
+    (1, 128, 128, 2, 1, 256, True, 0),
+    (1, 128, 128, 2, 2, 256, True, 64),
+]
 
 
 def make_qkv(B, Sq, Sk, H, KH, hd, seed=0):
@@ -70,7 +78,8 @@ def close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,causal,window", SHAPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,causal,window",
+                         SHAPES + WIDE_SHAPES)
 def test_plain_attention_matches_jax_attention_ref(
     B, Sq, Sk, H, KH, hd, causal, window, dtype
 ):
@@ -150,8 +159,8 @@ def test_zero_padding_to_the_kernel_width_leaves_attention_unchanged(hd, vh):
     assert all(t.shape[-1] == width for t in padded)
     got = fa.flash_attention_ref(*padded, scale=0.2, window=7)[..., :vh]
     close(got, fa.flash_attention_ref(q, k, v, scale=0.2, window=7), F32_TOL)
-    assert fa.kernel_for(torch.bfloat16, width) == (
-        "flash_attention" if width > 128 else "flash_attention_wgmma")
+    assert fa.kernel_for(torch.bfloat16, width) == "flash_attention_wgmma"
+    assert fa.kernel_for(torch.float32, width) == "flash_attention_tf32"
 
 
 def test_attn_train_and_decode_match_jax_with_carried_weights():
@@ -219,16 +228,30 @@ def test_wrapper_checks_and_counts_no_cpu_launches():
     (torch.bfloat16, 64, "flash_attention_wgmma"),
     (torch.bfloat16, 112, "flash_attention_wgmma"),  # Zamba2-7B
     (torch.bfloat16, 128, "flash_attention_wgmma"),
-    (torch.bfloat16, 136, "flash_attention"),
-    (torch.bfloat16, 256, "flash_attention"),
-    (torch.float32, 8, "flash_attention"),
-    (torch.float32, 112, "flash_attention"),
-    (torch.float32, 256, "flash_attention"),
+    (torch.bfloat16, 136, "flash_attention_wgmma"),
+    (torch.bfloat16, 192, "flash_attention_wgmma"),  # deepseek-v3 q/k
+    (torch.bfloat16, 200, "flash_attention_wgmma"),
+    (torch.bfloat16, 256, "flash_attention_wgmma"),  # gemma-7b
+    (torch.float32, 8, "flash_attention_tf32"),
+    (torch.float32, 64, "flash_attention_tf32"),
+    (torch.float32, 112, "flash_attention_tf32"),
+    (torch.float32, 256, "flash_attention_tf32"),
 ])
 def test_route_rule_picks_the_kernel_from_dtype_and_head_dim(dtype, hd, kernel):
-    """bf16 with hd ≤ 128 goes to the tensor-core kernel, f32 and hd in
-    (128, 256] to the CUDA-core one; nothing else decides."""
+    """bf16 goes to the wgmma kernel and f32 to the split-TF32 one, at
+    every head dim up to 256; nothing else decides."""
     assert fa.kernel_for(dtype, hd) == kernel
+
+
+def test_no_input_routes_to_the_cuda_core_kernel():
+    """The CUDA-core kernel is the f32 referee only: no (dtype, hd) the
+    wrapper takes is sent to it, and every kernel the rule names has a
+    launch count."""
+    names = {fa.kernel_for(dtype, hd)
+             for dtype in (torch.float32, torch.bfloat16)
+             for hd in range(8, fa.MAX_HEAD_DIM + 1, 8)}
+    assert names == {"flash_attention_wgmma", "flash_attention_tf32"}
+    assert names < set(fa.LAUNCHES)
 
 
 def test_route_rule_raises_for_what_neither_kernel_takes():
@@ -267,6 +290,7 @@ def _c_params(source, fn):
 @pytest.mark.parametrize("lib,fns", [
     ("flash_attention", ["flash_attention_launch"]),
     ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
+    ("flash_attention_tf32", ["flash_attention_tf32_launch"]),
     ("ssd", ["ssd_scan_launch"]),
     ("budgeted_dp", ["dp_forward_launch", "dp_forward_sweep_launch",
                      "dp_edge_launch", "dp_chunk_launch",
@@ -277,7 +301,8 @@ def test_ctypes_declarations_match_the_c_entry_points(lib, fns):
     type: a pointer or a 64-bit stride passed as a 32-bit int would be cut
     on the card."""
     library = {"flash_attention": fa.LIBRARY,
-               "flash_attention_wgmma": fa.WGMMA_LIBRARY, "ssd": ssd.LIBRARY,
+               "flash_attention_wgmma": fa.WGMMA_LIBRARY,
+               "flash_attention_tf32": fa.TF32_LIBRARY, "ssd": ssd.LIBRARY,
                "budgeted_dp": build.LIBRARY}[lib]
     fake = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in fns})
     library._declare(fake)

@@ -426,9 +426,10 @@ def test_launch_dispatch_prints_what_the_jax_example_prints(monkeypatch):
     """``python -m repro_torch.launch.dispatch --device cpu`` on the JAX
     schedule prints the JAX example's lines (``REPRO_DP_SOLVER=
     reference``): ASW and regret of the four policies and pod-b's share.
-    On the port's own schedule g(t) differs from the JAX one by an ulp at
-    5 of the 800 slots (ξ nowhere); ESDP's decisions do not move, so its
-    numbers are the same too."""
+    On the port's own schedule ξ(t) equals the JAX one at every slot and
+    g(t) is at most 1 ulp from it wherever the two differ (how many slots
+    differ follows the host's vectorised ``log``); ESDP's decisions do not
+    move, so its numbers are the same too."""
     monkeypatch.setenv("REPRO_DP_SOLVER", "reference")
     monkeypatch.syspath_prepend(str(ROOT / "examples"))
     import dispatch_cluster
@@ -446,7 +447,9 @@ def test_launch_dispatch_prints_what_the_jax_example_prints(monkeypatch):
     own = stats.schedule_table(800, 8, stats.delta_default,
                                stats.g_logt_only, "cpu")
     assert (own[0].numpy() != sch[0]).sum() == 0
-    assert (own[1].numpy() != sch[1]).sum() == 5
+    g_ulps = np.abs(own[1].numpy().view(np.int32).astype(np.int64)
+                    - np.asarray(sch[1], np.float32).view(np.int32))
+    assert g_ulps.max() <= 1
     inst = dispatch.dispatch_instance()
     speed = dispatch.brownout(800)
     out = sched.ClusterSim(inst, 800, speed_fn=speed, seed=7,
