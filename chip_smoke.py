@@ -18,12 +18,16 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    instance (a 160 KB plane); the whole-plane forward alone on its other
    cell layouts (the largest plane the gate admits, one resource of
    C = 101 — threads that own no cell, small offsets —, C = 216 and
-   C = 1331); the per-edge and fused forwards on planes
+   C = 1331); the epilogue, both instances (the default packing and a
+   forward in three segments with its (word row, bit) table), at E = 1, 5,
+   6, 31, 32, 33, 64 and 65 with walks that clamp at 0, on tied scores
+   and with no feasible budget; the per-edge and fused forwards on planes
    over one block's shared memory — fig-6 c_hi = 6 at T = 1500 and
    ``benchmarks/dp_bench.py``'s E16_C512_S4096 problem — and on its
    E40_K3 shape (chunks across the 32-bit word boundary), at B = 1, 7 and
-   64 under the auto tiling and forced tilings (the per-edge one at B = 1);
-   the fused forward is one cooperative launch per chunk;
+   64 under the auto tiling and forced tilings (the per-edge one at B = 1,
+   its launches chained and one at a time), and the epilogue on each
+   plane; the fused forward is one cooperative launch per chunk;
 3. the tiling choice: fig-6 c_hi = 6 goes to the fused forward, a forced
    whole-plane solve of it raises, c_hi = 5 switches from the whole plane
    at T = 1500 to tiles at T = 2000;
@@ -45,13 +49,16 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    browned out) for ESDP cold, ``incremental="cache"`` and ``"warm"``,
    HSWF, LCF and LWTF, each with its launch counts (cold: one whole-plane
    forward and one epilogue a slot; cache: forwards = misses; warm:
-   forwards = segments launched, one tabled epilogue a solve; baselines:
+   forwards = segments launched, one tabled epilogue a solve, each run
+   under ``torch.cuda.set_sync_debug_mode("error")``, so that a
+   synchronising read in it fails; baselines:
    none) and its per-slot x and solve_stats equal to the same run on the
    CPU, then ``run_batch`` over 8 seeds (one K2 forward a slot, each seed
    equal to its own ``run()``); warm_tiled: ``WarmCudaSolver`` over 50
    solves of an ESDP trajectory on the fig-6 c_hi = 6 plane, each equal
-   to the cold solve, ``dp_chunk`` launches = segments launched, and the
-   device ms of a warm solve against a cold one;
+   to the cold solve, ``dp_chunk`` launches = segments launched, every
+   tabled epilogue call under the sync check, and the device ms of a warm
+   solve against a cold one;
 5. the attention kernels (K6) against their plain version on the card:
    the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the split-TF32
    kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
@@ -100,7 +107,15 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    thread, the launcher's pick there, against a column a cell), both held
    bitwise to the plain version; the dispatch path's kernels at its
    plane (the whole-plane forward at B = 1 and 8, the epilogue's tabled
-   instance) and ``dp_chunk`` on one warm segment of 8 edges.
+   instance, and its default one held bitwise there) and ``dp_chunk`` on
+   one warm segment of 8 edges; the epilogue's walk at B = 1 on the
+   Table-2 plane cut to 0, 1, 9, 17, 25 and 33 edges (its cost an edge);
+   the per-edge pipeline's span a solve (its words' zero fill and 31
+   ``dp_edge`` launches, between CUDA events), issued by the host loop and
+   queued behind a sleeping kernel, chained and one launch at a time;
+   beside the bounds of the epilogue's two rows and K3's, an empty
+   kernel's device time on the row's grid and block, the floor no launch
+   beats.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -204,6 +219,29 @@ def profiled_ms(fn, calls, kernel_names):
                     getattr(evt, "cuda_time_total", 0.0)) / calls / 1e3
     total = sum(shares.values())
     return (total if total > 0 else None), shares
+
+
+def span_ms(fn, solves, queued):
+    """Mean milliseconds between two CUDA events around one call of ``fn``
+    on the current stream, over ``solves`` calls.  ``queued``: each call
+    is held back behind a sleeping kernel while the host issues it, so the
+    first event completes when the sleep ends and the span is the device's
+    alone; else the span is as long as the host takes to issue the call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(solves):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(20_000_000)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        spans.append(start.elapsed_time(stop))
+    return sum(spans) / len(spans)
 
 
 def ptxas_report(log):
@@ -378,6 +416,19 @@ def main():
     def max_err(a, b):
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
+    def epilogue_err(V, W, ups, offs, slim, full, rows=None, bits=None,
+                     want=None):
+        """Largest |kernel − plain| of the epilogue through the wrapper,
+        against ``ref.dp_epilogue_ref`` on the card."""
+        if want is None:
+            want = ref.dp_epilogue_ref(V, W, ups, offs, slim, full, rows,
+                                       bits)
+        got = kernel.dp_epilogue(V, W, ups, offs, slim, full, rows, bits)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        worst["dp_epilogue"] = max(worst["dp_epilogue"], err)
+        return err
+
     def compare(label, inst, tables, B, seed, big=False):
         s_cap = stats.s_cap_for_horizon(T, inst.m)
         feas, offs, v0 = operands(tables, s_cap)
@@ -385,13 +436,12 @@ def main():
         alw_i = alw.to(torch.int32)
         Vk, Wk = kernel.dp_forward_batched(ups, sig, alw_i, feas, offs, v0)
         Vp, Wp = ref.dp_forward_ref(ups, sig, alw_i, feas, offs, v0)
-        ek = kernel.dp_epilogue(Vk, Wk, ups, offs, slim, tables.full_state)
         ep = ref.dp_epilogue_ref(Vp, Wp, ups, offs, slim, tables.full_state)
         torch.cuda.synchronize()
         err_f = max(max_err(Vk, Vp), max_err(Wk, Wp))
-        err_e = max(max_err(a, b) for a, b in zip(ek, ep))
+        err_e = epilogue_err(Vk, Wk, ups, offs, slim, tables.full_state,
+                             want=ep)
         worst["dp_forward_batched"] = max(worst["dp_forward_batched"], err_f)
-        worst["dp_epilogue"] = max(worst["dp_epilogue"], err_e)
         top = int(ep[2].max())
         print(f"   {label}: S={s_cap + 1} C={tables.n_states} "
               f"E={inst.n_edges} B={B} max value {top} "
@@ -451,6 +501,87 @@ def main():
                 fail(f"{label} B={B}: kernel differs from its plain version")
     done(t0)
 
+    # the epilogue where its look-ahead window makes a walk risky: E
+    # around the window (5 edges) and the 32-edge word (Υ̂ up to s_cap + 1 and
+    # small budgets, so walks take edges above their budget: the clamp at
+    # 0), two budgets tied on the score (0 + √9 = 1 + √4) and no feasible
+    # budget (s_limit = −1); each on the default packing and on a forward
+    # in three segments with the (word row, bit) table
+    def epilogue_case(case, tabled):
+        if case == "ties":
+            E_, B, s_cap_ = 33, 2, 3
+            A_, c_ = np.ones((1, E_), np.int64), np.array([1])
+            u_ = np.zeros((B, E_), np.int32)
+            g_ = np.tile(np.arange(1, E_ + 1, dtype=np.int32), (B, 1))
+            u_[:, E_ - 2], g_[:, E_ - 2], g_[:, E_ - 1] = 1, 4, 9
+            a_ = np.zeros((B, E_), bool)
+            a_[:, E_ - 2:] = True
+            l_ = np.full(B, s_cap_, np.int32)
+        else:
+            E_ = 33 if case == "no_feasible" else case
+            B, s_cap_ = 7, 12
+            rng_c = np.random.default_rng(E_)
+            c_ = rng_c.integers(1, 5, 2)
+            A_ = np.minimum(rng_c.integers(1, 3, (2, E_)), c_[:, None])
+            u_ = rng_c.integers(0, s_cap_ + 2, (B, E_)).astype(np.int32)
+            g_ = rng_c.integers(1, 5000, (B, E_)).astype(np.int32)
+            a_ = rng_c.random((B, E_)) < 0.7
+            l_ = (np.full(B, -1, np.int32) if case == "no_feasible"
+                  else rng_c.integers(1, s_cap_ // 2, B).astype(np.int32))
+        tables_c = build_tables(A_, c_)
+        feas_c, offs_c, v0_c = operands(tables_c, s_cap_)
+        u_, g_, a_, l_ = (torch.as_tensor(x, device=dev) for x in (
+            u_, g_, a_.astype(np.int32), l_))
+        if not tabled:
+            V_, W_ = kernel.dp_forward_batched(u_, g_, a_, feas_c, offs_c,
+                                               v0_c)
+            return V_, W_, u_, offs_c, l_, tables_c.full_state, None, None
+        k_ = -(-E_ // 3)
+        bounds = [(max(E_ - (si + 1) * k_, 0), E_ - si * k_)
+                  for si in range(-(-E_ // k_))]
+        rows_c, bits_c, w_off = (np.zeros(E_, np.int32),
+                                 np.zeros(E_, np.int32), 0)
+        planes_c, packs = [], []
+        for lo, hi in bounds:
+            rows_c[lo:hi] = w_off + np.arange(hi - lo) // 32
+            bits_c[lo:hi] = np.arange(hi - lo) % 32
+            w_off += -(-(hi - lo) // 32)
+        for b in range(B):
+            vin_c, ws = v0_c, []
+            for lo, hi in bounds:
+                V_, W_ = kernel.dp_forward_batched(
+                    *(x[b:b + 1, lo:hi].contiguous() for x in (u_, g_, a_)),
+                    feas_c[lo:hi].contiguous(), offs_c[lo:hi].contiguous(),
+                    vin_c)
+                vin_c = V_[0]
+                ws.append(W_)
+            planes_c.append(vin_c)
+            packs.append(torch.cat(ws, dim=1))
+        r_, b_ = kernel.epilogue_table(rows_c, bits_c, dev)
+        return (torch.stack(planes_c), torch.cat(packs), u_, offs_c, l_,
+                tables_c.full_state, r_, b_)
+
+    t0 = phase("the epilogue (both instances) vs its plain version "
+               "(bitwise) on risky walks")
+    for case in (1, 5, 6, 31, 32, 33, 64, 65, "ties", "no_feasible"):
+        errs = []
+        for tabled in (False, True):
+            V_, W_, u_, o_, l_, full_, r_, b_ = epilogue_case(case, tabled)
+            want_c = ref.dp_epilogue_ref(V_, W_, u_, o_, l_, full_, r_, b_)
+            if case == "ties" and not (
+                    (want_c[1] == 0).all() and int(want_c[2][0, 0]) == 9
+                    and int(want_c[2][0, 1]) == 4):
+                fail(f"the tie case has no tie: s* {want_c[1].tolist()}")
+            errs.append(epilogue_err(V_, W_, u_, o_, l_, full_, r_, b_,
+                                     want=want_c))
+        label = f"E={case}" if isinstance(case, int) else f"{case} (E=33)"
+        print(f"   {label}, B={u_.shape[0]}: max |kernel - plain| default "
+              f"{errs[0]}, tabled {errs[1]}", flush=True)
+        if max(errs) != 0:
+            fail(f"epilogue case {case}: kernel differs from its plain "
+                 "version")
+    done(t0)
+
     # the tiled planes: (label, tables, s_cap, u_max, stats maker)
     big6, big6_tables = instance(6, 2)
     s_cap6 = stats.s_cap_for_horizon(T6, big6.m)
@@ -494,7 +625,9 @@ def main():
                     ("fused 2-D e=5", 5, up8(u_max), off_max, both),
                     ("fused 2-D e=32", 32, up8(u_max), c_tile, both)]
         return [
-            ("per-edge (its grid has no tiles)", None, None, C, (1,)),
+            ("per-edge, chained launches (its grid has no tiles)", None,
+             None, C, (1,)),
+            ("per-edge, one launch at a time", "unchained", None, C, (1,)),
             ("fused 2-D e=1", 1, up8(u_max), c_tile, both),
             ("fused 2-D e=7", 7, up8(u_max), c_tile, both),
             ("fused 2-D e=32", 32, up8(u_max), off_max, both),
@@ -518,11 +651,27 @@ def main():
             ups, sig, alw = make_stats(B, 100 + B)
             alw_i = alw.to(torch.int32)
             Vp, Wp = ref.dp_forward_ref(ups, sig, alw_i, feas, offs, v0)
+            slim = torch.as_tensor(np.random.default_rng(B).integers(
+                0, S, B), dtype=torch.int32, device=dev)
+            err = epilogue_err(Vp, Wp, ups, offs, slim, tables.full_state)
+            print(f"      B={B} epilogue on the plain forward's plane: max "
+                  f"|kernel - plain| {err}", flush=True)
+            if err != 0:
+                fail(f"{label} B={B}: the epilogue differs from its plain "
+                     "version")
             for name, be, bs, bc, batches in cases:
                 if B not in batches:
                     continue
                 w0 = time.perf_counter()
-                if be is None:
+                if be == "unchained":  # each dp_edge launch on its own
+                    W = torch.zeros_like(Wp)
+                    bufs = [torch.empty_like(Vp) for _ in range(2)]
+                    V = v0
+                    for n, e in enumerate(range(E - 1, -1, -1)):
+                        V, W = kernel.dp_edge(V, bufs[n % 2], W, ups, sig,
+                                              alw_i, feas, offs, e)
+                    key = "dp_edge"
+                elif be is None:  # chained launches
                     V, W = kernel.dp_forward_blocked(ups, sig, alw_i, feas,
                                                      offs, v0)
                     key = "dp_edge"
@@ -818,15 +967,44 @@ def main():
              ("esdp incremental=cache", "esdp", dict(incremental="cache")),
              ("esdp incremental=warm", "esdp", dict(incremental="warm")),
              ("hswf", "hswf", {}), ("lcf", "lcf", {}), ("lwtf", "lwtf", {}))
+    @contextlib.contextmanager
+    def strict_tabled_epilogue():
+        """Every tabled epilogue call of the warm solver runs under
+        ``torch.cuda.set_sync_debug_mode("error")``: a synchronising read
+        in it (the table read back from the card) raises.  Yields the
+        count of such calls."""
+        real, calls = ops.dp_epilogue, [0]
+
+        def strict(*args, **kw):
+            if len(args) < 8 and kw.get("word_rows") is None:
+                return real(*args, **kw)
+            calls[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        ops.dp_epilogue = strict
+        try:
+            with warnings.catch_warnings():  # "a prototype feature"
+                warnings.simplefilter("ignore", UserWarning)
+                yield calls
+        finally:
+            ops.dp_epilogue = real
+
     d_runs, d_counts = {}, {}
     for label, pol, kw in modes:
         sim = dispatch_sim(**kw)
         reset()
         torch.cuda.synchronize()
         w0 = time.perf_counter()
-        out = sim.run(pol, tiebreak=0.0)
+        with strict_tabled_epilogue() as n_strict:
+            out = sim.run(pol, tiebreak=0.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
+        if kw.get("incremental") == "warm" and n_strict[0] != TD:
+            fail(f"dispatch {label}: {n_strict[0]} tabled epilogue calls "
+                 f"under the sync check, expected {TD}")
         counts = read_counts()
         st = out.solve_stats or {}
         if pol != "esdp":
@@ -965,9 +1143,16 @@ def main():
     warm = warm_solver()
     reset()
     torch.cuda.synchronize()
-    warm_out = warm_pass(warm)
+    with strict_tabled_epilogue() as n_strict:
+        warm_out = warm_pass(warm)
     torch.cuda.synchronize()
     warm_counts = read_counts()
+    if n_strict[0] != N_WARM:
+        fail(f"warm_tiled: {n_strict[0]} tabled epilogue calls under the "
+             f"sync check, expected {N_WARM}")
+    print(f"   {n_strict[0]} tabled epilogue calls ran under "
+          "torch.cuda.set_sync_debug_mode('error'): none synchronised",
+          flush=True)
     wst = warm.stats
     want = dict(dp_chunk=wst["segments_launched"], dp_epilogue=N_WARM)
     print(f"   stats {wst}, edge-skip rate {warm.skip_rate:.4f}; launches "
@@ -1388,6 +1573,14 @@ def main():
                 fail(f"raw launch returned CUDA error {err}")
         return call
 
+    def floor_ms(gx, gy, threads):
+        """Device ms of an empty kernel on a grid of (gx, gy) blocks of
+        ``threads``: the floor no launch of that shape beats."""
+        ms, _ = profiled_ms(checked(lib.dp_empty_launch,
+                                    (gx, gy, threads, stream)), 500,
+                            "empty_kernel")
+        return ms
+
     def row(
         name,
         replaces,
@@ -1401,6 +1594,7 @@ def main():
         ops_per_s=INT32_OPS_PER_S,
         ops_kind="int32",
         library_ms=None,
+        floor=None,
     ):
         ev_ms, w_ms, prof_ms = timed
         # back-to-back launches of a kernel shorter than one host launch
@@ -1418,6 +1612,8 @@ def main():
         prof = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
         lib_txt = ("" if library_ms is None
                    else f", library call {library_ms:.4f} ms")
+        lib_txt += ("" if floor is None else
+                    f", an empty kernel on its grid {floor:.5f} ms")
         print(f"   {name} {shapes}: kernel {k_ms:.4f} ms (profiler device "
               f"time {prof}, CUDA events over back-to-back launches "
               f"{ev_ms:.4f} ms), through the wrapper {w_ms:.4f} ms, plain "
@@ -1502,7 +1698,33 @@ def main():
           f"simulate_batch {counts_fleet['dp_epilogue']}", flush=True)
     row("dp_epilogue (s* + backtrack)", TPU + "ops.py:231",
         f"B={FLEET} S={S} C={C} E={E}", counts_fleet["dp_epilogue"],
-        worst["dp_epilogue"], t3, p3, epi_bound(x_epi))
+        worst["dp_epilogue"], t3, p3, epi_bound(x_epi),
+        floor=floor_ms(FLEET, 1, 256))
+
+    # the walk's cost an edge: B = 1, walks cut to E' edges (E' = 0: the
+    # s* rule alone)
+    def epi_raw(V_, W_, u_, o_, l_, full_, B_, E_, S_, C_):
+        """One raw launch of the (default) epilogue."""
+        o3 = (torch.empty((B_, E_), dtype=torch.int32, device=dev),
+              torch.empty((B_,), dtype=torch.int32, device=dev),
+              torch.empty((B_, S_), dtype=torch.int32, device=dev))
+        keep.append(o3)
+        return checked(lib.dp_epilogue_launch, (
+            V_.data_ptr(), W_.data_ptr(), u_.data_ptr(), o_.data_ptr(),
+            l_.data_ptr(), None, None, full_, B_, E_, W_.shape[1], S_, C_,
+            o3[0].data_ptr(), o3[1].data_ptr(), o3[2].data_ptr(), stream))
+
+    pts = [(n, profiled_ms(epi_raw(
+        V[:1], Wd[:1], ups[:1, :n].contiguous(), offs[:n].contiguous(),
+        slim[:1], tables2.full_state, 1, n, S, C), 300,
+        "dp_epilogue_kernel")[0]) for n in (0, 1, 9, 17, 25, 33)]
+    if all(ms is not None for _, ms in pts):
+        slope = float(np.polyfit([n for n, _ in pts[1:]],
+                                 [ms for _, ms in pts[1:]], 1)[0])
+        print(f"   dp_epilogue B=1 S={S} C={C}: device ms at E' = "
+              + ", ".join(f"{n}: {ms:.5f}" for n, ms in pts)
+              + f"; {slope * 1e3:.5f} us an edge (least squares over "
+              "E' >= 1)", flush=True)
 
     # the whole-plane forward's tiled sweep on the fig-6 planes that ESDP's
     # main path sends to it (c_hi = 4 at T = 2000, c_hi = 5 at T = 1500):
@@ -1613,9 +1835,36 @@ def main():
     p_k = per_call_ms(lambda: ref.dp_edge_ref(vin, out[1], u, s, a, feas,
                                               offs, e_mid), 3, reps=3)
     row("dp_edge B=1 (K3 _edge_tile_kernel/_edge_stile_kernel)",
-        TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, one thread per "
-        "cell", counts_edge["dp_edge"], worst["dp_edge"], t_k,
-        p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C))
+        TPU + "kernel.py:555", f"B=1 S={S} C={C} one edge, four cells a "
+        "thread", counts_edge["dp_edge"], worst["dp_edge"], t_k,
+        p_k, (4 * (3 + C + 3 * S * C), FWD_OPS_PER_CELL * S * C),
+        floor=floor_ms(-(-S * C // 1024), 1, 256))
+    # the per-edge pipeline's span a solve (its words' zero fill and E6
+    # launches): as the solver registry's host loop issues them, and
+    # queued behind a sleeping kernel so that they wait on the device; its
+    # launches chained (programmatic dependent launch, the pipeline's) and
+    # one at a time.  tools/dp_kernel_probe.py reads the same spans, first
+    # start to last end of the launches, from a profiler trace
+    def unchained_solve():
+        Wz = torch.zeros((1, W, S, C), dtype=torch.int32, device=dev)
+        bufs = [torch.empty((1, S, C), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        Vu = v0
+        for n, e in enumerate(range(E6 - 1, -1, -1)):
+            Vu, Wz = kernel.dp_edge(Vu, bufs[n % 2], Wz, u, s, a, feas, offs,
+                                    e)
+
+    spans = {}
+    for how, fn in (("chained", lambda: kernel.dp_forward_blocked(
+            u, s, a, feas, offs, v0)), ("one launch at a time",
+                                        unchained_solve)):
+        for where in ("host loop", "queued"):
+            spans[how, where] = span_ms(fn, 20, where == "queued")
+    print(f"   per-edge pipeline (dp_forward_blocked, {E6} dp_edge launches, "
+          f"B=1 S={S} C={C}), span a solve between CUDA events around it "
+          "(its words' zero fill included; mean of 20 solves): " + "; ".join(
+              f"{how}, {where} {ms:.5f} ms"
+              for (how, where), ms in spans.items()), flush=True)
     # the dispatch path's kernels at its plane (S 201, C 216, E 15): the
     # whole-plane forward at B = 1 (run) and B = 8 (run_batch), and the
     # epilogue's tabled instance on the warm solver's segmented words;
@@ -1667,11 +1916,8 @@ def main():
     u1, s1 = ups[:1].contiguous(), slim[:1].contiguous()
     got = kernel.dp_epilogue(V_d, words_d, u1, offs, s1, d_tables.full_state,
                              warm_d._w_rows, warm_d._bits)
-    want = ref.dp_epilogue_ref(V_d, words_d, u1, offs, s1,
-                               d_tables.full_state, warm_d._w_rows,
-                               warm_d._bits)
-    torch.cuda.synchronize()
-    err = max(max_err(a, b) for a, b in zip(got, want))
+    err = epilogue_err(V_d, words_d, u1, offs, s1, d_tables.full_state,
+                       warm_d._w_rows, warm_d._bits)
     if err:
         fail("the tabled epilogue differs from its plain version")
     epi_out = (torch.empty((1, d_E), dtype=torch.int32, device=dev),
@@ -1699,8 +1945,13 @@ def main():
         s1.data_ptr(), None, None, d_tables.full_state, 1, d_E, d_W, d_S,
         d_C, epi_out[0].data_ptr(), epi_out[1].data_ptr(),
         epi_out[2].data_ptr(), stream)), 500, "dp_epilogue_kernel")
+    err_c = epilogue_err(Vc, Wc, u1, offs, s1, d_tables.full_state)
+    if err_c:
+        fail("the default epilogue differs from its plain version on the "
+             "dispatch plane")
     print(f"   the default epilogue at the same shape (B=1 S={d_S} C={d_C} "
-          f"E={d_E}): {default_ms} ms (profiler device time)", flush=True)
+          f"E={d_E}): {default_ms} ms (profiler device time), equal to its "
+          "plain version", flush=True)
     # as the default epilogue's bound, plus the table (2E words)
     x_t = got[0]
     nbytes = 4 * ((2 * d_S + 4 * d_E + 2) + int(x_t.sum())
@@ -1708,7 +1959,8 @@ def main():
     row("dp_epilogue tabled (warm segments: word row, bit per edge)",
         TPU + "ops.py:687", f"B=1 S={d_S} C={d_C} E={d_E}, "
         f"{words_d.shape[1]} word rows", d_counts["esdp incremental=warm"][
-            "dp_epilogue"], err, t_k, p_k, (nbytes, 5 * d_S + 6 * d_E))
+            "dp_epilogue"], err, t_k, p_k, (nbytes, 5 * d_S + 6 * d_E),
+        floor=floor_ms(1, 1, 256))
     # dp_chunk on one warm segment: the first WARM_K fold steps of the
     # fig-6 c_hi = 6 plane, from the cold-start plane
     S, C = s_cap6 + 1, big6_tables.n_states

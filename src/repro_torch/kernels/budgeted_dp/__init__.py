@@ -3,7 +3,7 @@ PyTorch versions (``ref``), the tile choice (``tiling``) and the solve
 wrappers (``ops``: the cold solve and the warm-started one)."""
 from .kernel import (LAUNCHES, dp_chunk, dp_edge, dp_epilogue,
                      dp_forward_batched, dp_forward_blocked,
-                     dp_forward_fused)
+                     dp_forward_fused, epilogue_table)
 from .ops import (VALUE_BOUND, WarmCudaSolver, max_achievable_value,
                   prepare_tables, solve_budgeted_dp_batched,
                   validate_value_row)
@@ -12,7 +12,7 @@ from .tiling import (SMEM_LIMIT_BYTES, check_tiling, choose_tiling,
 
 __all__ = ["LAUNCHES", "dp_forward_batched", "dp_edge", "dp_chunk",
            "dp_forward_blocked", "dp_forward_fused", "dp_epilogue",
-           "VALUE_BOUND", "prepare_tables", "max_achievable_value",
+           "epilogue_table", "VALUE_BOUND", "prepare_tables", "max_achievable_value",
            "validate_value_row", "solve_budgeted_dp_batched",
            "WarmCudaSolver",
            "SMEM_LIMIT_BYTES", "check_tiling", "choose_tiling",

@@ -66,16 +66,34 @@
 // instructions a cell) between two block barriers, E times in series.
 // Int32 max and add do not depend on order, so the result is bit-exact.
 
-// Per-edge forward (dp_edge_kernel).  One launch per edge; one thread per
-// cell, EDGE_THREADS cells per block and a grid row of blocks per instance,
-// reads the plane `vin` in device memory and writes `vout` (the host
-// ping-pongs two buffers), so it runs a plane of any size.  The TPU kernel's
-// halos become plain reads of the input plane, so the JAX tiling knobs
-// (block_s, block_c) only pick this pipeline and do not shape the grid,
-// which fills the card at any tiling.  What bounds it: each edge moves the
-// plane and its word through device memory (~1.2 MB at fig-6 c_hi = 6),
-// ~0.4 us at 3.35 TB/s, below one launch's latency; it is the pipeline of
-// last resort.
+// Per-edge forward (dp_edge_kernel).  One launch per edge; it reads the
+// plane `vin` in device memory and writes `vout` (the host ping-pongs two
+// buffers), so it runs a plane of any size.  The TPU kernel's halos become
+// plain reads of the input plane, so the JAX tiling knobs (block_s,
+// block_c) only pick this pipeline and do not shape the grid, which fills
+// the card at any tiling.  An edge moves the plane and its word through
+// L2 (~1.2 MB at fig-6 c_hi = 6, ~0.4 us at 3.35 TB/s), less than one
+// launch's latency, so what bounds it is each cell's chain of dependent
+// memory round trips and the launch itself:
+// - The edge's operands (Υ̂, Σ̂², the offset, the allowed flag) are one
+//   broadcast load each, and each thread's feasibility entries are issued
+//   with them, before any plane load; only the gather of vin waits on Υ̂
+//   and the offset.  Two round trips a cell: the operands, then the plane.
+// - A thread owns EDGE_ITEMS cells EDGE_THREADS apart (coalesced), finds
+//   its first cell's (s, c) with one division and steps the others by
+//   adds.  All its plane loads are issued before any compare.  Two cells
+//   a thread (twice the blocks) doubled the chained pipeline's span at
+//   fig-6 c_hi = 6.
+// - A decision bit goes out as a fire-and-forget atomicOr (red.global.or)
+//   where it is set: the word is never read.
+// - dp_edge_chain_launch starts an edge with Hopper's programmatic
+//   dependent launch: every edge lets the next one start at once
+//   (griddepcontrol.launch_dependents), and the next loads its operands,
+//   then waits for this edge's writes (griddepcontrol.wait) before it
+//   reads vin.  Its plane loads bypass L1 (ld.global.cg), since a block
+//   of the edge before may still run on the same SM.  The per-edge
+//   pipeline (kernel.py::dp_forward_blocked) chains every edge after its
+//   first, whose stream predecessor is some other kernel.
 //
 // Fused forward (dp_chunk_kernel).  One cooperative launch per chunk of
 // <= 32 edges, its grid every block the card holds at once (occupancy x
@@ -97,13 +115,39 @@
 // device memory once per edge.  Int32 max and add do not depend on order,
 // so the result is bit-exact.
 //
-// Epilogue.  One block per instance: a block-wide first-index argmax of
-// s + sqrtf((float)v) over the feasible s <= s_limit, then one thread walks
-// the E edges from (s*, full_state).  Its tabled instance reads edge e's
-// decision where a table puts it, for a forward run in segments that pack
-// their own words (the warm re-solve's carried planes, ops.WarmCudaSolver;
-// the JAX package's jnp select_back in kernels/budgeted_dp/ops.py).  It must be compiled WITHOUT
-// --use_fast_math: the score needs IEEE-rounded sqrtf or s* flips.
+// Epilogue (dp_epilogue_kernel).  One block of EPI_THREADS per instance.
+// It computes the eq.-17 s* rule (the first argmax of s + sqrtf((float)v)
+// over the feasible s <= s_limit) and walks the E edges from
+// (s*, full_state): edge e's decision d is a bit of the packed words at
+// the walk's cell, and a taken edge moves it to (max(s - Υ̂_e, 0),
+// c - off_e).  Walked by one thread, that is one dependent L2 load an
+// edge, about half the time at E = 33; a loop of dependent column loads
+// and a nine-barrier reduction tree for s* took the other half.  So:
+// - Loads first: each thread issues its EPI_ITEMS column loads and the
+//   staging loads of one edge's operands (Υ̂ of the instance, the offset,
+//   the tabled instance's word row and bit) before it uses any, and the
+//   block stages every per-edge operand of the walk in shared memory.
+// - s*: a warp-shuffle argmax with the first-index tie rule, then each
+//   thread folds the eight warps' maxima itself: one barrier.
+// - Look-ahead walk, warp 0: a window of EPI_WINDOW = 5 edges is a
+//   decision tree of 31 nodes, a node being the prefix of taken/not-taken
+//   decisions before its edge.  Lane n takes node n (depth d =
+//   floor(log2 n), its prefix the bits of n below the leading one).  The
+//   node's cell is a function of the window's first cell that its lane
+//   works out from the stage while the window before is in flight
+//   (NodeOps), so a window costs one L2 round trip: every lane moves the
+//   window's first cell to its node's and loads its decision bit there,
+//   the ballot of the bits shows which nodes lie on the true path (each
+//   ancestor's decision leads to them), and the path's last node hands
+//   the window's last cell to the next window by shuffles.  E = 33 takes
+//   7 round trips, not 33.  The path and every decision are the serial
+//   walk's, so x and s* are bit-exact.  A block-wide window of 8 edges
+//   (255 nodes, a barrier a window) ran slower at E 15 and 33.
+// Its tabled instance reads edge e's decision where a table puts it, for
+// a forward run in segments that pack their own words (the warm
+// re-solve's carried planes, ops.WarmCudaSolver; the JAX package's jnp
+// select_back in kernels/budgeted_dp/ops.py).  It must be compiled
+// WITHOUT --use_fast_math: the score needs IEEE-rounded sqrtf or s* flips.
 //
 // The int32 arithmetic with NEG = -2^29 keeps every NEG-seeded chain below
 // zero for sums < 2^29 (the f32 Pallas kernels stopped at 2^24).  wgmma and
@@ -128,7 +172,14 @@ constexpr int FIT_ITEMS = 22;        // cells a thread holds: 22 at Table 2
 constexpr int SWEEP_THREADS = 1024;
 constexpr int CHUNK_ITEMS = 16;      // cells a thread stages per chunk
 constexpr int EPI_THREADS = 256;
+constexpr int EPI_WARPS = EPI_THREADS / 32;
+constexpr int EPI_ITEMS = 4;      // column entries a thread loads at once
+constexpr int EPI_STAGE = 512;    // edges whose operands are staged at once
+constexpr int EPI_WINDOW = 5;     // edges a look-ahead window resolves
 constexpr int EDGE_THREADS = 256;
+constexpr int EDGE_ITEMS = 4;   // cells a thread of the per-edge kernel
+constexpr int EDGE_CELLS = EDGE_THREADS * EDGE_ITEMS;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int CHUNK_THREADS = 512;
 
 namespace cg = cooperative_groups;
@@ -368,33 +419,80 @@ dp_forward_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
   }
 }
 
+// A load that bypasses L1 (ld.global.cg) and that the compiler keeps
+// after griddepcontrol.wait (volatile, with a memory clobber).
+__device__ __forceinline__ int load_cg(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Thread t of block x owns cells x * EDGE_CELLS + t + k * EDGE_THREADS,
+// k < EDGE_ITEMS.  vin is not __restrict__: a chained launch reads it after
+// the edge before wrote it (vin and vout are distinct buffers).
 __global__ void __launch_bounds__(EDGE_THREADS)
 dp_edge_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
                const int* __restrict__ alw,  // (B, E) or nullptr
                const int* __restrict__ feas, const int* __restrict__ offs,
-               const int* __restrict__ vin, int vin_stride,
-               int* __restrict__ vout, unsigned* __restrict__ words, int E,
-               int S, int C, int e) {
+               const int* vin, int vin_stride, int* __restrict__ vout,
+               unsigned* __restrict__ words, int E, int S, int C, int e) {
+  // a chained launch of the next edge may start now and load its operands
+  asm volatile("griddepcontrol.launch_dependents;");
   const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S * C) return;
-  const int s = i / C;
-  const int c = i - s * C;
-  const size_t SC = (size_t)S * C;
-  const int* vin_b = vin + (size_t)b * vin_stride;
-  unsigned* word = words + ((size_t)b * ((E + 31) >> 5) + (e >> 5)) * SC;
-  const int u = max(ups[(size_t)b * E + e], 0);
-  const int off = offs[e];
-  const bool on = alw == nullptr || alw[(size_t)b * E + e] != 0;
-  const int v = vin_b[i];
-  int take = NEG;
-  if (on && c >= off && feas[(size_t)e * C + c] != 0) {
-    take = vin_b[(size_t)max(s - u, 0) * C + (c - off)] +
-           sig[(size_t)b * E + e];
+  const int SC = S * C;
+  const int first = blockIdx.x * EDGE_CELLS + threadIdx.x;
+  // the edge's operands and the thread's feasibility entries first
+  const size_t be = (size_t)b * E + e;
+  const int u = max(__ldg(ups + be), 0);
+  const int sg = __ldg(sig + be);
+  const int off = __ldg(offs + e);
+  const bool on = alw == nullptr || __ldg(alw + be) != 0;
+  const int* feas_e = feas + (size_t)e * C;
+  const int ds = EDGE_THREADS / C, dc = EDGE_THREADS - ds * C;
+  int s = first / C, c = first - s * C;  // the thread's one division
+  int cs[EDGE_ITEMS], ss[EDGE_ITEMS], fz[EDGE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < EDGE_ITEMS; ++k) {
+    ss[k] = s;
+    cs[k] = c;
+    fz[k] = first + k * EDGE_THREADS < SC ? __ldg(feas_e + c) : 0;
+    s += ds;  // EDGE_THREADS cells on
+    c += dc;
+    if (c >= C) {
+      c -= C;
+      ++s;
+    }
   }
-  vout[(size_t)b * SC + i] = max(v, take);
-  if (take > v) word[i] |= 1u << (e & 31);
+  // a chained launch: the edge before has written vin (a no-op otherwise)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int* vin_b = vin + (size_t)b * vin_stride;
+  int v[EDGE_ITEMS], g[EDGE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < EDGE_ITEMS; ++k) {
+    const int i = first + k * EDGE_THREADS;
+    fz[k] = fz[k] != 0 && on && cs[k] >= off;  // the cell takes the edge
+    v[k] = i < SC ? load_cg(vin_b + i) : 0;
+    g[k] = fz[k] ? load_cg(vin_b + (size_t)max(ss[k] - u, 0) * C +
+                           (cs[k] - off))
+                 : 0;
+  }
+  int* vout_b = vout + (size_t)b * SC;
+  unsigned* word = words + ((size_t)b * ((E + 31) >> 5) + (e >> 5)) * SC;
+  const unsigned bit = 1u << (e & 31);
+#pragma unroll
+  for (int k = 0; k < EDGE_ITEMS; ++k) {
+    const int i = first + k * EDGE_THREADS;
+    if (i < SC) {
+      const int take = fz[k] ? g[k] + sg : NEG;
+      vout_b[i] = max(v[k], take);
+      if (take > v[k]) atomicOr(word + i, bit);  // one writer a cell
+    }
+  }
 }
+
+// A launch of nothing, with a kernel's grid and block: the device time
+// no launch beats (chip_smoke.py prints it beside each bound).
+__global__ void empty_kernel() {}
 
 // The planes are read after other blocks wrote them in this launch, so
 // their pointers are neither const nor __restrict__ (no non-coherent
@@ -470,9 +568,82 @@ dp_chunk_kernel(const int* __restrict__ ups, const int* __restrict__ sig,
   }
 }
 
+// The per-edge operands of EPI_STAGE edges of one instance's walk (and
+// EPI_WINDOW more, read past the last edge and never used).
+template <bool TABLED>
+struct EpiStage {
+  int u[EPI_STAGE + EPI_WINDOW];
+  int off[EPI_STAGE + EPI_WINDOW];
+  int row[TABLED ? EPI_STAGE + EPI_WINDOW : 1];
+  int bit[TABLED ? EPI_STAGE + EPI_WINDOW : 1];
+};
+
+// Edges lo + j0 .. lo + n - 1 into the stage, by threads j0, j0 + nt, ...
+template <bool TABLED>
+__device__ __forceinline__ void stage_edges(EpiStage<TABLED>& st,
+                                            const int* ups_b, const int* offs,
+                                            const int* word_rows,
+                                            const int* bits, int lo, int j0,
+                                            int n, int nt) {
+  for (int j = j0; j < n; j += nt) {
+    st.u[j] = __ldg(ups_b + lo + j);
+    st.off[j] = __ldg(offs + lo + j);
+    if constexpr (TABLED) {
+      st.row[j] = __ldg(word_rows + lo + j);
+      st.bit[j] = __ldg(bits + lo + j);
+    }
+  }
+}
+
+// One look-ahead window's operands for node t (depth d < EPI_WINDOW, its
+// edge e0 + d), worked out from the stage before the walk reaches the
+// window, since they do not depend on the walk's cell: the node's cell as
+// a function of the window's first cell (s0, c0), s = max(s0 - a, l), c =
+// c0 - o (the clamped steps max(s - Υ̂, 0) of its prefix compose so,
+// whatever Υ̂'s sign), the same after its own edge is taken (a1, l1, o1),
+// and its edge's decision bit: bit `bit` of the plane `word`.
+struct NodeOps {
+  int a, l, o, a1, l1, o1, bit;
+  const unsigned* word;
+};
+
+template <bool TABLED>
+__device__ __forceinline__ NodeOps node_ops(const EpiStage<TABLED>& st,
+                                            const unsigned* words_b,
+                                            size_t SC, int j0, int e0, int t,
+                                            int depth) {
+  NodeOps n;
+  int a = 0, l = 0, o = 0;
+#pragma unroll
+  for (int j = 0; j < EPI_WINDOW - 1; ++j) {
+    if (j < depth && (t >> (depth - 1 - j) & 1)) {
+      const int u = st.u[j0 + j];
+      a += u;
+      l = max(l - u, 0);
+      o += st.off[j0 + j];
+    }
+  }
+  const int u = st.u[j0 + depth];
+  n.a = a;
+  n.l = l;
+  n.o = o;
+  n.a1 = a + u;
+  n.l1 = max(l - u, 0);
+  n.o1 = o + st.off[j0 + depth];
+  int row = (e0 + depth) >> 5;
+  n.bit = (e0 + depth) & 31;
+  if constexpr (TABLED) {
+    row = st.row[j0 + depth];
+    n.bit = st.bit[j0 + depth];
+  }
+  n.word = words_b + (size_t)row * SC;
+  return n;
+}
+
 // TABLED: edge e's decision is bit bits[e] of word word_rows[e] (a forward
 // run in segments that number their edges from 0, W words in all); else
-// bit e % 32 of word e / 32, with W = ceil(E / 32).
+// bit e % 32 of word e / 32, with W = ceil(E / 32).  The window's
+// 2^EPI_WINDOW - 1 nodes are lanes 1 .. 31 of warp 0.
 template <bool TABLED>
 __global__ void __launch_bounds__(EPI_THREADS)
 dp_epilogue_kernel(const int* __restrict__ vout,
@@ -483,62 +654,164 @@ dp_epilogue_kernel(const int* __restrict__ vout,
                    const int* __restrict__ bits, int full_state, int E,
                    int W, int S, int C, int* __restrict__ x,
                    int* __restrict__ s_star, int* __restrict__ value_row) {
-  __shared__ float best_score[EPI_THREADS];
-  __shared__ int best_s[EPI_THREADS];
+  static_assert(1 << EPI_WINDOW == 32, "a window's nodes are one warp");
+  __shared__ EpiStage<TABLED> st;
+  __shared__ float warp_score[EPI_WARPS];
+  __shared__ int warp_s[EPI_WARPS];
   const int b = blockIdx.x;
+  const int t = threadIdx.x;
   const int SC = S * C;
-  const int* v_b = vout + (size_t)b * SC;
-  const int lim = s_limit[b];
+  const int* ups_b = ups + (size_t)b * E;
+  const int* col = vout + (size_t)b * SC + full_state;
+  int* row_b = value_row + (size_t)b * S;
 
-  // each thread scans s in increasing order, so a strict > keeps the first
+  // the first EPI_THREADS edges' operands, one a thread, and the first
+  // EPI_ITEMS column entries, all loads issued before any is used
+  const int n_stage = min(E, EPI_STAGE);
+  int su = 0, so = 0, sr = 0, sb = 0;
+  if (t < n_stage) {
+    su = __ldg(ups_b + t);
+    so = __ldg(offs + t);
+    if constexpr (TABLED) {
+      sr = __ldg(word_rows + t);
+      sb = __ldg(bits + t);
+    }
+  }
+  const int lim = s_limit[b];
+  int v[EPI_ITEMS];
+#pragma unroll
+  for (int k = 0; k < EPI_ITEMS; ++k) {
+    const int s = t + k * EPI_THREADS;
+    v[k] = s < S ? col[(size_t)s * C] : -1;
+  }
+  // node t of a look-ahead window: its edge in the window (its depth),
+  // and its ancestors as bits of a ballot (ancestor i is t >> (depth -
+  // i)) with the decisions that lead from them to t; worked out while the
+  // loads are in flight, and kept in registers, not worked out again from
+  // the thread index in every window (a slow special-register read)
+  int depth = t == 0 || t >= 32 ? 0 : 31 - __clz(t);
+  unsigned anc = 0u, lead = 0u;
+#pragma unroll
+  for (int i = 0; i < EPI_WINDOW - 1; ++i) {
+    if (i < depth) {
+      anc |= 1u << (t >> (depth - i));
+      lead |= (unsigned)(t >> (depth - 1 - i) & 1) << (t >> (depth - i));
+    }
+  }
+  int lane = t;
+  asm volatile("" : "+r"(lane), "+r"(depth), "+r"(anc), "+r"(lead));
+  if (t < n_stage) {
+    st.u[t] = su;
+    st.off[t] = so;
+    if constexpr (TABLED) {
+      st.row[t] = sr;
+      st.bit[t] = sb;
+    }
+  }
+  stage_edges<TABLED>(st, ups_b, offs, word_rows, bits, 0, t + EPI_THREADS,
+                      n_stage, EPI_THREADS);
+
+  // s*: each thread takes s in increasing order, so a strict > keeps the
+  // first; the reductions keep the smaller s of two equal scores
   float best = -INFINITY;
   int arg = S;  // sentinel above every index
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int v = v_b[s * C + full_state];
-    value_row[(size_t)b * S + s] = v >= 0 ? v : NEG;
-    if (v >= 0 && s <= lim) {
-      const float score = (float)s + sqrtf((float)v);
-      if (score > best) {
-        best = score;
-        arg = s;
+  for (int lo = 0; lo < S; lo += EPI_ITEMS * EPI_THREADS) {
+    if (lo > 0) {
+#pragma unroll
+      for (int k = 0; k < EPI_ITEMS; ++k) {
+        const int s = lo + t + k * EPI_THREADS;
+        v[k] = s < S ? col[(size_t)s * C] : -1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < EPI_ITEMS; ++k) {
+      const int s = lo + t + k * EPI_THREADS;
+      if (s < S) {
+        row_b[s] = v[k] >= 0 ? v[k] : NEG;
+        if (v[k] >= 0 && s <= lim) {
+          const float score = (float)s + sqrtf((float)v[k]);
+          if (score > best) {
+            best = score;
+            arg = s;
+          }
+        }
       }
     }
   }
-  best_score[threadIdx.x] = best;
-  best_s[threadIdx.x] = arg;
-  __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) {
-      const float o = best_score[threadIdx.x + half];
-      const int os = best_s[threadIdx.x + half];
-      const float m = best_score[threadIdx.x];
-      if (o > m || (o == m && os < best_s[threadIdx.x])) {
-        best_score[threadIdx.x] = o;
-        best_s[threadIdx.x] = os;
-      }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_down_sync(FULL_MASK, best, o);
+    const int oa = __shfl_down_sync(FULL_MASK, arg, o);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
     }
-    __syncthreads();
   }
+  if ((t & 31) == 0) {
+    warp_score[t >> 5] = best;
+    warp_s[t >> 5] = arg;
+  }
+  __syncthreads();  // the warps' maxima and the stage
+  best = warp_score[0];
+  arg = warp_s[0];
+#pragma unroll
+  for (int w = 1; w < EPI_WARPS; ++w) {
+    const float ob = warp_score[w];
+    const int oa = warp_s[w];
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  // no feasible s: argmax over an all -inf score row is index 0
+  const int star = arg == S ? 0 : arg;
+  if (t == 0) s_star[b] = star;
 
-  if (threadIdx.x == 0) {
-    // no feasible s: argmax over an all -inf score row is index 0
-    const int star = best_s[0] == S ? 0 : best_s[0];
-    const unsigned* words_b = words + (size_t)b * W * SC;
-    const int* ups_b = ups + (size_t)b * E;
-    int s = star;
-    int cs = full_state;
-    for (int e = 0; e < E; ++e) {
-      const int row = TABLED ? word_rows[e] : e >> 5;
-      const int bit = TABLED ? bits[e] : e & 31;
-      const unsigned w = words_b[(size_t)row * SC + s * C + cs];
-      const int d = (int)((w >> bit) & 1u);
-      x[(size_t)b * E + e] = d;
-      if (d) {
-        s = max(s - ups_b[e], 0);
-        cs -= offs[e];
-      }
+  if (t >= 32) return;  // warp 0 walks
+  const unsigned* words_b = words + (size_t)b * W * SC;
+  int s0 = star, c0 = full_state;  // the walk's cell at the window's start
+  int base = 0;                    // the first staged edge
+  NodeOps cur = node_ops<TABLED>(st, words_b, SC, 0, 0, lane, depth);
+  for (int e0 = 0; e0 < E; e0 += EPI_WINDOW) {
+    const int n_win = min(EPI_WINDOW, E - e0);
+    const bool live = lane > 0 && depth < n_win;
+    // node t's cell and the decision bit of its edge there; a cell off the
+    // plane is on no path the forward took (s >= 0: l >= 0)
+    const int s = max(s0 - cur.a, cur.l), c = c0 - cur.o;
+    unsigned dec = 0u;
+    if (live && (unsigned)c < (unsigned)C && s < S)
+      dec = __ldg(cur.word + (s * C + c)) >> cur.bit & 1u;
+    // the next window's operands while the load is in flight
+    const int e1 = e0 + EPI_WINDOW;
+    const bool restage =
+        e1 < E && e1 + min(EPI_WINDOW, E - e1) > base + EPI_STAGE;
+    NodeOps nxt = cur;
+    if (e1 < E && !restage)
+      nxt = node_ops<TABLED>(st, words_b, SC, e1 - base, e1, lane, depth);
+    // the true path: the nodes whose ancestors' decisions lead to them,
+    // one a depth, so the last is the highest; its leaf 2^n_win + the
+    // decisions, first edge highest
+    const unsigned m = __ballot_sync(FULL_MASK, dec);
+    const unsigned on = __ballot_sync(FULL_MASK, live && (m & anc) == lead);
+    const int n_last = 31 - __clz(on);
+    // the window's last cell: node n_last's after its own decision
+    const int a = __shfl_sync(FULL_MASK, dec ? cur.a1 : cur.a, n_last);
+    const int l = __shfl_sync(FULL_MASK, dec ? cur.l1 : cur.l, n_last);
+    const int o = __shfl_sync(FULL_MASK, dec ? cur.o1 : cur.o, n_last);
+    s0 = max(s0 - a, l);
+    c0 -= o;
+    const int leaf = 2 * n_last + (int)(m >> n_last & 1u);
+    if (lane < n_win)
+      x[(size_t)b * E + e0 + lane] = leaf >> (n_win - 1 - lane) & 1;
+    if (restage) {  // the next EPI_STAGE edges' operands
+      __syncwarp();  // every read of the stage is done
+      base = e1;
+      stage_edges<TABLED>(st, ups_b, offs, word_rows, bits, base, lane,
+                          min(E - base, EPI_STAGE), 32);
+      __syncwarp();
+      nxt = node_ops<TABLED>(st, words_b, SC, 0, e1, lane, depth);
     }
-    s_star[b] = star;
+    cur = nxt;
   }
 }
 
@@ -614,9 +887,41 @@ int dp_edge_launch(const int* ups, const int* sig, const int* alw,
                    const int* feas, const int* offs, const int* vin,
                    int vin_stride, int* vout, unsigned* words, int B, int E,
                    int S, int C, int e, void* stream) {
-  const dim3 grid((S * C + EDGE_THREADS - 1) / EDGE_THREADS, B);
+  const dim3 grid((S * C + EDGE_CELLS - 1) / EDGE_CELLS, B);
   dp_edge_kernel<<<grid, EDGE_THREADS, 0, (cudaStream_t)stream>>>(
       ups, sig, alw, feas, offs, vin, vin_stride, vout, words, E, S, C, e);
+  return (int)cudaGetLastError();
+}
+
+// dp_edge_launch chained to the kernel launched just before it on the
+// stream (programmatic dependent launch): it may start, and load the
+// edge's operands, while that kernel runs, so that kernel must write none
+// of ups, sig, alw, feas, offs; it waits for that kernel's writes before
+// it reads vin.
+int dp_edge_chain_launch(const int* ups, const int* sig, const int* alw,
+                         const int* feas, const int* offs, const int* vin,
+                         int vin_stride, int* vout, unsigned* words, int B,
+                         int E, int S, int C, int e, void* stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((S * C + EDGE_CELLS - 1) / EDGE_CELLS, B);
+  cfg.blockDim = dim3(EDGE_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, dp_edge_kernel, ups, sig, alw, feas, offs, vin,
+                         vin_stride, vout, words, E, S, C, e);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// empty_kernel on a grid of (gx, gy) blocks of `threads`.
+int dp_empty_launch(int gx, int gy, int threads, void* stream) {
+  empty_kernel<<<dim3(gx, gy), threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -8,17 +8,19 @@ the kernel):
 - ``dp_forward_batched``: the whole plane in one block's shared memory,
   one launch for all E edges (counterpart of the JAX package's
   ``_dp_kernel`` at B = 1 and ``_dp_kernel_batched``, K1/K2);
-- ``dp_forward_blocked``: one ``dp_edge`` launch per edge, one thread per
-  cell, the plane ping-ponged between two buffers in device memory
-  (``_edge_tile_kernel``/``_edge_stile_kernel`` scanned by
-  ``_dp_forward_blocked``, K3);
+- ``dp_forward_blocked``: one ``dp_edge`` launch per edge, each after the
+  first chained to the one before, the plane ping-ponged between two
+  buffers in device memory (``_edge_tile_kernel``/``_edge_stile_kernel``
+  scanned by ``_dp_forward_blocked``, K3);
 - ``dp_forward_fused``: one ``dp_chunk`` launch per chunk of ``block_e``
   edges, a cooperative launch over the whole card with a grid barrier
   between edges (``_fused_chunk_kernel``, K4, and
   ``_batched_fused_kernel``, K5).
 
-``dp_epilogue`` runs the eq.-17 s* rule and the backtrack on the card.
-``tiling.choose_tiling`` picks the pipeline and its tiles.
+``dp_epilogue`` runs the eq.-17 s* rule and the backtrack on the card;
+``epilogue_table`` makes its optional (word row, bit) table on a device,
+checked once on the host.  ``tiling.choose_tiling`` picks the pipeline and
+its tiles.
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``, under
 the same host loop (chunk loop, ping-pong, word zeroing); a CUDA tensor
@@ -27,14 +29,16 @@ its launches in ``LAUNCHES``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import build, ref, tiling
 from .ref import packed_words
 
 __all__ = ["LAUNCHES", "dp_forward_batched", "dp_edge", "dp_chunk",
            "dp_forward_blocked", "dp_forward_fused", "dp_epilogue",
-           "packed_words"]
+           "epilogue_table", "packed_words"]
 
 # launches of each CUDA kernel wrapper (plain-version calls are not counted)
 LAUNCHES = {"dp_forward_batched": 0, "dp_edge": 0, "dp_chunk": 0,
@@ -117,12 +121,31 @@ def dp_forward_batched(upsilon, sigma2, allowed, feasible, offsets, v0):
     return V, words
 
 
-def dp_edge(vin, vout, words, upsilon, sigma2, allowed, feasible, offsets, e):
+def dp_edge(
+    vin,
+    vout,
+    words,
+    upsilon,
+    sigma2,
+    allowed,
+    feasible,
+    offsets,
+    e,
+    *,
+    chained: bool = False,
+):
     """Edge ``e`` over the plane, one launch of the per-edge kernel (K3's
-    counterpart): one thread per cell reads ``vin`` ((S, C) shared or
-    (B, S, C)) and writes ``vout`` (B, S, C), and ORs bit e % 32 into word
-    e // 32 of ``words`` (B, ⌈E/32⌉, S, C).  ``vout`` must not be
-    ``vin``.  The halos are reads of ``vin``, so no tiling shapes it."""
+    counterpart): it reads ``vin`` ((S, C) shared or (B, S, C)) and writes
+    ``vout`` (B, S, C), and ORs bit e % 32 into word e // 32 of ``words``
+    (B, ⌈E/32⌉, S, C).  ``vout`` must not be ``vin``.  The halos are
+    reads of ``vin``, so no tiling shapes it.
+
+    ``chained``: on the card the launch may start while the kernel
+    launched just before it on the stream still runs (Hopper's
+    programmatic dependent launch), and waits for that kernel's writes
+    before it reads ``vin``; that kernel must write none of the edge's
+    operands (Υ̂, Σ̂², ``allowed``, ``feasible``, ``offsets``).  The
+    per-edge pipeline chains each edge to the one before."""
     dev = vout.device
     B, E = _check_operands(upsilon, sigma2, allowed, feasible, offsets,
                            vout.shape[-2], vout.shape[-1], dev)
@@ -139,7 +162,9 @@ def dp_edge(vin, vout, words, upsilon, sigma2, allowed, feasible, offsets, e):
         return vout, words
     _device(dev)
     with torch.cuda.device(dev):
-        err = build.load().dp_edge_launch(
+        lib = build.load()
+        launch = lib.dp_edge_chain_launch if chained else lib.dp_edge_launch
+        err = launch(
             upsilon.data_ptr(), sigma2.data_ptr(), _ptr(allowed),
             feasible.data_ptr(), offsets.data_ptr(), vin.data_ptr(),
             vin_stride, vout.data_ptr(), words.data_ptr(), B, E, S, C, e,
@@ -212,8 +237,9 @@ def _zero_words(B, E, S, C, dev):
 
 def dp_forward_blocked(upsilon, sigma2, allowed, feasible, offsets, v0):
     """The per-edge pipeline: E ``dp_edge`` launches, edges E−1 … 0, from
-    the shared plane ``v0`` (S, C) through two (B, S, C) buffers in turn.
-    The words are zeroed once.  Returns ``V`` and the words as
+    the shared plane ``v0`` (S, C) through two (B, S, C) buffers in turn,
+    each launch after the first chained to the one before.  The words are
+    zeroed once.  Returns ``V`` and the words as
     :func:`dp_forward_batched` does."""
     B, E = upsilon.shape
     S, C = v0.shape
@@ -226,7 +252,7 @@ def dp_forward_blocked(upsilon, sigma2, allowed, feasible, offsets, v0):
     V = v0
     for n, e in enumerate(range(E - 1, -1, -1)):
         V, words = dp_edge(V, bufs[n % 2], words, upsilon, sigma2, allowed,
-                           feasible, offsets, e)
+                           feasible, offsets, e, chained=n > 0)
     return V, words
 
 
@@ -265,6 +291,46 @@ def dp_forward_fused(
     return V, words
 
 
+# epilogue tables on the card checked on the host, by their word_rows
+# tensor: (bits, the two tensors' versions then, word rows the table reads)
+_TABLES = WeakIdKeyDictionary()
+
+
+def _table_rows(word_rows, bits) -> int:
+    """The word rows an (E,) (word row, bit) table reads, from host
+    arrays; raises ``ValueError`` on an entry outside [0, ∞) × [0, 32)."""
+    rows, bits = np.asarray(word_rows), np.asarray(bits)
+    if rows.size and (rows.min() < 0 or bits.min() < 0 or bits.max() >= 32):
+        raise ValueError("word_rows outside [0, W) or bits outside [0, 32)")
+    return int(rows.max()) + 1 if rows.size else 0
+
+
+def epilogue_table(word_rows, bits, device):
+    """The epilogue's (word row, bit) table on ``device`` from host arrays
+    (E,): two int32 tensors for :func:`dp_epilogue`, checked here, once, so
+    that the wrapper reads nothing back from the card per call."""
+    n_rows = _table_rows(word_rows, bits)
+    rows_t = torch.as_tensor(np.asarray(word_rows, np.int32), device=device)
+    bits_t = torch.as_tensor(np.asarray(bits, np.int32), device=device)
+    _TABLES[rows_t] = (bits_t, rows_t._version, bits_t._version, n_rows)
+    return rows_t, bits_t
+
+
+def _checked_rows(word_rows, bits) -> int:
+    """:func:`_table_rows` of a table on any device: a CPU table as it is,
+    a card table from its host check (:func:`epilogue_table`, or one host
+    read the first time, kept while neither tensor changes)."""
+    if word_rows.device.type == "cpu":
+        return _table_rows(word_rows.numpy(), bits.numpy())
+    known = _TABLES.get(word_rows)
+    if known is not None and known[0] is bits and known[1:3] == (
+            word_rows._version, bits._version):
+        return known[3]
+    n_rows = _table_rows(word_rows.cpu().numpy(), bits.cpu().numpy())
+    _TABLES[word_rows] = (bits, word_rows._version, bits._version, n_rows)
+    return n_rows
+
+
 def dp_epilogue(
     V, words, upsilon, offsets, s_limit, full_state: int, word_rows=None, bits=None
 ):
@@ -275,9 +341,11 @@ def dp_epilogue(
     e's decision is bit e % 32 of word e // 32 (W = ⌈E/32⌉), or, with the
     optional (E,) int32 table ``word_rows``/``bits``, bit ``bits[e]`` of
     word ``word_rows[e]`` (any W): the packing of a forward run in
-    segments (``ops.WarmCudaSolver``).  Returns ``x`` (B, E), ``s_star``
-    (B,) and ``value_row`` (B, S) int32, the value row NEG at
-    budget-infeasible entries.
+    segments (``ops.WarmCudaSolver``).  A bad entry raises before any
+    launch; a table on the card is checked on its host copy (made by
+    :func:`epilogue_table`; any other is read back once).  Returns ``x``
+    (B, E), ``s_star`` (B,) and ``value_row`` (B, S) int32, the value row
+    NEG at budget-infeasible entries.
     """
     B, S, C = V.shape
     E = upsilon.shape[1]
@@ -293,9 +361,8 @@ def dp_epilogue(
     if word_rows is not None:
         _check("word_rows", word_rows, (E,), dev)
         _check("bits", bits, (E,), dev)
-        # on the card a bad entry reads outside ``words`` (one host read)
-        if bool(((word_rows < 0) | (word_rows >= W) | (bits < 0)
-                 | (bits >= 32)).any()):
+        # on the card a bad entry reads outside ``words``
+        if _checked_rows(word_rows, bits) > W:
             raise ValueError(f"word_rows outside [0, {W}) or bits outside "
                              "[0, 32)")
     if not 0 <= full_state < C:

@@ -28,7 +28,7 @@ from ...core import dp as core_dp
 from ...core.dp import DPTables
 from ...device import resolve_device
 from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
-                     dp_forward_fused, packed_words)
+                     dp_forward_fused, epilogue_table, packed_words)
 from .tiling import check_tiling, choose_tiling
 
 __all__ = ["VALUE_BOUND", "prepare_tables", "max_achievable_value",
@@ -333,10 +333,9 @@ class WarmCudaSolver:
         lo_of = np.array([self._bounds[si][0] for si in si_of], np.int64)
         local = e_ids - lo_of
         rows = np.array([word_off[si] for si in si_of], np.int64)
-        self._w_rows = torch.as_tensor((rows + local // 32).astype(np.int32),
-                                       device=self.device)
-        self._bits = torch.as_tensor((local % 32).astype(np.int32),
-                                     device=self.device)
+        # checked here on the host, so no solve reads it back from the card
+        self._w_rows, self._bits = epilogue_table(rows + local // 32,
+                                                  local % 32, self.device)
         self._segments = [
             (lo, hi, feas[lo:hi].contiguous(), offs[lo:hi].contiguous(),
              choose_tiling(S, C, hi - lo, self.u_max, off_max))

@@ -17,8 +17,8 @@ Three forward pipelines, preferred in this order:
   and a left halo of off_max columns when it has several C-tiles) is
   still sized against one block's shared memory, so that a plane takes
   the pipeline the earlier tile-walking kernel took;
-- **per-edge** (``kernel.dp_forward_blocked``): one launch per edge, one
-  thread per cell, that reads and writes the plane in device memory; auto
+- **per-edge** (``kernel.dp_forward_blocked``): one launch per edge, four
+  cells a thread, that reads and writes the plane in device memory; auto
   picks it only when no fused tile fits.
 
 No grid of the tiled pipelines follows the tiles, so the tiles are only

@@ -212,6 +212,83 @@ def test_epilogue_no_feasible_budget_picks_zero():
 
 
 # ---------------------------------------------------------------------------
+# the epilogue where its look-ahead windows make a walk risky
+# ---------------------------------------------------------------------------
+
+def _clamps(x, s_star, ups):
+    """Whether the walk of ``x`` from ``s_star`` takes an edge whose Υ̂
+    exceeds the walk's budget (the clamp at 0)."""
+    s, hit = s_star, False
+    for e in np.flatnonzero(x):
+        hit |= int(ups[e]) > s
+        s = max(s - int(ups[e]), 0)
+    return hit
+
+
+@pytest.mark.parametrize("E", [1, 5, 6, 31, 32, 33, 64, 65])
+def test_epilogue_bit_equal_to_jax_at_window_and_word_edges(E):
+    """E at and around the look-ahead windows (5 and 8 edges) and the
+    32-edge word: the solve (forward + epilogue, B = 3) bit-equal, row by
+    row, to the JAX reference; Υ̂ up to s_cap + 1, so some walk takes an
+    edge with Υ̂ above its budget (the clamp at 0)."""
+    B, s_cap = 3, 12
+    rng, A, c, ups, sig, alw = _problem(600 + E, E, K=2, c_hi=4,
+                                        u_hi=s_cap + 1, B=B)
+    slim = rng.integers(1, s_cap // 2, B).astype(np.int32)
+    x, info = ops.solve_budgeted_dp_batched(_t(ups), _t(sig),
+                                            build_tables(A, c), s_cap,
+                                            _t(slim), allowed=_t(alw))
+    clamped = False
+    for b in range(B):
+        want = _jax_solve(ups[b], sig[b], A, c, s_cap, int(slim[b]), alw[b])
+        np.testing.assert_array_equal(x[b].numpy(), want[0])
+        assert int(info["s_star"][b]) == want[1]
+        np.testing.assert_array_equal(info["value_row"][b].numpy(), want[2])
+        clamped |= _clamps(want[0], want[1], ups[b])
+    assert clamped or E == 1
+
+
+@pytest.mark.parametrize("E", [2, 6, 33])
+def test_epilogue_tied_scores_bit_equal_to_jax(E):
+    """Two budgets tie on the eq.-17 score, 0 + √9 = 1 + √4 exactly in f32
+    (one unit of capacity; the last two edges: Υ̂ 1, Σ̂² 4 and Υ̂ 0, Σ̂² 9;
+    the others not allowed): s* is the first, as in the JAX reference, and
+    the walk over all E edges is its walk."""
+    A, c = np.ones((1, E), np.int64), np.array([1])
+    ups = np.zeros(E, np.int32)
+    sig = np.arange(1, E + 1, dtype=np.int32)
+    ups[E - 2], sig[E - 2], sig[E - 1] = 1, 4, 9
+    alw = np.zeros(E, bool)
+    alw[E - 2:] = True
+    s_cap = 3
+    want = _jax_solve(ups, sig, A, c, s_cap, s_cap, alw)
+    assert want[2][0] == 9 and want[2][1] == 4 and want[1] == 0
+    x, info = ops.solve_budgeted_dp_batched(
+        _t(ups[None]), _t(sig[None]), build_tables(A, c), s_cap, s_cap,
+        allowed=_t(alw[None]))
+    np.testing.assert_array_equal(x[0].numpy(), want[0])
+    assert int(info["s_star"][0]) == want[1]
+    np.testing.assert_array_equal(info["value_row"][0].numpy(), want[2])
+
+
+@pytest.mark.parametrize("E", [6, 33])
+def test_epilogue_no_feasible_budget_bit_equal_to_jax(E):
+    """s_limit = −1 admits no budget: s* = 0 (argmax over an all-masked
+    score row) and the walk from (0, full_state), as in the JAX
+    reference."""
+    _, A, c, ups, sig, alw = _problem(700 + E, E, K=2, c_hi=3)
+    s_cap = int(ups.sum())
+    want = _jax_solve(ups, sig, A, c, s_cap, -1, alw)
+    x, info = ops.solve_budgeted_dp_batched(
+        _t(ups[None]), _t(sig[None]), build_tables(A, c), s_cap, -1,
+        allowed=_t(alw[None]))
+    assert want[1] == 0
+    np.testing.assert_array_equal(x[0].numpy(), want[0])
+    assert int(info["s_star"][0]) == 0
+    np.testing.assert_array_equal(info["value_row"][0].numpy(), want[2])
+
+
+# ---------------------------------------------------------------------------
 # wrappers: checks, gate, counters, value bound
 # ---------------------------------------------------------------------------
 

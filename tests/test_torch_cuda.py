@@ -687,3 +687,185 @@ def test_cuda_flash_attention_with_v_head_dim_other_than_qk(dtype, hd, vh, kerne
     want = fa.flash_attention_ref(q, k, v, scale=hd ** -0.5, window=64)
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _epilogue_case(case, tabled):
+    """CPU operands of the epilogue: (V, words, Υ̂, offsets, s_limit,
+    full_state, word_rows, bits), the words from ``ref.dp_forward_ref``.
+    ``case`` is an edge count (B = 7 random instances, Υ̂ up to s_cap + 1
+    and small budgets, so walks clamp at 0), "ties" (two budgets tie on
+    the eq.-17 score, 0 + √9 = 1 + √4, at E = 33) or "no_feasible"
+    (s_limit = −1).  ``tabled``: the forward runs in segments of
+    ⌈E/3⌉ edges chained through each plane, each packed from bit 0 of its
+    own words, with the (word row, bit) table that finds each edge."""
+    if case == "ties":
+        E, B, s_cap = 33, 2, 3
+        A, c = np.ones((1, E), np.int64), np.array([1])
+        ups = np.zeros((B, E), np.int32)
+        sig = np.tile(np.arange(1, E + 1, dtype=np.int32), (B, 1))
+        ups[:, E - 2], sig[:, E - 2], sig[:, E - 1] = 1, 4, 9
+        alw = np.zeros((B, E), bool)
+        alw[:, E - 2:] = True
+        slim = np.full(B, s_cap, np.int32)
+    else:
+        E = 33 if case == "no_feasible" else case
+        B, s_cap = 7, 12
+        rng = np.random.default_rng(E)
+        A = rng.integers(1, 3, (2, E))
+        c = rng.integers(1, 5, 2)
+        A = np.minimum(A, c[:, None])
+        ups = rng.integers(0, s_cap + 2, (B, E)).astype(np.int32)
+        sig = rng.integers(1, 5000, (B, E)).astype(np.int32)
+        alw = rng.random((B, E)) < 0.7
+        slim = (np.full(B, -1, np.int32) if case == "no_feasible"
+                else rng.integers(1, s_cap // 2, B).astype(np.int32))
+    tables = build_tables(A, c)
+    feas, offs = (torch.as_tensor(a) for a in ops.prepare_tables(tables))
+    ups, sig, alw, slim = (torch.as_tensor(a) for a in (ups, sig,
+                                                       alw.astype(np.int32),
+                                                       slim))
+    v0 = initial_plane(s_cap, tables.n_states, "cpu")
+    if not tabled:
+        V, W = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+        return V, W, ups, offs, slim, tables.full_state, None, None
+    k = -(-E // 3)
+    bounds = [(max(E - (si + 1) * k, 0), E - si * k)
+              for si in range(-(-E // k))]
+    rows, bits, w_off = np.zeros(E, np.int32), np.zeros(E, np.int32), 0
+    for lo, hi in bounds:
+        rows[lo:hi] = w_off + np.arange(hi - lo) // 32
+        bits[lo:hi] = np.arange(hi - lo) % 32
+        w_off += -(-(hi - lo) // 32)
+    planes, packs = [], []
+    for b in range(B):
+        vin, ws = v0, []
+        for lo, hi in bounds:
+            Vs, Ws = ref.dp_forward_ref(*(t[b:b + 1, lo:hi].contiguous()
+                                          for t in (ups, sig, alw)),
+                                        feas[lo:hi].contiguous(),
+                                        offs[lo:hi].contiguous(), vin)
+            vin = Vs[0]
+            ws.append(Ws)
+        planes.append(vin)
+        packs.append(torch.cat(ws, dim=1))
+    return (torch.stack(planes), torch.cat(packs), ups, offs, slim,
+            tables.full_state, torch.as_tensor(rows), torch.as_tensor(bits))
+
+
+@pytest.mark.parametrize("tabled", [False, True], ids=["default", "tabled"])
+@pytest.mark.parametrize("case", [1, 5, 6, 31, 32, 33, 64, 65, "ties",
+                                  "no_feasible"])
+def test_cuda_epilogue_bit_equal_to_plain_version_on_risky_walks(case, tabled):
+    """Both epilogue instances, one counted launch each: x, s* and the
+    value row bit-equal to ``ref.dp_epilogue_ref`` at E around the
+    look-ahead window (5 edges) and the 32-edge word, with walks that clamp
+    at 0, tied scores and no feasible budget."""
+    dev = _card()
+    V, W, ups, offs, slim, full, rows, bits = _epilogue_case(case, tabled)
+    want = ref.dp_epilogue_ref(V, W, ups, offs, slim, full, rows, bits)
+    if case == "ties":
+        assert (want[1] == 0).all() and (want[2][:, :2] == torch.tensor(
+            [9, 4], dtype=torch.int32)).all()
+    rd, bd = ((None, None) if rows is None
+              else kernel.epilogue_table(rows.numpy(), bits.numpy(), dev))
+    before = LAUNCHES["dp_epilogue"]
+    got = kernel.dp_epilogue(*(t.to(dev) for t in (V, W, ups, offs, slim)),
+                             full, rd, bd)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dp_epilogue"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cuda_tabled_epilogue_reads_nothing_back():
+    """The warm solver's tabled epilogue call under
+    ``torch.cuda.set_sync_debug_mode("error")``: its table was checked on
+    the host when the solver was built, so the call makes no synchronising
+    read, and its solves equal the cold ones."""
+    dev = _card()
+    inst = generate_instance(seed=0)
+    tables = build_tables(inst.A, inst.c)
+    s_cap = stats.s_cap_for_horizon(2000, inst.m)
+    warm = ops.WarmCudaSolver(tables, s_cap, checkpoint_every=8, device=dev)
+    real = ops.dp_epilogue
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    ops.dp_epilogue = strict
+    try:
+        for u, s, a, lim in _warm_sequence(inst, 2000, 6, 3):
+            x, info = warm(torch.as_tensor(u, device=dev),
+                           torch.as_tensor(s, device=dev), tables, s_cap, lim,
+                           allowed=torch.as_tensor(a, device=dev))
+            cx, cinfo = ops.solve_budgeted_dp_batched(
+                torch.as_tensor(u[None], device=dev),
+                torch.as_tensor(s[None], device=dev), tables, s_cap, lim,
+                allowed=torch.as_tensor(a[None], device=dev))
+            assert torch.equal(x, cx[0])
+            assert int(info["s_star"]) == int(cinfo["s_star"][0])
+    finally:
+        ops.dp_epilogue = real
+    # a table made on the card by hand is read back, once, and not again
+    rows, bits = warm._w_rows.clone(), warm._bits.clone()
+    V = warm._planes[-1][None]
+    args = (V, warm._words_cat, torch.as_tensor(u[None], device=dev),
+            warm._offs, torch.full((1,), s_cap, dtype=torch.int32,
+                                   device=dev), tables.full_state)
+    kernel.dp_epilogue(*args, rows, bits)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel.dp_epilogue(*args, rows, bits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("chained", [True, False],
+                         ids=["chained", "one_launch_at_a_time"])
+@pytest.mark.parametrize("plane", ["fig6_c_hi6", "E16_C512_S4096"])
+def test_cuda_dp_edge_bit_equal_to_plain_version(plane, chained):
+    """K3 (``dp_edge``) over every edge of the fig-6 c_hi = 6 plane at T =
+    1500 and ``benchmarks/dp_bench.py``'s E16_C512_S4096 problem, each
+    launch chained to the one before (programmatic dependent launch) or
+    not: planes and words bit-equal to ``ref.dp_forward_ref``, one counted
+    launch an edge."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    if plane == "fig6_c_hi6":
+        inst = generate_instance(seed=2, c_lo=1, c_hi=6)
+        tables = build_tables(inst.A, inst.c)
+        s_cap = stats.s_cap_for_horizon(1500, inst.m)
+        u_hi = stats.u_max_for_horizon(1500, inst.m)
+    else:  # dp_bench.py::_make_problem(16, (7, 7, 7), 3)
+        A = rng.integers(0, 2, (3, 16))
+        A[:, A.sum(axis=0) == 0] = 1
+        tables = build_tables(A, np.array([7, 7, 7]))
+        s_cap, u_hi = 4095, 3
+    feas, offs = (torch.as_tensor(a, device=dev)
+                  for a in ops.prepare_tables(tables))
+    v0 = initial_plane(s_cap, tables.n_states, dev)
+    E = offs.shape[0]
+    B = 1
+    ups = torch.as_tensor(rng.integers(0, u_hi + 1, (B, E)),
+                          dtype=torch.int32, device=dev)
+    sig = torch.as_tensor(rng.integers(1, 5000, (B, E)), dtype=torch.int32,
+                          device=dev)
+    alw = torch.as_tensor(rng.random((B, E)) < 0.7, device=dev).int()
+    Vp, Wp = ref.dp_forward_ref(ups, sig, alw, feas, offs, v0)
+    before = LAUNCHES["dp_edge"]
+    if chained:
+        V, W = kernel.dp_forward_blocked(ups, sig, alw, feas, offs, v0)
+    else:
+        W = torch.zeros_like(Wp)
+        bufs = [torch.empty_like(Vp) for _ in range(2)]
+        V = v0
+        for n, e in enumerate(range(E - 1, -1, -1)):
+            V, W = kernel.dp_edge(V, bufs[n % 2], W, ups, sig, alw, feas,
+                                  offs, e)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dp_edge"] == before + E
+    assert torch.equal(V, Vp) and torch.equal(W, Wp)

@@ -293,8 +293,9 @@ def _c_params(source, fn):
     ("flash_attention_tf32", ["flash_attention_tf32_launch"]),
     ("ssd", ["ssd_scan_launch"]),
     ("budgeted_dp", ["dp_forward_launch", "dp_forward_sweep_launch",
-                     "dp_edge_launch", "dp_chunk_launch",
-                     "dp_epilogue_launch"]),
+                     "dp_edge_launch", "dp_edge_chain_launch",
+                     "dp_chunk_launch", "dp_epilogue_launch",
+                     "dp_empty_launch"]),
 ])
 def test_ctypes_declarations_match_the_c_entry_points(lib, fns):
     """Each library's declared argtypes follow its C signatures, type for

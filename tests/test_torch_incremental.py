@@ -498,3 +498,67 @@ def test_tabled_epilogue_equals_the_default_one(E, k):
         kernel.dp_epilogue(V, words_seg, ups, offs, slim, tt.full_state,
                            torch.from_numpy(rows),
                            torch.from_numpy(bits + 32))
+
+
+@pytest.mark.parametrize("E,k", [(5, 3), (6, 2), (31, 16), (32, 11), (33, 17),
+                                 (64, 32), (65, 22)])
+def test_warm_tabled_epilogue_bit_equal_to_jax_at_window_edges(E, k):
+    """``WarmCudaSolver`` on the CPU, its forward in two or three segments
+    of k edges and its tabled epilogue, at E around the look-ahead windows
+    (5 and 8 edges) and the 32-edge word: every solve of a drift sequence
+    bit-equal to a cold JAX reference solve.  Υ̂ reaches s_cap + 1 and one
+    step's s_limit is 2, so walks take edges above their budget (the clamp
+    at 0); one step admits no budget (s_limit = −1: s* = 0)."""
+    jt, tt, ups, sig = _problem(seed=E + k, E=E, K=2, c_hi=4, u_hi=9)
+    s_cap = 8
+    seq = _drift_seq(np.random.default_rng(E), ups, sig, s_cap, 4, u_hi=9)
+    seq[1] = seq[1][:3] + (2,)  # a small budget: walks clamp
+    seq[2] = seq[2][:3] + (-1,)
+    warm = ops.WarmCudaSolver(tt, s_cap, checkpoint_every=k, device="cpu")
+    assert warm._n_seg == (2 if -(-E // k) == 2 else 3)
+    clamped = False
+    for u, s, a, lim in seq:
+        want = _jax_cold(u, s, jt, s_cap, lim, a)
+        x, info = warm(torch.from_numpy(u), torch.from_numpy(s), tt, s_cap,
+                       lim, allowed=torch.from_numpy(a))
+        _assert_solve((x, info), want)
+        walk = want[1]
+        for e in np.flatnonzero(want[0]):
+            clamped |= int(u[e]) > walk
+            walk = max(walk - int(u[e]), 0)
+    assert clamped
+
+
+def test_epilogue_table_checked_once_on_the_host():
+    """``kernel.epilogue_table`` checks the table's host arrays once; the
+    wrapper then checks the table's host copy against the words and reads
+    nothing back from the table's device (here the meta device, which
+    holds no data, so any read would raise): a bad table raises before any
+    launch, a good one reaches the device check.  A table changed in place
+    is checked anew."""
+    rows = np.array([0, 0, 1, 1, 2], np.int32)
+    bits = np.array([0, 1, 0, 31, 3], np.int32)
+    for bad_rows, bad_bits in ((rows - 1, bits), (rows, bits + 1)):
+        with pytest.raises(ValueError, match="outside"):
+            kernel.epilogue_table(bad_rows, bad_bits, "cpu")
+    r, b = kernel.epilogue_table(rows, bits, "meta")
+    assert r.dtype == b.dtype == torch.int32 and r.device.type == "meta"
+    E, S, C = 5, 4, 3
+
+    def call(W, r=r, b=b):
+        return kernel.dp_epilogue(
+            torch.empty((1, S, C), dtype=torch.int32, device="meta"),
+            torch.empty((1, W, S, C), dtype=torch.int32, device="meta"),
+            torch.empty((1, E), dtype=torch.int32, device="meta"),
+            torch.empty((E,), dtype=torch.int32, device="meta"),
+            torch.empty((1,), dtype=torch.int32, device="meta"), 0, r, b)
+
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="outside"):  # needs 3 word rows
+        call(2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(3)
+    r.add_(0)  # an in-place change: the next call reads the table anew
+    with pytest.raises(NotImplementedError):
+        call(3)
+    assert LAUNCHES == before
