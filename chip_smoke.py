@@ -59,6 +59,28 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    to the cold solve, ``dp_chunk`` launches = segments launched, every
    tabled epilogue call under the sync check, and the device ms of a warm
    solve against a cold one;
+   the scenario paths (``experiments/``): (a) ``launch.scenario_sweep``'s
+   part 1 through ``run_spec`` — every regime × (ESDP g = ln t, HSWF
+   ties unbroken), Table 2, seeds (0, 1, 2), T = 500 (cut from the
+   example's 1000 to bound the run's time) but for ``power_coupled`` at
+   T = 1000, each ESDP run one K2 forward and one epilogue a slot, HSWF
+   none; (b) its severity grid (T = 1000),
+   ``chronic_straggler`` at five straggler speeds × three seeds as ONE
+   batch of 15 runs: T forwards and T epilogues, not 5T, its first point
+   equal to its own ``simulate_batch``; (c) ESDP on the card against the
+   CPU int32 reference under ``power_coupled`` and ``server_failures``
+   (Table 2, T = 300, B = 3, the same draws, replayed traces and
+   schedule): x and the running means v̂ equal every slot, ``addcmul``'s
+   single rounding of μ·speed − cost equal on 65,536 entries, each regime
+   stepped on the card within 1e-6 of the CPU's; (d) the fig-6 c_hi = 4
+   and 6 grid under ``markov_dvfs`` through ``run_spec`` (T = 1500, two
+   seeds: K2 and K5); (e) ``ClusterSim(scenario="power_coupled")`` on the
+   dispatch configuration, equal to its CPU run, and ``server_failures``
+   failure-aware with its ledger conserved; (f) ``ClusterSim(fallback=
+   True)``: no degradation on the card, served by ``cuda`` every call, x
+   equal to the plain run's; at fault rate 0.2 the failures counted, x
+   unchanged and K1 launched once for each cuda attempt that launched;
+   the slot times of these paths beside the plain ones;
 5. the attention kernels (K6) against their plain version on the card:
    the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the split-TF32
    kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
@@ -92,9 +114,12 @@ Run from the root of a checkout (it imports ``repro_torch`` from
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
-   launches (K7's three, each one's share printed; CUDA events around the
-   same back-to-back launches, divided by their number, where the trace
-   has no device time), beside the least time the card could take and, for
+   launches (K7's three, each one's share printed; the mean of the
+   events the trace holds where it holds fewer than were launched, the
+   shortfall printed; CUDA events around the same back-to-back launches,
+   divided by their number, where the trace has no device time or one
+   below the bound or over 1.1 times the events'), beside the least time
+   the card could take and, for
    attention, ``scaled_dot_product_attention``'s time on the same inputs
    (a yardstick only: the port never calls it; the backend it takes is
    printed); attention at the Zamba2-7B shape in bf16 (wgmma) and f32
@@ -122,6 +147,7 @@ The line before the last is the JSON kernel table; the last line is
 it exits non-zero and prints no result.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -194,12 +220,16 @@ def per_call_ms(fn, calls, reps=5):
     return times[len(times) // 2]
 
 
-def profiled_ms(fn, calls, kernel_names):
+def profiled_ms(fn, calls, kernel_names, launches_per_call=1):
     """Device milliseconds per call of ``fn`` over ``calls`` calls, summed
     over the CUDA kernels whose names contain one of ``kernel_names`` (one
     call may launch several), read from a ``torch.profiler`` trace, and
     each name's share; (None, shares) when the trace holds no device time
-    for them."""
+    for them.  A long process's trace can hold fewer of a kernel's events
+    than were launched: a name's time a call is then the mean of the
+    events the trace holds times ``launches_per_call`` (its launches a
+    call), and the shortfall is printed; ``None`` where a call's launches
+    vary, which divides the trace's total by ``calls``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if isinstance(kernel_names, str):
@@ -211,12 +241,23 @@ def profiled_ms(fn, calls, kernel_names):
                 fn()
             torch.cuda.synchronize()
     shares = {name: 0.0 for name in kernel_names}
+    events = {name: 0 for name in kernel_names}
     for evt in prof.key_averages():
         for name in kernel_names:
             if name in evt.key:
                 shares[name] += getattr(
                     evt, "device_time_total",
-                    getattr(evt, "cuda_time_total", 0.0)) / calls / 1e3
+                    getattr(evt, "cuda_time_total", 0.0)) / 1e3
+                events[name] += evt.count
+    for name in kernel_names:
+        if launches_per_call is None or not events[name]:
+            shares[name] /= calls
+            continue
+        if events[name] < calls * launches_per_call:
+            print(f"   the trace holds {events[name]} of the "
+                  f"{calls * launches_per_call} {name} launches: its time "
+                  "a call from their mean", flush=True)
+        shares[name] *= launches_per_call / events[name]
     total = sum(shares.values())
     return (total if total > 0 else None), shares
 
@@ -1165,9 +1206,9 @@ def main():
                     info["value_row"], cinfo["value_row"][0])):
             fail(f"warm_tiled: solve {i} differs from the cold solve")
     w_ms, _ = profiled_ms(lambda: warm_pass(warm_solver()), 1,
-                          ("dp_chunk_kernel", "dp_epilogue_kernel"))
+                          ("dp_chunk_kernel", "dp_epilogue_kernel"), None)
     c_ms, _ = profiled_ms(cold_pass, 1,
-                          ("dp_chunk_kernel", "dp_epilogue_kernel"))
+                          ("dp_chunk_kernel", "dp_epilogue_kernel"), None)
     warm_ms = None if w_ms is None else w_ms / N_WARM
     cold_ms = None if c_ms is None else c_ms / N_WARM
     print(f"   every warm solve equals the cold solve bitwise; device ms a "
@@ -1176,6 +1217,282 @@ def main():
           f"{'not measured' if warm_ms is None else f'{warm_ms:.4f}'}, "
           f"cold {'not measured' if cold_ms is None else f'{cold_ms:.4f}'}",
           flush=True)
+    done(t0)
+
+    # ------------------------------------------------- scenario paths
+    # the fluctuation regimes (experiments/), the sweep engine and the
+    # degradation chain, each main path with the launch counts set to 0
+    # just before it and read just after
+    from repro_torch.core import replay_scenario
+    from repro_torch.core.solvers import FallbackSolver
+    from repro_torch.experiments import (GridPoint, SweepSpec, get_scenario,
+                                         run_spec, scenario_names,
+                                         unroll_scenario)
+    from repro_torch.launch import scenario_sweep as ssw
+    from repro_torch.sched import FailureModel
+
+    def check_result(label, r, shape, E):
+        for field in ("sw", "sw_oracle", "regret"):
+            a = getattr(r, field)
+            if a.shape != shape or not np.isfinite(a).all():
+                fail(f"{label}.{field}: shape {a.shape} or non-finite values")
+        if r.x.shape != shape + (E,) or r.x.min() < 0 or r.x.max() > 1:
+            fail(f"{label}.x has shape {r.x.shape} or values outside 0/1")
+        if (r.regret < -1e-4).any():
+            fail(f"{label}: negative regret")
+
+    def timed_run(fn):
+        """(fn(), launch counts, wall seconds) with the counts set to 0
+        just before."""
+        reset()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts(), time.perf_counter() - w0
+
+    # part 1 at T = 500, power_coupled at the example's T = 1000: the
+    # whole sweep at T = 1000 takes 2-3 min, more than this script's time
+    # limit can spare
+    TS, SS = ssw.T, ssw.SEEDS
+    E2 = table2.n_edges
+
+    def sweep_T(scen):
+        return TS if scen == "power_coupled" else TS // 2
+
+    t0 = phase(f"(a) scenario sweep (launch.scenario_sweep part 1): every "
+               f"regime x (ESDP g=ln t, HSWF tiebreak 0) through run_spec, "
+               f"Table 2, T={TS // 2} (power_coupled {TS}), seeds {SS}")
+    sweep_ms = {}
+    for scen in scenario_names():
+        rows, ts = {}, sweep_T(scen)
+        for pname, factory in ssw.policies().items():
+            (row,), counts, wall = timed_run(lambda: run_spec(
+                ssw.regime_spec(scen, ts, SS, {pname: factory})))
+            want = (dict(dp_forward_batched=ts, dp_epilogue=ts)
+                    if pname == "esdp" else {})
+            if not expect(counts, **want):
+                fail(f"sweep {scen}/{pname} launched {counts}, expected "
+                     f"{want}")
+            check_result(f"sweep {scen}/{pname}", row.result,
+                         (len(SS), ts), E2)
+            rows[pname] = row
+            sweep_ms[scen, pname] = wall / ts * 1e3
+        print(f"   {ssw.table_line(scen, rows)}   T={ts}, slot ms: esdp "
+              f"{sweep_ms[scen, 'esdp']:.3f}, hswf "
+              f"{sweep_ms[scen, 'hswf']:.3f}", flush=True)
+    print(f"   every ESDP run: one K2 forward (B={len(SS)}) and one epilogue "
+          "a slot; HSWF: no DP launch", flush=True)
+    done(t0)
+
+    t0 = phase(f"(b) severity grid: chronic_straggler straggler_speed "
+               f"{ssw.SPEEDS} x seeds {SS}, ESDP, Table 2, T={TS}, as one "
+               f"batch of {len(ssw.SPEEDS) * len(SS)} runs")
+    grid, counts, wall = timed_run(lambda: ssw.straggler_grid(TS, SS))
+    print(f"   launches {counts}; {wall / TS * 1e3:.3f} ms per slot",
+          flush=True)
+    if not expect(counts, dp_forward_batched=TS, dp_epilogue=TS):
+        fail(f"severity grid launched {counts}, expected one forward and "
+             f"one epilogue a slot for the whole grid ({TS} each)")
+    check_result("severity grid", grid, (len(ssw.SPEEDS), len(SS), TS), E2)
+    grid_ms = wall / TS * 1e3
+    point = simulate_batch(
+        table2, esdp.make_esdp_policy(table2, TS, g_fn=stats.g_logt_only,
+                                      tables=tables2), TS, SS,
+        tables=tables2, scenario=get_scenario("chronic_straggler",
+                                              straggler_speed=ssw.SPEEDS[0]))
+    if not np.array_equal(grid.x[0], point.x):
+        fail("severity grid: the straggler_speed=0.2 rows differ from its "
+             "own simulate_batch")
+    asw = grid.asw[..., -1]
+    print("   " + ", ".join(f"{v:.1f}: ASW {m:.1f}" for v, m in zip(
+        ssw.SPEEDS, asw.mean(axis=1))) + "; the 0.2 rows equal their own "
+          "simulate_batch in x", flush=True)
+    done(t0)
+
+    TC, seeds_c = 300, [0, 1, 2]
+    t0 = phase(f"(c) card against the CPU under power_coupled and "
+               f"server_failures: ESDP, Table 2, T={TC}, B={len(seeds_c)}, "
+               "the same draws, traces and schedule")
+    rng_c = np.random.default_rng(19)
+    mu_c, cost_c, speed_c = (torch.as_tensor(rng_c.uniform(lo, hi, 1 << 16),
+                                             dtype=torch.float32)
+                             for lo, hi in ((0, 1), (0, 0.5), (0.05, 1)))
+    fused = [torch.addcmul(-cost_c.to(d), mu_c.to(d), speed_c.to(d)).cpu()
+             for d in (dev, "cpu")]
+    n_split = int((mu_c * speed_c - cost_c != fused[1]).sum())
+    if not torch.equal(*fused):
+        fail("addcmul on the card rounds μ·speed − cost differently from "
+             "the CPU")
+    print(f"   addcmul(−cost, μ, speed) on 65536 random entries: card == "
+          f"CPU bitwise (a multiply then a subtract differs from it in "
+          f"{n_split})", flush=True)
+    sched_c = stats.schedule_table(TC, table2.m, device="cpu")
+    for regime in ("power_coupled", "server_failures"):
+        scn = get_scenario(regime)
+        traces = [unroll_scenario(scn, TC, table2.n_servers, s,
+                                  n_ports=table2.n_ports, device="cpu")
+                  for s in seeds_c]
+        on_card = unroll_scenario(scn, TC, table2.n_servers, seeds_c[0],
+                                  n_ports=table2.n_ports)
+        gap = float(np.abs(on_card[1] - traces[0][1]).max())
+        if not (np.array_equal(on_card[2], traces[0][2])
+                and np.array_equal(on_card[0], traces[0][0]) and gap <= 1e-6):
+            fail(f"{regime}: the regime stepped on the card differs from "
+                 f"the CPU's (speed gap {gap})")
+        replay = replay_scenario(*(np.stack([tr[k] for tr in traces])
+                                   for k in range(3)),
+                                 fluctuates=scn.fluctuates)
+        draws_c = Draws(*(torch.cat([getattr(make_draws(table2, TC, s, dev),
+                                             k) for s in seeds_c])
+                          for k in ("arr_u", "val_n", "pol_u")))
+        seen = {}
+
+        def recording_esdp(where):
+            inner = esdp.make_esdp_policy(table2, TC, tables=tables2)
+            seen[where] = []
+
+            def step(state, slot, eligible, arrived, vhat, n, pol_u):
+                seen[where].append(vhat.clone())
+                return inner.step(state, slot, eligible, arrived, vhat, n,
+                                  pol_u)
+            return dataclasses.replace(inner, step=step)
+
+        card_c, counts, _ = timed_run(lambda: simulate_batch(
+            table2, recording_esdp("card"), TC, seeds_c, tables=tables2,
+            scenario=replay, draws=draws_c, schedule=sched_c))
+        if not expect(counts, dp_forward_batched=TC, dp_epilogue=TC):
+            fail(f"{regime} card run launched {counts}")
+        w0 = time.perf_counter()
+        cpu_c = simulate_batch(
+            table2, recording_esdp("cpu"), TC, seeds_c, tables=tables2,
+            device="cpu", scenario=replay, schedule=sched_c,
+            draws=moved(draws_c, lambda t: t.cpu()))
+        if not np.array_equal(card_c.x, cpu_c.x):
+            slot = int(np.flatnonzero((card_c.x != cpu_c.x).any(
+                axis=(0, 2)))[0])
+            fail(f"{regime}: the card's ESDP decisions differ from the CPU "
+                 f"reference's at slot {slot + 1}")
+        vk, vc = (torch.stack(seen[w]).cpu() for w in ("card", "cpu"))
+        if not torch.equal(vk, vc):
+            fail(f"{regime}: the running means v̂ on the card differ from "
+                 "the CPU's")
+        check_result(f"{regime} card", card_c, (len(seeds_c), TC), E2)
+        print(f"   {regime}: launches {counts}; x and v̂ (every slot, every "
+              f"run) equal the CPU int32 reference's "
+              f"({time.perf_counter() - w0:.1f} s on the CPU); the regime "
+              f"stepped on the card: speeds within {gap:.1e} of the CPU's",
+              flush=True)
+    done(t0)
+
+    t0 = phase(f"(d) the fig-6 grid under markov_dvfs through run_spec: "
+               f"c_hi 4 (whole plane) and 6 (fused), ESDP, T={T6}, seeds "
+               "(11, 12)")
+    spec6 = SweepSpec(name="fig6/markov_dvfs", T=T6, seeds=(11, 12),
+                      policies={"esdp": esdp.esdp_factory()},
+                      scenario="markov_dvfs",
+                      grid=tuple(GridPoint(f"c_hi{c}", instance_kwargs={
+                          "seed": 2, "c_lo": 1, "c_hi": c}) for c in (4, 6)))
+    rows6, counts, wall = timed_run(lambda: run_spec(spec6))
+    want = dict(dp_forward_batched=T6, dp_chunk=n_chunks6 * T6,
+                dp_epilogue=2 * T6)
+    print(f"   launches {counts}; {wall / (2 * T6) * 1e3:.3f} ms per slot",
+          flush=True)
+    if not expect(counts, **want):
+        fail(f"fig-6 grid launched {counts}, expected {want}")
+    for r in rows6:
+        check_result(f"fig-6 grid {r.point}", r.result, (2, T6),
+                     r.instance.n_edges)
+        print(f"   {r.point}: ASW {r.asw_mean:.1f} ± {r.asw_ci95:.1f}, "
+              f"regret {r.regret_mean:.1f}, C={r.tables.n_states}",
+              flush=True)
+    done(t0)
+
+    t0 = phase(f"(e) the dispatcher under a scenario: ClusterSim on the "
+               f"dispatch_cluster fleet, T={TD}: power_coupled, and "
+               "server_failures failure-aware")
+    pc_out, counts, wall = timed_run(lambda: ClusterSim(
+        d_inst, TD, scenario="power_coupled", seed=DSEED,
+        schedule=d_sched).run("esdp", tiebreak=0.0))
+    if not expect(counts, dp_forward_batched=TD, dp_epilogue=TD):
+        fail(f"ClusterSim(scenario='power_coupled') launched {counts}")
+    pc_cpu = ClusterSim(d_inst, TD, scenario="power_coupled", seed=DSEED,
+                        schedule=d_sched, device="cpu").run("esdp",
+                                                            tiebreak=0.0)
+    if not np.array_equal(pc_out.x, pc_cpu.x):
+        fail("ClusterSim(scenario='power_coupled'): the card's x differs "
+             "from the CPU run's")
+    pc_ms = wall / TD * 1e3
+    print(f"   power_coupled: ASW {pc_out.asw:.1f}, launches {counts}, "
+          f"{pc_ms:.3f} ms per slot; x equal to the CPU run's", flush=True)
+    model = FailureModel(redundancy=2, checkpoints=2, checkpoint_cost=0.003,
+                         detect=True)
+    sf_out, counts, wall = timed_run(lambda: ClusterSim(
+        d_inst, TD, scenario="server_failures", failures=model, seed=DSEED,
+        schedule=d_sched).run("esdp", tiebreak=0.0))
+    if not expect(counts, dp_forward_batched=TD, dp_epilogue=TD):
+        fail(f"ClusterSim(scenario='server_failures') launched {counts}")
+    led = sf_out.failures
+    if not (np.allclose(led["dispatched"], led["completed"] + led["lost"]
+                        + led["salvaged"], rtol=1e-6, atol=1e-6)
+            and np.allclose(sf_out.sw, led["completed"] + led["salvaged"]
+                            - led["ckpt_cost"], rtol=1e-5, atol=1e-5)
+            and led["total_dispatched"] > 0):
+        fail("server_failures: the failure ledger is not conserved")
+    print(f"   server_failures: ASW {sf_out.asw:.1f}, launches {counts}, "
+          f"{wall / TD * 1e3:.3f} ms per slot; ledger conserved "
+          f"(dispatched {led['total_dispatched']:.1f} = completed "
+          f"{led['total_completed']:.1f} + lost {led['total_lost']:.1f} + "
+          f"salvaged {led['total_salvaged']:.1f}), "
+          f"{int(led['crashes'].sum())} crashes", flush=True)
+    done(t0)
+
+    t0 = phase(f"(f) the degradation chain: ClusterSim(fallback=True) on "
+               f"the dispatch configuration, T={TD}")
+    plain_out, plain_ms = d_runs["esdp cold"]
+    fb_out, counts, wall = timed_run(lambda: dispatch_sim(
+        solver="cuda", fallback=True).run("esdp", tiebreak=0.0))
+    st = fb_out.solve_stats
+    print(f"   fault-free: {st['calls']} calls, served_by {st['served_by']},"
+          f" degraded {st['degraded_calls']}; launches {counts}", flush=True)
+    if not (st["degraded_calls"] == 0 and st["calls"] == TD
+            and st["served_by"]["cuda"] == TD and st["events"] == []):
+        fail(f"fallback=True degraded on a fault-free card run: {st}")
+    if not expect(counts, dp_forward_batched=TD, dp_epilogue=TD):
+        fail(f"fallback=True launched {counts}")
+    if not np.array_equal(fb_out.x, plain_out.x):
+        fail("fallback=True: x differs from the plain run's")
+    fb_ms = wall / TD * 1e3
+    chain = FallbackSolver(chain=("cuda", "reference"), fault_rate=0.2,
+                           fault_seed=1)
+    ft_out, counts, wall = timed_run(lambda: dispatch_sim(
+        solver=chain).run("esdp", tiebreak=0.0))
+    st = ft_out.solve_stats
+    launched = st["calls"] - st["launch_failures"]
+    print(f"   fault rate 0.2: {st['calls']} calls, {st['launch_failures']} "
+          f"launch and {st['validation_failures']} validation failures, "
+          f"served_by {st['served_by']}; launches {counts}", flush=True)
+    if not (st["launch_failures"] > 0 and st["validation_failures"] > 0
+            and st["degraded_calls"] == st["launch_failures"]
+            + st["validation_failures"]):
+        fail(f"fault rate 0.2: failures not counted as expected: {st}")
+    if not expect(counts, dp_forward_batched=launched, dp_epilogue=launched):
+        fail(f"fault rate 0.2 launched {counts}, expected {launched} (the "
+             "cuda attempts that launched)")
+    if not np.array_equal(ft_out.x, fb_out.x):
+        fail("fault rate 0.2: x differs from the fault-free run's")
+    ft_ms = wall / TD * 1e3
+    print(f"   x identical to the fault-free and plain runs; slot ms: plain "
+          f"{plain_ms:.3f}, fallback=True {fb_ms:.3f}, fault rate 0.2 "
+          f"{ft_ms:.3f}", flush=True)
+    print(f"   scenario slot ms (host clock, {card}): simulate_batch via "
+          f"run_spec, Table 2, B={len(SS)}: "
+          + "; ".join(f"{s} (T={sweep_T(s)}) esdp {sweep_ms[s, 'esdp']:.3f} "
+                      f"hswf {sweep_ms[s, 'hswf']:.3f}"
+                      for s in ("iid", "power_coupled", "server_failures"))
+          + f"; severity grid (B=15) {grid_ms:.3f}; dispatch: plain "
+          f"{plain_ms:.3f}, power_coupled {pc_ms:.3f}, fallback=True "
+          f"{fb_ms:.3f}", flush=True)
     done(t0)
 
     # --------------------------------------- attention and SSD vs plain
@@ -1597,12 +1914,20 @@ def main():
         floor=None,
     ):
         ev_ms, w_ms, prof_ms = timed
-        # back-to-back launches of a kernel shorter than one host launch
-        # time the host; the trace's device time is the kernel's own
-        k_ms = ev_ms if prof_ms is None else prof_ms
         nbytes, nops = bound
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / ops_per_s * 1e3
+        # a launch takes no less than the bound, and no longer than the
+        # span of back-to-back launches over their number (one stream)
+        if prof_ms is not None and not (
+                max(t_bytes, t_ops) <= prof_ms <= 1.1 * ev_ms):
+            print(f"   {name}: the trace's device time {prof_ms:.4f} ms lies "
+                  f"outside [the bound, 1.1 x the CUDA events' {ev_ms:.4f} "
+                  "ms]: timed by CUDA events instead", flush=True)
+            prof_ms = None
+        # back-to-back launches of a kernel shorter than one host launch
+        # time the host; the trace's device time is the kernel's own
+        k_ms = ev_ms if prof_ms is None else prof_ms
         rows_out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,

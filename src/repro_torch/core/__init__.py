@@ -9,33 +9,42 @@ Public API:
   solve_budgeted_dp_warm / WarmCarry    — warm-started re-solves across slots
   make_esdp_policy / esdp_factory       — Algorithm 1 (ESDP)
   make_hswf_policy / make_lcf_policy / make_lwtf_policy — paper baselines
-  simulate / simulate_batch / SimResult — the slot simulator
+  simulate / simulate_batch / simulate_grid / SimResult — the slot
+                                          simulator (seed fleets, grids)
   make_draws / Draws                    — a run's random inputs
-  Scenario / default_scenario           — the iid regime
+  Scenario / default_scenario / replay_scenario — the regime protocol,
+                                          the iid regime, a replayed trace
+                                          (named regimes: repro_torch.
+                                          experiments.scenarios)
+  make_scenario_draws / ScenarioDraws   — a regime's random inputs
+  FallbackSolver                        — the solve's degradation chain
 """
 from . import stats
 from .baselines import (hswf_factory, lcf_factory, lwtf_factory,
                         make_hswf_policy, make_lcf_policy, make_lwtf_policy,
                         make_msr_greedy_policy, make_msr_index_policy)
 from .dp import DPTables, build_tables, oracle_knapsack, solve_budgeted_dp
-from .env import (Draws, Scenario, SimResult, default_scenario, make_draws,
-                  simulate, simulate_batch)
+from .env import (Draws, Scenario, ScenarioDraws, SimResult,
+                  default_scenario, make_draws, make_scenario_draws,
+                  replay_scenario, simulate, simulate_batch, simulate_grid)
 from .esdp import Policy, PolicyFactory, Slot, esdp_factory, make_esdp_policy
 from .graph import Instance, generate_instance, instance_from_arrays
 from .incremental import (CacheStats, SolveCache, WarmCarry,
                           solve_budgeted_dp_warm, warm_carry_init)
-from .solvers import SOLVER_NAMES, CachedSolver, Solver, get_solver
+from .solvers import (SOLVER_NAMES, CachedSolver, FallbackSolver, Solver,
+                      get_solver)
 
 __all__ = [
     "Instance", "generate_instance", "instance_from_arrays",
     "DPTables", "build_tables", "solve_budgeted_dp", "oracle_knapsack",
     "SOLVER_NAMES", "Solver", "get_solver",
-    "CachedSolver", "SolveCache", "CacheStats",
+    "CachedSolver", "FallbackSolver", "SolveCache", "CacheStats",
     "WarmCarry", "warm_carry_init", "solve_budgeted_dp_warm",
     "Policy", "PolicyFactory", "Slot", "make_esdp_policy", "esdp_factory",
     "make_hswf_policy", "make_lcf_policy", "make_lwtf_policy",
     "make_msr_greedy_policy", "make_msr_index_policy",
     "hswf_factory", "lcf_factory", "lwtf_factory",
-    "Scenario", "default_scenario", "Draws", "make_draws",
-    "SimResult", "simulate", "simulate_batch", "stats",
+    "Scenario", "ScenarioDraws", "default_scenario", "replay_scenario",
+    "make_scenario_draws", "Draws", "make_draws",
+    "SimResult", "simulate", "simulate_batch", "simulate_grid", "stats",
 ]

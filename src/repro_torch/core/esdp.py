@@ -210,7 +210,9 @@ def make_esdp_policy(
 def esdp_factory(**overrides) -> PolicyFactory:
     """``esdp_factory(g_fn=...)(inst, T, tables)``: ``overrides`` go to
     :func:`make_esdp_policy`; a ``solver=``/``cache=`` given at call time
-    applies unless the factory pinned one."""
+    (``experiments.sweep.run_spec`` passes its spec's, guided by the
+    ``accepts_solver``/``accepts_cache`` flags) applies unless the factory
+    pinned one."""
     def make(
         instance: Instance,
         T: int,
@@ -226,4 +228,6 @@ def esdp_factory(**overrides) -> PolicyFactory:
         return make_esdp_policy(instance, T, tables=tables, **kw)
 
     make.policy_name = "esdp"
+    make.accepts_solver = True
+    make.accepts_cache = True
     return make

@@ -32,11 +32,20 @@ warns and falls back to ``auto``; an invalid name in code raises.
 Incremental layer: :class:`CachedSolver` wraps any backend with the
 quantized-statistics solve cache (``core.incremental.SolveCache``) — the
 same call contract, ``accepts_batch`` passed through, no solve on a hit.
-The JAX package's degradation wrapper (``FallbackSolver``) is not ported
-yet.
+
+Degradation layer: :class:`FallbackSolver` wraps the registry with a
+bounded retry chain (the primary, then ``reference`` by default),
+catching backend launch failures and rejecting corrupted value rows
+(``kernels.budgeted_dp.ops.validate_value_row``) before falling through —
+bit-identical results whichever link serves, because backends are
+bit-exact interchangeable.  A deterministic fault-injection hook
+(``runtime.fault.planned_fault``, or ``$REPRO_DP_FAULT_RATE``) exercises
+the chain without real faults.  It is opt-in: nothing wraps a backend in
+it unless asked.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import warnings
@@ -48,7 +57,7 @@ import torch
 from .dp import NEG, DPTables, solve_budgeted_dp
 
 __all__ = ["SOLVER_ENV_VAR", "SOLVER_NAMES", "Solver", "get_solver",
-           "CachedSolver"]
+           "CachedSolver", "FallbackSolver", "POISON"]
 
 SOLVER_ENV_VAR = "REPRO_DP_SOLVER"
 SOLVER_NAMES = ("auto", "reference", "cuda")
@@ -233,10 +242,182 @@ class CachedSolver:
         return x, info
 
 
+# What an injected "corrupt" fault writes into a value row: the int32
+# plane's VALUE_BOUND (2**29), which ``validate_value_row`` rejects.  (The
+# JAX package writes 2**24, its f32-exact bound, which the port's wider
+# int32 bound would accept.)
+POISON = 2 ** 29
+
+
+class FallbackSolver:
+    """Graceful degradation of the solve path: a bounded backend retry
+    chain (counterpart of the JAX package's ``FallbackSolver``).
+
+    Per call the wrapper walks ``chain`` (default: the primary backend,
+    then ``reference``).  An attempt degrades when the backend raises (a
+    launch failure, caught and recorded) or when its value row violates
+    the DP invariants of ``kernels.budgeted_dp.ops.validate_value_row``
+    (theorems of the recurrence, so a violation always means corruption).
+    Every link is bit-exact with every other, so whichever serves, ``x``,
+    ``s_star`` and ``value_row`` are the same.  The last link is never
+    injected and its failures propagate: a chain that cannot serve at all
+    is an outage, not a degradation.  Each degradation is counted in
+    ``stats`` and recorded as a structured event in ``stats["events"]``
+    (the first 256; the counters never truncate).
+
+    ``reference`` takes CPU tensors only: that link runs on CPU copies of
+    the inputs, and its outputs go back to the caller's device.  Every
+    call reads the serving link's value row back to the host to validate
+    it (one sync on the card), as the JAX package's wrapper does; the
+    wrapper is opt-in (``ClusterSim(fallback=True)``, or ``solver=`` a
+    ``FallbackSolver``).
+
+    Deterministic fault injection: with ``fault_rate > 0`` (explicit, else
+    ``$REPRO_DP_FAULT_RATE``) each non-final attempt consults
+    ``runtime.fault.planned_fault(call, rate, seed, attempt)`` and either
+    raises an ``InjectedFault`` before launching or poisons the returned
+    value row with :data:`POISON`, which validation must reject.  The
+    plan is pure in the call index, so a run is reproducible and, since
+    fallbacks are exact, bit-identical to the fault-free run; the JAX
+    package's wrapper plans the same faults.
+
+    The JAX package lets traced calls bypass the chain; the port has no
+    tracing, so every call walks it and ``stats["bypasses"]`` stays 0.
+    ``accepts_batch`` follows the primary; (B, E) inputs walk the same
+    chain with each row's value row validated.
+    """
+
+    _MAX_EVENTS = 256  # structured events kept; counters never truncate
+
+    def __init__(
+        self,
+        base: "Solver | str | None" = None,
+        chain: "tuple | None" = None,
+        fault_rate: "float | None" = None,
+        fault_seed: "int | None" = None,
+        scope: "str | None" = None,
+    ):
+        from ..runtime.fault import FAULT_SEED_ENV, fault_rate_from_env
+        if chain is not None:
+            links = [get_solver(s) for s in chain]
+            if not links:
+                raise ValueError("FallbackSolver chain must be non-empty")
+        else:
+            primary = get_solver(base)
+            links = [primary]
+            if primary.name != "reference":
+                links.append(get_solver("reference"))
+        self.chain = tuple(links)
+        self.base = self.chain[0]
+        self.fault_rate = (fault_rate_from_env() if fault_rate is None
+                           else float(fault_rate))
+        self.fault_seed = (int(os.environ.get(FAULT_SEED_ENV, "0") or 0)
+                           if fault_seed is None else int(fault_seed))
+        # scope labels this wrapper's counters when a consumer owns several
+        self.scope = scope
+        self.stats: dict = {
+            "calls": 0, "bypasses": 0, "degraded_calls": 0,
+            "launch_failures": 0, "validation_failures": 0,
+            "faults_injected": 0, "served_by": {s.name: 0 for s in links},
+            "events": [],
+        }
+        if scope is not None:
+            self.stats["scope"] = scope
+
+    def stats_dict(self) -> dict:
+        """A detached copy of the counters (scope label included)."""
+        return copy.deepcopy(self.stats)
+
+    @property
+    def name(self) -> str:
+        return "fallback:" + "->".join(s.name for s in self.chain)
+
+    @property
+    def accepts_batch(self) -> bool:
+        return self.base.accepts_batch
+
+    def _record(self, **event) -> None:
+        ev = self.stats["events"]
+        if len(ev) < self._MAX_EVENTS:
+            ev.append(event)
+
+    def __call__(
+        self,
+        upsilon,
+        sigma2,
+        tables: DPTables,
+        s_cap: int,
+        s_limit,
+        allowed=None,
+        u_max=None,
+    ):
+        from ..kernels.budgeted_dp.ops import validate_value_row
+        from ..runtime.fault import InjectedFault, planned_fault
+
+        call = self.stats["calls"]
+        self.stats["calls"] += 1
+        ups = torch.as_tensor(upsilon)
+        dev = ups.device
+        args = (ups, torch.as_tensor(sigma2, device=dev),
+                torch.as_tensor(s_limit, device=dev),
+                None if allowed is None else torch.as_tensor(allowed,
+                                                             device=dev))
+        last = len(self.chain) - 1
+        for attempt, link in enumerate(self.chain):
+            fault = (None if attempt == last else planned_fault(
+                call, self.fault_rate, seed=self.fault_seed,
+                attempt=attempt))
+            try:
+                if fault == "launch":
+                    self.stats["faults_injected"] += 1
+                    raise InjectedFault(
+                        f"injected launch failure (call {call}, "
+                        f"attempt {attempt}, backend {link.name})")
+                on = "cpu" if link.name == "reference" else dev
+                u, s, lim, alw = (None if a is None else a.to(on)
+                                  for a in args)
+                x, info = link(u, s, tables, s_cap, lim, allowed=alw,
+                               u_max=u_max)
+                row = info["value_row"].cpu().numpy()
+                if fault == "corrupt":
+                    # poison past the int32 plane's bound: validation MUST
+                    # reject this row, proving the checks are live
+                    self.stats["faults_injected"] += 1
+                    row = row.copy()
+                    row[..., 0] = POISON
+            except Exception as err:  # noqa: BLE001 — any launch failure degrades
+                if attempt == last:
+                    raise
+                self.stats["launch_failures"] += 1
+                self._record(call=call, attempt=attempt, backend=link.name,
+                             kind="launch",
+                             injected=isinstance(err, InjectedFault),
+                             error=f"{type(err).__name__}: {err}")
+                continue
+            reason = validate_value_row(row)
+            if reason is not None:
+                if attempt == last:
+                    raise RuntimeError(
+                        f"DP value plane failed validation on the final "
+                        f"chain link {link.name!r}: {reason}")
+                self.stats["validation_failures"] += 1
+                self._record(call=call, attempt=attempt, backend=link.name,
+                             kind="validate", injected=fault == "corrupt",
+                             error=reason)
+                continue
+            if attempt > 0:
+                self.stats["degraded_calls"] += 1
+            self.stats["served_by"][link.name] += 1
+            return x.to(dev), {k: info[k].to(dev)
+                               for k in ("s_star", "value_row")}
+        raise AssertionError("unreachable: the final chain link never skips")
+
+
 def get_solver(name: "str | Solver | None" = None):
     """The backend ``name`` selects (see the module docstring); a
     ``Solver``, or a solver-shaped wrapper (callable, with ``name`` and
-    ``accepts_batch``, as :class:`CachedSolver`), passes through
+    ``accepts_batch``, as :class:`CachedSolver` and
+    :class:`FallbackSolver`), passes through
     unchanged."""
     if isinstance(name, Solver) or (
             callable(name) and hasattr(name, "accepts_batch")

@@ -13,9 +13,8 @@ process with the injector and its detection-driven eligibility with the
 tracker.
 
 :func:`planned_fault` / :class:`InjectedFault` and ``$REPRO_DP_FAULT_RATE``
-are the deterministic solver-fault hook of the JAX package's degradation
-chain (``FallbackSolver``), which the port has not ported yet; they are
-kept so that both packages plan the same faults.
+are the deterministic solver-fault hook of the degradation chain
+(``core.solvers.FallbackSolver``); both packages plan the same faults.
 """
 from __future__ import annotations
 

@@ -12,7 +12,10 @@ table) and its Algorithm-2 solve (the budgeted-DP kernels through the
 solver registry), the baselines' greedy packing, and the regret oracle.
 ``device=None`` is the card; ``device="cpu"`` runs the same loop on the
 CPU, where the kernel wrappers take their plain versions.  Schedules
-are ``speed_fn``/``alive_fn`` callbacks of the 0-based slot.
+are ``speed_fn``/``alive_fn`` callbacks of the 0-based slot, or a
+``scenario=``: a registered regime (``experiments.scenarios``, by name or
+object), unrolled on the host from the sim's seed, or an unrolled
+``(arr_scale, speed, alive)`` trace.
 
 Incremental re-solves: ``incremental="cache"`` wraps the backend in a
 ``core.solvers.CachedSolver``; ``incremental="warm"`` drives the
@@ -30,9 +33,10 @@ transitions; detection-driven eligibility uses
 (``malleable=MalleableModel(...)``) run for several slots and shrink or
 grow between config-family edges.
 
-Not ported yet, and refused with ``NotImplementedError``: the scenario
-regimes (``scenario=``), the degradation chain (``fallback=True``) and
-the streaming engine (:meth:`ClusterSim.engine`).
+``fallback=True`` wraps the backend in the degradation chain
+``core.solvers.FallbackSolver``, whose counters surface in
+``solve_stats``.  Not ported yet, and refused with
+``NotImplementedError``: the streaming engine (:meth:`ClusterSim.engine`).
 """
 from __future__ import annotations
 
@@ -43,8 +47,9 @@ import numpy as np
 import torch
 
 from ..core import build_tables, stats as stats_mod
+from ..core.env import Scenario
 from ..core.graph import Instance
-from ..core.solvers import CachedSolver, get_solver
+from ..core.solvers import CachedSolver, FallbackSolver, get_solver
 from ..device import resolve_device
 from ..runtime.fault import CrashRateTracker, FailureInjector
 
@@ -578,8 +583,16 @@ class ClusterSim:
         or ``stats.schedule_table``'s triple, each (T,) — replaces the
         per-slot ξ(t), g(t) that ESDP's statistics take; by default
         ``stats.schedule_table(T, m, δ, g_fn)`` on ``device``.
-        ``scenario=`` and ``fallback=True`` raise ``NotImplementedError``:
-        those parts of the JAX package are not ported yet.
+        ``scenario`` — a registered regime's name, a
+        ``core.env.Scenario`` (unrolled on the host by
+        ``experiments.scenarios.unroll_scenario`` from ``seed``, so a
+        regime's trace is the same on every device) or an unrolled
+        ``(arr_scale (T, L), speed (T, R), alive (T, R))`` trace — replaces
+        ``speed_fn``/``alive_fn`` (passing both raises ``ValueError``) and
+        scales the arrival streams.  ``fallback=True`` wraps the backend
+        in a ``core.solvers.FallbackSolver`` degradation chain (exact
+        results whichever link serves); mutually exclusive with
+        ``incremental`` — wrap explicitly to compose.
         """
         self.device = resolve_device(device)
         self.inst = instance
@@ -597,10 +610,13 @@ class ClusterSim:
         R = instance.n_servers
         self.arr_scale = np.ones((T, instance.n_ports), np.float32)
         if scenario is not None:
-            raise NotImplementedError(
-                "ClusterSim(scenario=...) needs the scenario regimes "
-                "(experiments/scenarios.py), which the port has not yet "
-                "(ROADMAP.md Queue 1 item 5); pass speed_fn/alive_fn")
+            if speed_fn is not None or alive_fn is not None:
+                raise ValueError("pass either scenario= or "
+                                 "speed_fn/alive_fn, not both")
+            arr_scale, speeds, alive = self._unrolled(scenario)
+            self.arr_scale = arr_scale
+            speed_fn = lambda t: speeds[t]  # noqa: E731 — row t ↔ slot t+1
+            alive_fn = lambda t: alive[t]  # noqa: E731
         self.speed_fn = speed_fn or (lambda t: np.ones(R, np.float32))
         self.alive_fn = alive_fn or (lambda t: np.ones(R, bool))
         self.m = instance.m
@@ -618,10 +634,12 @@ class ClusterSim:
                 "settle in-flight work host-side per slot")
         self.malleable = malleable
         if fallback:
-            raise NotImplementedError(
-                "ClusterSim(fallback=True) needs the degradation chain "
-                "(core/solvers.py FallbackSolver), which the port has not "
-                "yet (ROADMAP.md Queue 1 item 3)")
+            if incremental is not None:
+                raise ValueError(
+                    "fallback=True and incremental= both wrap the backend "
+                    "host-side; compose explicitly (pass a preassembled "
+                    "wrapper via solver=) instead of stacking them here")
+            self.solver = FallbackSolver(self.solver)
         if incremental == "cache":
             self.solver = CachedSolver(self.solver)
         elif incremental == "warm":
@@ -636,11 +654,37 @@ class ClusterSim:
                 self.tables, self.s_cap, u_max=self.u_max,
                 checkpoint_every=warm_checkpoint_every, device=self.device)
 
+    def _unrolled(self, scenario):
+        """(arr_scale (T, L), speed (T, R), alive (T, R)) host arrays of a
+        ``scenario=`` argument."""
+        from ..experiments.scenarios import get_scenario, unroll_scenario
+        inst, T = self.inst, self.T
+        if isinstance(scenario, str):
+            scenario = get_scenario(scenario)
+        if isinstance(scenario, Scenario):
+            # the trace is host data: step it on the CPU, so that every
+            # device replays the same realization
+            return unroll_scenario(scenario, T, inst.n_servers, self.seed,
+                                   n_ports=inst.n_ports, device="cpu")
+        arr_scale, speed, alive = (np.asarray(a) for a in scenario)
+        shapes = {"speed": (speed.shape, (T, inst.n_servers)),
+                  "alive": (alive.shape, (T, inst.n_servers))}
+        for name, (got, want) in shapes.items():
+            if got != want:
+                raise ValueError(f"scenario trace {name} has shape {got}, "
+                                 f"expected {want}")
+        arr_scale = np.broadcast_to(
+            arr_scale.astype(np.float32).reshape(T, -1), (T, inst.n_ports))
+        return (arr_scale, speed.astype(np.float32), alive.astype(bool))
+
     def _solve_stats(self) -> "dict | None":
         if self.incremental == "cache":
             return self.solver.stats.as_dict()
         if self.incremental == "warm":
             return dict(self._warm.stats, edge_skip_rate=self._warm.skip_rate)
+        if isinstance(self.solver, FallbackSolver):
+            # a detached copy: later solves never mutate a returned record
+            return self.solver.stats_dict()
         return None
 
     # ------------------------------------------------------------------

@@ -17,6 +17,8 @@ stream mode bit-identical to this loop) is not ported yet.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -270,11 +272,11 @@ def lockstep_run_batch(sim, seeds, policy: str = "esdp", tiebreak: float = 1e-4)
     stats = sim._solve_stats() if policy == "esdp" else None
     if stats is not None:
         # the counters cover the whole fleet's solves: label them, and
-        # hand every output its own copy
+        # hand every output its own copy (nested counters included)
         stats["scope"] = "fleet"
     return [SimOutput(sw=sw[b], regret=regret[b], dispatch_share=share[b],
                       asw=float(sw[b].sum()),
-                      solve_stats=(dict(stats) if stats is not None
+                      solve_stats=(copy.deepcopy(stats) if stats is not None
                                    else None),
                       x=xs[b])
             for b in range(B)]

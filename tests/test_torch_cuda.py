@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core import (build_tables, esdp, generate_instance,
-                              make_draws, simulate, stats)
+                              get_solver, make_draws, simulate, stats)
 from repro_torch.core.dp import initial_plane
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
@@ -869,3 +869,74 @@ def test_cuda_dp_edge_bit_equal_to_plain_version(plane, chained):
     torch.cuda.synchronize()
     assert LAUNCHES["dp_edge"] == before + E
     assert torch.equal(V, Vp) and torch.equal(W, Wp)
+
+
+def test_cuda_fallback_chain_exact_and_counted():
+    """``FallbackSolver`` with the ``cuda`` link on the card and faults at
+    30%: every solve equals the fault-free cuda solve, on the card; the
+    ``reference`` link ran on CPU copies; the whole-plane forward launched
+    once for each cuda attempt that was not refused before launching."""
+    from repro_torch.core.solvers import FallbackSolver
+    dev = _card()
+    inst = generate_instance(seed=0)
+    tables = build_tables(inst.A, inst.c)
+    s_cap = stats.s_cap_for_horizon(2000, inst.m)
+    rng = np.random.default_rng(3)
+    E, B, n = inst.n_edges, 4, 24
+    cuda = get_solver("cuda")
+    fb = FallbackSolver(chain=("cuda", "reference"), fault_rate=0.3,
+                        fault_seed=5)
+    before = LAUNCHES["dp_forward_batched"]
+    for _ in range(n):
+        ups = torch.as_tensor(rng.integers(0, 60, (B, E)), dtype=torch.int32,
+                              device=dev)
+        sig = torch.as_tensor(rng.integers(1, 5000, (B, E)),
+                              dtype=torch.int32, device=dev)
+        alw = torch.as_tensor(rng.random((B, E)) < 0.7, device=dev)
+        slim = torch.full((B,), s_cap, dtype=torch.int32, device=dev)
+        x, info = fb(ups, sig, tables, s_cap, slim, allowed=alw)
+        assert x.device.type == dev.type
+        assert info["value_row"].device.type == dev.type
+        xw, infow = cuda(ups, sig, tables, s_cap, slim, allowed=alw)
+        assert torch.equal(x, xw)
+        assert torch.equal(info["s_star"], infow["s_star"])
+        assert torch.equal(info["value_row"], infow["value_row"])
+    torch.cuda.synchronize()
+    st = fb.stats
+    assert st["calls"] == n and st["degraded_calls"] > 0
+    assert st["served_by"]["reference"] == st["degraded_calls"]
+    # the fault-free cuda solves above launched n times
+    assert LAUNCHES["dp_forward_batched"] - before == (
+        n - st["launch_failures"]) + n
+
+
+def test_cuda_fluctuating_simulate_equals_cpu():
+    """ESDP on Table 2 under a ``power_coupled`` trace (unrolled on the
+    CPU, replayed on both), T 120, B 3: the card's decisions equal the CPU
+    int32 reference's on the same draws and schedule — the fluctuated mean
+    rounds once on the card (``addcmul``) as on the CPU."""
+    from repro_torch.core import Draws, replay_scenario, simulate_batch
+    from repro_torch.experiments import get_scenario, unroll_scenario
+    dev = _card()
+    inst = generate_instance(seed=0)
+    tables = build_tables(inst.A, inst.c)
+    T, seeds = 120, [0, 1, 2]
+    scn = get_scenario("power_coupled")
+    traces = [unroll_scenario(scn, T, inst.n_servers, s,
+                              n_ports=inst.n_ports, device="cpu")
+              for s in seeds]
+    replay = replay_scenario(*(np.stack([tr[k] for tr in traces])
+                               for k in range(3)), fluctuates=True)
+    draws = [make_draws(inst, T, s, dev) for s in seeds]
+    draws = Draws(*(torch.cat([getattr(d, k) for d in draws])
+                    for k in ("arr_u", "val_n", "pol_u")))
+    sched = stats.schedule_table(T, inst.m, device="cpu")
+    policy = esdp.make_esdp_policy(inst, T, tables=tables)
+    card = simulate_batch(inst, policy, T, seeds, tables=tables, device=dev,
+                          scenario=replay, draws=draws, schedule=sched)
+    cpu = simulate_batch(inst, policy, T, seeds, tables=tables,
+                         device="cpu", scenario=replay, schedule=sched,
+                         draws=Draws(*(getattr(draws, k).cpu() for k in (
+                             "arr_u", "val_n", "pol_u"))))
+    np.testing.assert_array_equal(card.x, cpu.x)
+    np.testing.assert_allclose(card.sw, cpu.sw, rtol=1e-5, atol=1e-5)

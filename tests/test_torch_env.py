@@ -350,6 +350,57 @@ def test_esdp_cache_mode_validation(table2):
     assert factory(inst, 10, tables, cache="memo").finalize is not None
 
 
+def test_fluctuated_mean_rounds_once_as_xla(table2):
+    """The fluctuated valuation mean μ_e·speed_r − cost_e: XLA fuses it into
+    one multiply-add (one rounding), inside the horizon scan as in a bare
+    jit.  Under a non-dyadic speed a multiply and then a subtract round
+    twice and split the valuations z̃, and so the running means v̂ that
+    every policy reads, from the JAX package's.  HSWF on Table 2 under
+    ``power_coupled`` (speeds p^α, non-dyadic), T 200, on injected draws
+    and the JAX trace: v̂ must be bit-equal every slot, and so must the
+    realized welfare of every slot that dispatches one channel (its z̃)."""
+    from repro.experiments import get_scenario as jax_get_scenario
+    from repro.experiments import unroll_scenario as jax_unroll
+    from repro_torch.core import replay_scenario
+    from repro_torch.core.esdp import Policy
+
+    jinst, jtables, inst, tables = table2
+    T, seed, E = 200, 9, inst.n_edges
+    jscn = jax_get_scenario("power_coupled")
+    jp = jax_baselines.make_hswf_policy(jinst)
+
+    def jinit():
+        return jp.init(), jnp.zeros((T, E), jnp.float32)
+
+    def jstep(state, t, eligible, arrived, vhat, n, key):
+        inner, seen = state
+        x, inner = jp.step(inner, t, eligible, arrived, vhat, n, key)
+        return x, (inner, seen.at[t.astype(jnp.int32) - 1].set(vhat))
+
+    want = jax_simulate(jinst, jax_esdp.Policy(name="hswf", init=jinit,
+                                               step=jstep),
+                        T, seed=seed, tables=jtables, scenario=jscn)
+    tp = baselines.make_hswf_policy(inst)
+    seen = []
+
+    def step(state, slot, eligible, arrived, vhat, n, pol_u):
+        seen.append(vhat[0].clone())
+        return tp.step(state, slot, eligible, arrived, vhat, n, pol_u)
+
+    trace = jax_unroll(jscn, T, inst.n_servers, seed=seed,
+                       n_ports=inst.n_ports)
+    assert (trace[1] < 1.0).mean() > 0.5
+    got = simulate(inst, Policy(name="hswf", init=tp.init, step=step), T,
+                   tables=tables, device="cpu",
+                   draws=_jax_draws([seed], T, inst.n_ports, E),
+                   scenario=replay_scenario(*trace, fluctuates=True))
+    np.testing.assert_array_equal(torch.stack(seen).numpy(),
+                                  np.asarray(want.policy_final[1]))
+    one = got.n_dispatched == 1
+    assert one.sum() > T // 2
+    np.testing.assert_array_equal(got.sw[one], want.sw[one])
+
+
 def test_clipped_normal_mean_matches_jax():
     """Per-slot oracle means of fluctuating regimes: float32 erf in both
     packages, within atol 1e-6."""

@@ -379,14 +379,69 @@ def test_run_batch_equals_run_per_seed_and_jax():
     assert outs[1].solve_stats["hits"] != -1
 
 
+@pytest.mark.parametrize("regime,fleet", [
+    ("power_coupled", "dispatch"), ("server_failures", "dispatch"),
+    ("mmpp_arrivals", "cluster")])
+def test_cluster_sim_scenario_matches_jax(regime, fleet):
+    """``ClusterSim(scenario=...)``: the JAX sim unrolls the regime from its
+    seed; the port replays that unrolled trace (``scenario=(arr_scale,
+    speed, alive)``) — the same outputs.  ``server_failures`` runs
+    failure-aware (crashes at the trace's up→down transitions) and
+    conserves its ledger.  The port's own unroll (``scenario=`` the name)
+    runs too."""
+    from repro.experiments import get_scenario as jax_get_scenario
+    from repro.experiments import unroll_scenario as jax_unroll
+    _, (jinst, _), _, (inst, _) = _instances(fleet)
+    T, seed = 100, 3
+    jscn = jax_get_scenario(regime)
+    kw, jkw = {}, {}
+    if regime == "server_failures":
+        kw = dict(failures=sched.FailureModel(redundancy=2))
+        jkw = dict(failures=jsched.FailureModel(redundancy=2))
+    want = jsched.ClusterSim(jinst, T, seed=seed, solver="reference",
+                             scenario=jscn, **jkw).run("esdp")
+    trace = jax_unroll(jscn, T, inst.n_servers, seed=seed,
+                       n_ports=inst.n_ports)
+    got = sched.ClusterSim(inst, T, seed=seed, device="cpu", solver="cuda",
+                           schedule=_jax_schedule(T, inst.m), scenario=trace,
+                           **kw).run("esdp")
+    _assert_same(got, want)
+    if regime == "server_failures":
+        led = got.failures
+        assert led["total_lost"] > 0 or led["replicas"].sum() > 0
+        np.testing.assert_allclose(
+            led["dispatched"],
+            led["completed"] + led["lost"] + led["salvaged"],
+            rtol=1e-6, atol=1e-6)
+    own = sched.ClusterSim(inst, T, seed=seed, device="cpu", scenario=regime,
+                           **kw)
+    from repro_torch.experiments import get_scenario, unroll_scenario
+    arr, speed, alive = unroll_scenario(get_scenario(regime), T,
+                                        inst.n_servers, seed,
+                                        n_ports=inst.n_ports, device="cpu")
+    np.testing.assert_array_equal(own.arr_scale, arr)
+    assert all(np.array_equal(own.speed_fn(t), speed[t])
+               and np.array_equal(own.alive_fn(t), alive[t])
+               for t in range(T))
+    assert np.isfinite(own.run("esdp").sw).all()
+
+
 def test_refusals():
-    """Parts of the JAX package the port has not yet raise
-    ``NotImplementedError``; the JAX package's own refusals stay."""
+    """The JAX package's own refusals, and the part of it the port has not
+    yet (the streaming engine), which raises ``NotImplementedError``."""
     _, _, _, (inst, _) = _instances("cluster")
-    with pytest.raises(NotImplementedError, match="scenario"):
-        sched.ClusterSim(inst, 10, device="cpu", scenario=object())
-    with pytest.raises(NotImplementedError, match="FallbackSolver"):
-        sched.ClusterSim(inst, 10, device="cpu", fallback=True)
+    with pytest.raises(ValueError, match="not both"):
+        sched.ClusterSim(inst, 10, device="cpu", scenario="iid",
+                         speed_fn=lambda t: np.ones(inst.n_servers))
+    with pytest.raises(ValueError, match="incremental"):
+        sched.ClusterSim(inst, 10, device="cpu", fallback=True,
+                         incremental="cache")
+    with pytest.raises(ValueError, match="registered scenarios"):
+        sched.ClusterSim(inst, 10, device="cpu", scenario="bogus")
+    with pytest.raises(ValueError, match="speed"):
+        sched.ClusterSim(inst, 10, device="cpu",
+                         scenario=(np.ones((10, 1)), np.ones((9, 4)),
+                                   np.ones((10, 4), bool)))
     with pytest.raises(NotImplementedError, match="DispatchEngine"):
         sched.ClusterSim(inst, 10, device="cpu").engine()
     with pytest.raises(ValueError, match="incremental mode"):
