@@ -37,7 +37,7 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    launches each); the same at fig-6 c_hi = 6, T = 1500 (fused forward,
    ⌈E/block_e⌉·T launches, no whole-plane launch), with the card's
    per-slot x equal to the CPU int32 reference on the same draws and
-   schedule; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over),
+   schedule in each of the first 500 slots; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over),
    and the first 200 slots of ESDP on the whole-plane fig-6 planes
    (c_hi = 4 at T = 2000, c_hi = 5 at T = 1500) against the CPU
    reference;
@@ -81,6 +81,19 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    equal to the plain run's; at fault rate 0.2 the failures counted, x
    unchanged and K1 launched once for each cuda attempt that launched;
    the slot times of these paths beside the plain ones;
+   (g) the streaming engine (``sched.DispatchEngine``) on the dispatch
+   configuration, T = 800: ESDP alone and A/B (ESDP 0.9 / HSWF 0.1),
+   ``run(mode="stream")`` and ``"lockstep"`` bitwise equal, ``run_batch``
+   over 8 seeds each equal to its seed's run, the stream loop and
+   ``run_batch`` under ``torch.cuda.set_sync_debug_mode("error")``, one
+   K1 (K2 in ``run_batch``) and one epilogue a slot and none for HSWF;
+   each backpressure policy at queue capacity 1 under triple arrivals
+   (only its own channel fires, the ledger conserved); a failure run
+   (p_crash 0.1, 2-way redundancy) with a ``CachedSolver`` (per-variant
+   ledgers conserved, its scoped counters, K1 = misses); the card and
+   the CPU (``reference`` solver) bitwise equal at T = 200; the ms a
+   slot of each mode and, from one profiled A/B stream run, the
+   launches a slot and the device's idle share;
 5. the attention kernels (K6) against their plain version on the card:
    the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the split-TF32
    kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
@@ -110,7 +123,11 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    weights and tokens, in f32 (relative L2 ≤ 1e-3; the f32 prefill goes
    through the split-TF32 attention kernel, 13 launches) and in bf16 (no
    further from the f32 plain logits than the bf16 plain ones, within
-   50%);
+   50%); (h) the same for FULL Mamba2-2.7B (64 SSD launches a prefill),
+   FULL gemma-7b (28 wgmma attention launches, D = 256) and gemma3-27b
+   at full width with 6 of its 62 layers (one 5 local : 1 global cycle;
+   6 launches, D = 128, GQA 32:16, window 1024 on the local layers),
+   each with its prefill and decode ms and its logits check;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -124,9 +141,12 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    (a yardstick only: the port never calls it; the backend it takes is
    printed); attention at the Zamba2-7B shape in bf16 (wgmma) and f32
    (split TF32, its bound three TF32 products per f32 product, the f32-FMA
-   bound beside it), and in bf16 at gemma-7b's (hd 256) and deepseek-v3's
-   MLA (q/k 192, v 128, zero-padded to 192) attention, with the CUDA-core
-   referee's time at the f32 and those two shapes; and the
+   bound beside it), and in bf16 at gemma-7b's (hd 256), gemma3-27b's
+   local layers' (GQA 32:16, hd 128, window 1024; SDPA with the window as
+   a boolean mask) and deepseek-v3's MLA (q/k 192, v 128, zero-padded to
+   192) attention, with the CUDA-core referee's time at the f32, gemma
+   and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; and
+   the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
    thread, the launcher's pick there, against a column a cell), both held
@@ -457,8 +477,7 @@ def main():
     def max_err(a, b):
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
-    def epilogue_err(V, W, ups, offs, slim, full, rows=None, bits=None,
-                     want=None):
+    def epilogue_err(V, W, ups, offs, slim, full, rows=None, bits=None, want=None):
         """Largest |kernel − plain| of the epilogue through the wrapper,
         against ``ref.dp_epilogue_ref`` on the card."""
         if want is None:
@@ -935,25 +954,31 @@ def main():
               "decisions on the same draws", flush=True)
     if not np.array_equal(fleet6.x[0], single6.x):
         fail("fig6 c_hi=6: simulate_batch row 0 differs from simulate in x")
+    # the CPU int32 reference over the run's first T6_CPU slots (all T6
+    # took ~3 min of CPU; the plane, the tiling and the draws are the full
+    # run's, and a prefix of a run is that run's first slots)
+    T6_CPU = 500
     w0 = time.perf_counter()
-    cpu6 = simulate(big6, policy6, T6, tables=big6_tables, device="cpu",
-                    draws=moved(per_seed[0], lambda t: t.cpu()),
-                    schedule=sched6)
+    sched6_cpu = tuple(a[:T6_CPU] for a in sched6)
+    cpu6 = simulate(big6, policy6, T6_CPU, tables=big6_tables, device="cpu",
+                    draws=moved(per_seed[0], lambda t: t[:, :T6_CPU].cpu()),
+                    schedule=sched6_cpu)
     rows = [1, FLEET - 1]
     cpu6_rows = simulate_batch(
-        big6, policy6, T6, [seeds[i] for i in rows], tables=big6_tables,
-        device="cpu", draws=moved(draws6, lambda t: t[rows].cpu()),
-        schedule=sched6)
-    if not np.array_equal(single6.x, cpu6.x):
-        slot = int(np.flatnonzero((single6.x != cpu6.x).any(axis=1))[0])
+        big6, policy6, T6_CPU, [seeds[i] for i in rows], tables=big6_tables,
+        device="cpu", draws=moved(draws6, lambda t: t[rows, :T6_CPU].cpu()),
+        schedule=sched6_cpu)
+    if not np.array_equal(single6.x[:T6_CPU], cpu6.x):
+        slot = int(np.flatnonzero((single6.x[:T6_CPU] != cpu6.x).any(
+            axis=1))[0])
         fail(f"fig6 c_hi=6: card and CPU reference ESDP differ at slot "
              f"{slot + 1}")
-    if not np.array_equal(fleet6.x[rows], cpu6_rows.x):
+    if not np.array_equal(fleet6.x[rows][:, :T6_CPU], cpu6_rows.x):
         fail(f"fig6 c_hi=6: simulate_batch rows {rows} differ from the CPU "
              "reference")
     print(f"   fig6 c_hi=6, T={T6}: card simulate and simulate_batch rows "
-          f"0, {rows} make the CPU int32 reference's decisions every slot "
-          f"on the same draws and schedule "
+          f"0, {rows} make the CPU int32 reference's decisions in each of "
+          f"the first {T6_CPU} slots on the same draws and schedule "
           f"({time.perf_counter() - w0:.1f} s on the CPU)", flush=True)
     done(t0)
 
@@ -1154,8 +1179,7 @@ def main():
                "of an ESDP trajectory")
     recorded = []
 
-    def recording(ups, sig, tables, s_cap, s_limit, allowed=None,
-                  u_max=None):
+    def recording(ups, sig, tables, s_cap, s_limit, allowed=None, u_max=None):
         recorded.append((ups[0].clone(), sig[0].clone(), allowed[0].clone(),
                          s_limit[0].clone()))
         return cuda_solver(ups, sig, tables, s_cap, s_limit, allowed, u_max)
@@ -1493,6 +1517,217 @@ def main():
           + f"; severity grid (B=15) {grid_ms:.3f}; dispatch: plain "
           f"{plain_ms:.3f}, power_coupled {pc_ms:.3f}, fallback=True "
           f"{fb_ms:.3f}", flush=True)
+    done(t0)
+
+    # ------------------------------------------------------- engine path
+    # (g) the streaming dispatch engine (sched/engine.py) on the dispatch
+    # fleet: ESDP alone and A/B (ESDP 0.9 / HSWF 0.1), stream and
+    # lockstep, run_batch over 8 seeds, the three backpressure policies,
+    # a failure run with a CachedSolver, card against CPU
+    from repro_torch.core import CachedSolver
+    from repro_torch.experiments import engine_variant_records
+    from repro_torch.sched import (DispatchEngine, EngineConfig,
+                                   FailureModel, VariantSpec)
+
+    ENGINE_FIELDS = ("x", "sw", "regret", "dispatch_share", "sw_variant",
+                     "regret_variant", "dispatched_variant",
+                     "routed_variant", "n", "sumz", "queue_len")
+    ENGINE_EXACT = ("x", "dispatched_variant", "routed_variant", "n",
+                    "sumz", "queue_len")
+
+    def ab_variants(solver=None):
+        return (VariantSpec("esdp", weight=0.9, solver=solver),
+                VariantSpec("hswf", kind="hswf", weight=0.1))
+
+    def dispatch_engine(cfg, device=None, horizon=TD, **kw):
+        return DispatchEngine(d_inst, horizon, cfg, speed_fn=d_speed,
+                              seed=DSEED, device=device,
+                              schedule=tuple(a[:horizon] for a in d_sched),
+                              **kw)
+
+    @contextlib.contextmanager
+    def strict_horizon():
+        """Every pass of the engine's horizon loop runs under
+        ``torch.cuda.set_sync_debug_mode("error")``: a read back to the
+        host inside it raises.  Yields the count of such passes."""
+        real, calls = DispatchEngine._horizon, [0]
+
+        def strict(self, *args, **kw):
+            calls[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(self, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        DispatchEngine._horizon = strict
+        try:
+            with warnings.catch_warnings():  # "a prototype feature"
+                warnings.simplefilter("ignore", UserWarning)
+                yield calls
+        finally:
+            DispatchEngine._horizon = real
+
+    def same_trace(a, b, fields=ENGINE_FIELDS):
+        """The fields (and every ledger entry) of two outputs on which
+        they differ."""
+        bad = [f for f in fields if not np.array_equal(
+            np.asarray(getattr(a, f)), np.asarray(getattr(b, f)))]
+        return bad + [k for k in a.ledger if not np.array_equal(
+            np.asarray(a.ledger[k]), np.asarray(b.ledger[k]))]
+
+    def conserves(out):
+        led = out.ledger
+        return (led["total_arrivals"] == led["total_rejected"]
+                + led["total_blocked"] + led["total_admitted"]
+                and led["total_admitted"] == led["total_dispatched"]
+                + led["total_dropped"] + led["total_shed"]
+                + led["final_queue"])
+
+    t0 = phase(f"(g) the streaming engine on the dispatch fleet, T={TD}: "
+               "stream and lockstep, run_batch, backpressure, failures, "
+               "card against CPU")
+    g_seeds = [DSEED + i for i in range(8)]
+    g_ms, g_runs = {}, {}
+    for label, cfg in (("esdp", EngineConfig()),
+                       ("ab", EngineConfig(variants=ab_variants()))):
+        eng = dispatch_engine(cfg)
+        dp = dict(dp_forward_batched=TD, dp_epilogue=TD)  # one ESDP variant
+        lock, counts, wall = timed_run(lambda: eng.run(mode="lockstep"))
+        if not expect(counts, **dp):
+            fail(f"(g) {label} lockstep launched {counts}, expected {dp}")
+        g_ms[label, "lockstep"] = wall / TD * 1e3
+        with strict_horizon() as n_strict:
+            stream, counts, wall = timed_run(lambda: eng.run(mode="stream"))
+            g_ms[label, "stream"] = wall / TD * 1e3
+            if not expect(counts, **dp):
+                fail(f"(g) {label} stream launched {counts}, expected {dp}")
+            fleet, counts, wall = timed_run(lambda: eng.run_batch(g_seeds))
+            g_ms[label, "run_batch"] = wall / TD * 1e3
+            if not expect(counts, **dp):
+                fail(f"(g) {label} run_batch over {len(g_seeds)} seeds "
+                     f"launched {counts}, expected one K2 forward and one "
+                     f"epilogue a slot ({dp})")
+        if n_strict[0] != 2:
+            fail(f"(g) {label}: {n_strict[0]} horizon passes under the "
+                 "sync check, expected 2")
+        bad = same_trace(stream, lock)
+        if bad:
+            fail(f"(g) {label}: stream and lockstep differ in {bad}")
+        for s, out in zip(g_seeds, fleet):
+            one = stream if s == DSEED else eng.run(mode="stream", seed=s)
+            bad = same_trace(out, one)
+            if bad:
+                fail(f"(g) {label}: run_batch seed {s} differs from its "
+                     f"run() in {bad}")
+        if not all(conserves(o) for o in [stream, lock] + fleet):
+            fail(f"(g) {label}: a ledger is not conserved")
+        if not (np.isfinite(stream.sw).all() and stream.x.shape == (
+                TD, len(cfg.variants), d_inst.n_edges)):
+            fail(f"(g) {label}: non-finite welfare or x of shape "
+                 f"{stream.x.shape}")
+        g_runs[label] = stream
+        print(f"   {label}: ASW {stream.asw:.1f}, cumRegret "
+              f"{float(stream.cum_regret[-1]):.1f}, dispatched "
+              f"{stream.ledger['total_dispatched']} of "
+              f"{stream.ledger['total_arrivals']} arrivals; ms a slot: "
+              f"stream {g_ms[label, 'stream']:.3f}, lockstep "
+              f"{g_ms[label, 'lockstep']:.3f}, run_batch (B=8) "
+              f"{g_ms[label, 'run_batch']:.3f}; one K1 (K2 in run_batch) "
+              "and one epilogue a slot, none for HSWF; stream = lockstep "
+              "and each run_batch seed = its run(), bitwise", flush=True)
+    for rec in engine_variant_records(g_runs["ab"]):
+        print(f"   A/B arm {rec['variant']}: routed {rec['routed']}, "
+              f"dispatched {rec['dispatched']}, ASW {rec['asw_mean']:.1f}, "
+              f"regret {rec['regret_mean']:.1f}", flush=True)
+
+    for bp, channel in (("drop_oldest", "dropped"), ("block", "blocked"),
+                        ("shed_by_utility", "shed")):
+        cfg = EngineConfig(queue_capacity=1, backpressure=bp,
+                           variants=ab_variants())
+        out, counts, wall = timed_run(lambda: dispatch_engine(
+            cfg, arr_scale=3.0).run(mode="stream"))
+        led = out.ledger
+        fired = {ch: led[f"total_{ch}"] for ch in ("dropped", "blocked",
+                                                   "shed")}
+        if not (conserves(out) and fired[channel] > 0 and all(
+                v == 0 for ch, v in fired.items() if ch != channel)):
+            fail(f"(g) backpressure {bp}: fired {fired}, conserved "
+                 f"{conserves(out)}")
+        if not expect(counts, dp_forward_batched=TD, dp_epilogue=TD):
+            fail(f"(g) backpressure {bp} launched {counts}")
+        print(f"   backpressure {bp} (queue 1, arrivals x3): "
+              f"{led['total_arrivals']} arrivals, {fired}, "
+              f"{led['total_dispatched']} dispatched, ledger conserved; "
+              f"{wall / TD * 1e3:.3f} ms a slot", flush=True)
+
+    cached = CachedSolver(get_solver("cuda"))
+    eng = dispatch_engine(EngineConfig(variants=ab_variants(cached)),
+                          failures=FailureModel(p_crash=0.1, redundancy=2))
+    out, counts, wall = timed_run(eng.run)
+    fv, st = out.failures["per_variant"], out.solve_stats
+    if not (out.mode == "lockstep" and set(fv) == {"esdp", "hswf"}
+            and st is not None and st["esdp"]["scope"] == "esdp"
+            and st["esdp"]["hits"] + st["esdp"]["misses"] == TD):
+        fail(f"(g) failures: mode {out.mode}, per-variant ledgers "
+             f"{sorted(fv)}, solve_stats {st}")
+    for name, led in fv.items():
+        if not np.allclose(led["dispatched"], led["completed"] + led["lost"]
+                           + led["salvaged"], rtol=1e-6, atol=1e-6):
+            fail(f"(g) failures: variant {name}'s ledger is not conserved")
+    if not (conserves(out) and expect(
+            counts, dp_forward_batched=st["esdp"]["misses"],
+            dp_epilogue=st["esdp"]["misses"])):
+        fail(f"(g) failures: launched {counts}, cache {st['esdp']}")
+    print(f"   failures (p_crash 0.1, 2-way redundancy, CachedSolver "
+          f"scope {st['esdp']['scope']!r}): lockstep, per-variant ledgers "
+          f"conserved (esdp lost {fv['esdp']['total_lost']:.1f} of "
+          f"{fv['esdp']['total_dispatched']:.1f}), cache hits "
+          f"{st['esdp']['hits']}, misses {st['esdp']['misses']} = "
+          f"K1 launches; {wall / TD * 1e3:.3f} ms a slot", flush=True)
+
+    Tg = 200
+    w0 = time.perf_counter()
+    for label, card_cfg, cpu_cfg in (
+            ("esdp", EngineConfig(),
+             EngineConfig(variants=(VariantSpec("esdp",
+                                                solver="reference"),))),
+            ("ab", EngineConfig(variants=ab_variants()),
+             EngineConfig(variants=ab_variants("reference")))):
+        on_card = dispatch_engine(card_cfg, horizon=Tg).run(mode="stream")
+        on_cpu = dispatch_engine(cpu_cfg, "cpu", horizon=Tg).run(
+            mode="stream")
+        bad = same_trace(on_card, on_cpu, ENGINE_EXACT)
+        if bad:
+            fail(f"(g) {label}, T={Tg}: card and CPU differ in {bad}")
+    print(f"   card and CPU (reference solver, plain versions) agree "
+          f"bitwise on x, n, sumz, the queue, the routing and every ledger "
+          f"entry at T={Tg}, ESDP and A/B "
+          f"({time.perf_counter() - w0:.1f} s)", flush=True)
+
+    # where an A/B stream slot's time goes: the profiler over a whole run
+    from torch.profiler import ProfilerActivity, profile
+    eng = dispatch_engine(EngineConfig(variants=ab_variants()))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            eng.run(mode="stream")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+    g_kernels = sorted(
+        ((getattr(e, "device_time_total", 0.0) / 1e3, e.count, e.key)
+         for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+        reverse=True)
+    busy = sum(ms for ms, _, _ in g_kernels)
+    g_launch = sum(n for _, n, _ in g_kernels) / TD
+    g_idle = max(0.0, 1 - busy / wall) * 100
+    print(f"   A/B stream under the profiler: {wall / TD:.3f} ms a slot, "
+          f"kernels {busy / TD:.4f} ms and {g_launch:.1f} launches a slot, "
+          f"device idle {g_idle:.1f}% ({card})", flush=True)
+    for ms, n, key in g_kernels[:6]:
+        print(f"      {ms / TD:8.4f} ms a slot {n / TD:6.1f}x  "
+              f"{key[:80]}", flush=True)
     done(t0)
 
     # --------------------------------------- attention and SSD vs plain
@@ -1874,6 +2109,122 @@ def main():
     del params, logits_k32, logits_p32
     torch.cuda.empty_cache()
     done(t0)
+
+    # -------------------------------------------- the new model families
+    # (h) mamba2-2.7b (ssm) FULL, gemma-7b (dense) FULL and gemma3-27b
+    # (dense) at full width with 6 of its 62 layers (one 5 local : 1
+    # global cycle), bf16, batch 4 x prompt 2048 + 32 tokens: launches a
+    # prefill, prefill and decode ms, and the kernels' prefill logits
+    # against the plain versions' (the Zamba2 phase's tolerances)
+    family_counts, family_ms = {}, {}
+    for arch, n_layers in (("mamba2-2.7b", None), ("gemma-7b", None),
+                           ("gemma3-27b", 6)):
+        fcfg = get_config(arch)
+        if n_layers is not None:
+            fcfg = fcfg.replace(n_layers=n_layers)
+        t0 = phase(f"(h) serving {arch} ({fcfg.family}, "
+                   f"{fcfg.n_layers} layers), bf16, batch {SERVE_B} x prompt "
+                   f"{SERVE_S} + {SERVE_GEN} tokens")
+        if fcfg.family == "ssm":
+            per_prefill = dict(ssd_scan=fcfg.n_layers)
+            per_prefill32 = per_prefill
+        else:
+            per_prefill = dict(flash_attention_wgmma=fcfg.n_layers)
+            per_prefill32 = dict(flash_attention_tf32=fcfg.n_layers)
+        model = build_model(fcfg)
+        w0 = time.perf_counter()
+        params = model.init(torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"   {n_params} parameters drawn on the card in "
+              f"{time.perf_counter() - w0:.2f} s", flush=True)
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, fcfg.vocab, (SERVE_B, SERVE_S)), device=dev)
+        s_max = SERVE_S + SERVE_GEN
+        reset()
+        tokens_out = greedy_generate(model, params, {"tokens": prompt},
+                                     steps=SERVE_GEN, s_max=s_max)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if not expect(counts, **per_prefill):
+            fail(f"{arch} greedy_generate launched {counts}, expected "
+                 f"{per_prefill} (one prefill, no kernel in decode)")
+        toks = tokens_out.cpu().numpy()
+        if toks.shape != (SERVE_B, SERVE_GEN) or toks.min() < 0 or \
+                toks.max() >= fcfg.vocab:
+            fail(f"{arch} greedy_generate returned shape {toks.shape}")
+        prefill_step, decode_step = (make_prefill_step(model),
+                                     make_decode_step(model))
+        cache = model.alloc_cache(SERVE_B, s_max, dev)
+        reset()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        logits_k, cache = prefill_step(params, {"tokens": prompt},
+                                       cache=cache)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - w0) * 1e3
+        counts = read_counts()
+        if not expect(counts, **per_prefill):
+            fail(f"{arch} prefill launched {counts}, expected {per_prefill}")
+        family_counts[arch] = counts
+        tok = torch.argmax(logits_k, dim=-1).to(torch.int32)[:, None]
+        reset()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for i in range(SERVE_GEN - 1):
+            nxt, logits_d, cache = decode_step(params, {
+                "token": tok, "cache": cache,
+                "pos": torch.full((SERVE_B,), SERVE_S + i, device=dev)})
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        d_ms = (time.perf_counter() - w0) * 1e3 / (SERVE_GEN - 1)
+        if not expect(read_counts()):
+            fail(f"{arch} decode launched {read_counts()}")
+        if not (torch.isfinite(logits_k).all() and torch.isfinite(
+                logits_d).all() and tuple(logits_k.shape) == (SERVE_B,
+                                                              fcfg.vocab)):
+            fail(f"{arch}: non-finite or misshapen serving logits")
+        del cache
+        family_ms[arch] = (p_ms, d_ms)
+        print(f"   prefill {p_ms:.1f} ms (launches {counts}); decode "
+              f"{d_ms:.2f} ms a token over {SERVE_GEN - 1} steps (no "
+              f"kernel); {card}", flush=True)
+        reset()
+        with plain_versions():
+            logits_p, _ = prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            fail(f"{arch}: the plain-version prefill launched "
+                 f"{read_counts()}")
+        params.float()  # in place: the same weights, exactly, in f32
+        prefill32 = make_prefill_step(build_model(fcfg.replace(
+            param_dtype="float32", compute_dtype="float32")))
+        reset()
+        logits_k32, _ = prefill32(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        if not expect(read_counts(), **per_prefill32):
+            fail(f"{arch}: the f32 prefill launched {read_counts()}, "
+                 f"expected {per_prefill32}")
+        with plain_versions():
+            logits_p32, _ = prefill32(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        err32 = l2(logits_k32, logits_p32)
+        bf16_k, bf16_p = l2(logits_k, logits_p32), l2(logits_p, logits_p32)
+        print(f"   f32: ‖kernels − plain‖ / ‖plain‖ = {err32:.3g} "
+              f"(tolerance 1e-3); bf16 against the f32 plain logits: "
+              f"kernels {bf16_k:.4g}, plain {bf16_p:.4g} (at most 1.5x + "
+              f"1e-3); top-1 agreement bf16 kernels vs plain "
+              f"{float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()):.2f}",
+              flush=True)
+        if not err32 <= 1e-3:
+            fail(f"{arch} f32 prefill logits: kernels and plain versions "
+                 f"differ by {err32:.3g}")
+        if not bf16_k <= 1.5 * bf16_p + 1e-3:
+            fail(f"{arch} bf16 prefill logits: the kernels are {bf16_k:.4g} "
+                 f"from the f32 logits, the plain versions {bf16_p:.4g}")
+        del params, model, logits_k32, logits_p32, logits_k, logits_p
+        torch.cuda.empty_cache()
+        done(t0)
 
     # ------------------------------------------------------------ timing
     t0 = phase("times at the main paths' shapes (profiler device time, "
@@ -2344,19 +2695,30 @@ def main():
     # then K7 at its serving shape
     B, S = SERVE_B, SERVE_S
 
-    def sdpa(q, k, v, scale):
-        """scaled_dot_product_attention's ms on the same inputs (causal),
-        and the backend it takes: a yardstick, never called by the port."""
+    def sdpa(q, k, v, scale, window=0):
+        """scaled_dot_product_attention's ms on the same inputs (causal;
+        GQA and a sliding window through ``enable_gqa`` and a boolean
+        mask), and the backend it takes: a yardstick, never called by the
+        port."""
         import torch.nn.attention
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kw = dict(scale=scale)
+        if k.shape[2] != q.shape[2]:
+            kw["enable_gqa"] = True
+        if window:
+            i = torch.arange(q.shape[1], device=dev)
+            kw["attn_mask"] = (i[None] <= i[:, None]) & (
+                i[:, None] - i[None] < window)
+        else:
+            kw["is_causal"] = True
         try:  # a private helper: where it is missing, say so
             backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
-                qt, kt, vt, is_causal=True, scale=scale)).name
+                qt, kt, vt, **kw)).name
         except Exception as err:
             backend = f"not known ({type(err).__name__})"
         ms = per_call_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale), 20)
+                qt, kt, vt, **kw), 20)
         return ms, backend
 
     def referee_ms(qp, kp, vp, scale):
@@ -2372,16 +2734,25 @@ def main():
         prof_ms, _ = profiled_ms(raw, 5, "flash_fwd_kernel")
         return per_call_ms(raw, 3, reps=3) if prof_ms is None else prof_ms
 
-    for label, Bf, H, hd, vh, dtype, launches, with_referee in (
-            ("Zamba2-7B", SERVE_B, 32, 112, 112, torch.bfloat16,
-             serve_counts, False),
-            ("Zamba2-7B", SERVE_B, 32, 112, 112, torch.float32, f32_counts,
-             True),
-            ("gemma-7b", SERVE_B, 16, 256, 256, torch.bfloat16,
-             serve_counts, True),
-            ("deepseek-v3 MLA", 1, 128, 192, 128, torch.bfloat16,
-             serve_counts, True)):
-        q, k, v = qkv(Bf, S, S, H, H, hd, dtype, 7)
+    def pairs(S_, window):
+        """(query, key) pairs a causal attention over S_ positions scores,
+        within ``window`` (0: none)."""
+        w = window or S_
+        return sum(min(i + 1, w) for i in range(S_))
+
+    for label, Bf, H, KH, hd, vh, window, dtype, launches, with_referee in (
+            ("Zamba2-7B", SERVE_B, 32, 32, 112, 112, 0, torch.bfloat16,
+             serve_counts["flash_attention_wgmma"], False),
+            ("Zamba2-7B", SERVE_B, 32, 32, 112, 112, 0, torch.float32,
+             f32_counts["flash_attention_tf32"], True),
+            ("gemma-7b", SERVE_B, 16, 16, 256, 256, 0, torch.bfloat16,
+             family_counts["gemma-7b"]["flash_attention_wgmma"], True),
+            ("gemma3-27b local", SERVE_B, 32, 16, 128, 128, 1024,
+             torch.bfloat16,
+             family_counts["gemma3-27b"]["flash_attention_wgmma"], False),
+            ("deepseek-v3 MLA", 1, 128, 128, 192, 128, 0, torch.bfloat16,
+             serve_counts["flash_attention_wgmma"], True)):
+        q, k, v = qkv(Bf, S, S, H, KH, hd, dtype, 7)
         if vh != hd:
             v = v[..., :vh].contiguous()
         scale = hd ** -0.5
@@ -2391,7 +2762,7 @@ def main():
         keep.append(o)
         name = fa.kernel_for(dtype, width)
         args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), Bf,
-                S, S, H, H, width, scale, 1, 0, stream)
+                S, S, H, KH, width, scale, 1, window, stream)
         if name == "flash_attention_wgmma":
             raw = checked(fa.WGMMA_LIBRARY.load().flash_attention_wgmma_launch,
                           args)
@@ -2400,17 +2771,20 @@ def main():
             raw = checked(fa.TF32_LIBRARY.load().flash_attention_tf32_launch,
                           args)
             kname, src = "flash_fwd_tf32_kernel", FAT_SOURCE
-        t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale),
-                    kname, 20)
+        t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale,
+                                                    window=window), kname, 20)
         p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v,
-                                                         scale=scale),
+                                                         scale=scale,
+                                                         window=window),
                           2, reps=3)
-        lib_ms, backend = sdpa(q, k, v, scale)
-        # q·k and p·v over the causal triangle (the function's own widths,
-        # not the padded one); q, k, v read and o written once.  f32 runs
-        # each product as three TF32 products on the tensor cores
-        f_ops = 2 * (hd + vh) * Bf * H * (S * (S + 1) // 2)
-        f_bytes = (2 * q.numel() + 2 * v.numel()) * q.element_size()
+        lib_ms, backend = sdpa(q, k, v, scale, window)
+        # q·k and p·v over the (windowed) causal triangle (the function's
+        # own widths, not the padded one); q, k, v read and o written
+        # once.  f32 runs each product as three TF32 products on the
+        # tensor cores
+        f_ops = 2 * (hd + vh) * Bf * H * pairs(S, window)
+        f_bytes = (q.numel() + k.numel() + v.numel()
+                   + Bf * S * H * vh) * q.element_size()
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         if dt == "f32":
             ops, rate, kind = (3 * f_ops, TF32_OPS_PER_S,
@@ -2419,59 +2793,74 @@ def main():
             ops, rate, kind = f_ops, BF16_OPS_PER_S, "bf16 tensor-core"
         row(f"{name} (K6 _flash_kernel, {dt}, {label})",
             "src/repro/kernels/flash_attention/kernel.py:24",
-            f"B={Bf} Sq=Sk={S} H=KH={H} q/k {hd} v {vh} (kernel width "
-            f"{width}) {dt} causal", launches[name], worst_abs[name], t_k,
-            p_k, (f_bytes, ops), source=src, ops_per_s=rate, ops_kind=kind,
-            library_ms=lib_ms)
+            f"B={Bf} Sq=Sk={S} H={H} KH={KH} q/k {hd} v {vh} (kernel width "
+            f"{width}) {dt} causal" + (f", window {window}" if window
+                                       else ""), launches, worst_abs[name],
+            t_k, p_k, (f_bytes, ops), source=src, ops_per_s=rate,
+            ops_kind=kind, library_ms=lib_ms)
         core = (f"{referee_ms(qp, kp, vp, scale):.4f} ms" if with_referee
-                else "not timed")
+                and KH == H and not window else "not timed")
         print(f"   {label} {dt}: SDPA backend {backend}; f32-FMA bound "
               f"{f_ops / F32_OPS_PER_S * 1e3:.4f} ms; the CUDA-core "
               f"referee flash_fwd_kernel at width {width}: {core}",
               flush=True)
         del q, k, v, qp, kp, vp
-    H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
-        cfg.ssm_chunk
-    xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)
-    n_chunks = -(-S // Q)
-    y = torch.empty((B, S, H, P), device=dev)
-    st = torch.empty((B, H, N, P), device=dev)
-    # the scratch the wrapper allocates: each chunk's state, and cum
-    states = torch.empty((B, H, n_chunks, N, P), device=dev)
-    cum = torch.empty((B, H, n_chunks, -(-Q // 16) * 16, 2), device=dev)
-    keep.append((y, st, states, cum))
-    raw = checked(ssd.LIBRARY.load().ssd_scan_launch, (
-        xs.data_ptr(), *xs.stride()[:3], dts.data_ptr(), *dts.stride(),
-        As.data_ptr(), Bs.data_ptr(), *Bs.stride()[:2], Cs.data_ptr(),
-        *Cs.stride()[:2], y.data_ptr(), st.data_ptr(), states.data_ptr(),
-        cum.data_ptr(), B, S, H, P, N, Q, stream))
-    # one call of the entry point is its three kernels
-    t_k = timed(raw, lambda: ssd.ssd_scan(xs, dts, As, Bs, Cs, Q),
-                ssd.KERNELS, 20)
-    p_k = per_call_ms(lambda: ssd.ssd_ref(xs, dts, As, Bs, Cs, Q), 2,
-                      reps=3)
-    # what these inputs need: C·Bᵀ on the lower triangle once per
-    # (b, chunk) (B and C are per batch row), and per (b, h, chunk) the
-    # masked product with x, C·state and the chunk state, 2 flops per
-    # multiply-add; the shipped route runs each as three TF32 products
-    # (split form) on the tensor cores.  x, dt, A, B, C read and y and the
-    # state written once; the chunk states are the design's own traffic
-    tri = Q * (Q + 1) // 2
-    ssd_ops = 2 * (B * n_chunks * tri * N
-                   + B * H * n_chunks * (tri * P + 2 * Q * N * P))
-    ssd_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                     + B * H * N * P)
-    row("ssd_scan (K7 _ssd_kernel)", "src/repro/kernels/ssd/kernel.py:28",
-        f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32, "
-        f"{len(ssd.KERNELS)} kernels a call", serve_counts["ssd_scan"],
-        worst_abs["ssd_scan"], t_k, p_k, (ssd_bytes, 3 * ssd_ops),
-        source=SSD_SOURCE, ops_per_s=TF32_OPS_PER_S,
-        ops_kind="TF32 tensor-core (3 per f32 product)")
+    # K7 at the Zamba2-7B serving shape and at Mamba2-2.7B's (H 80, N 128)
+    m2 = get_config("mamba2-2.7b")
+    for label, (H, P, N, Q), launches in (
+            ("Zamba2-7B", (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                           cfg.ssm_chunk), serve_counts["ssd_scan"]),
+            ("Mamba2-2.7B", (m2.n_ssm_heads, m2.ssm_head_dim, m2.ssm_state,
+                             m2.ssm_chunk),
+             family_counts["mamba2-2.7b"]["ssd_scan"])):
+        xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 11)
+        n_chunks = -(-S // Q)
+        y = torch.empty((B, S, H, P), device=dev)
+        st = torch.empty((B, H, N, P), device=dev)
+        # the scratch the wrapper allocates: each chunk's state, and cum
+        states = torch.empty((B, H, n_chunks, N, P), device=dev)
+        cum = torch.empty((B, H, n_chunks, -(-Q // 16) * 16, 2), device=dev)
+        keep.append((y, st, states, cum))
+        raw = checked(ssd.LIBRARY.load().ssd_scan_launch, (
+            xs.data_ptr(), *xs.stride()[:3], dts.data_ptr(), *dts.stride(),
+            As.data_ptr(), Bs.data_ptr(), *Bs.stride()[:2], Cs.data_ptr(),
+            *Cs.stride()[:2], y.data_ptr(), st.data_ptr(), states.data_ptr(),
+            cum.data_ptr(), B, S, H, P, N, Q, stream))
+        # one call of the entry point is its three kernels
+        t_k = timed(raw, lambda: ssd.ssd_scan(xs, dts, As, Bs, Cs, Q),
+                    ssd.KERNELS, 20)
+        p_k = per_call_ms(lambda: ssd.ssd_ref(xs, dts, As, Bs, Cs, Q), 2,
+                          reps=3)
+        # what these inputs need: C·Bᵀ on the lower triangle once per
+        # (b, chunk) (B and C are per batch row), and per (b, h, chunk)
+        # the masked product with x, C·state and the chunk state, 2 flops
+        # per multiply-add; the shipped route runs each as three TF32
+        # products (split form) on the tensor cores.  x, dt, A, B, C read
+        # and y and the state written once; the chunk states are the
+        # design's own traffic
+        tri = Q * (Q + 1) // 2
+        ssd_ops = 2 * (B * n_chunks * tri * N
+                       + B * H * n_chunks * (tri * P + 2 * Q * N * P))
+        ssd_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                         + B * H * N * P)
+        row(f"ssd_scan (K7 _ssd_kernel, {label})",
+            "src/repro/kernels/ssd/kernel.py:28",
+            f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32, "
+            f"{len(ssd.KERNELS)} kernels a call", launches,
+            worst_abs["ssd_scan"], t_k, p_k, (ssd_bytes, 3 * ssd_ops),
+            source=SSD_SOURCE, ops_per_s=TF32_OPS_PER_S,
+            ops_kind="TF32 tensor-core (3 per f32 product)")
+        del xs, dts, As, Bs, Cs
     print(f"   serving prefill {prefill_ms:.1f} ms: "
           f"{serve_counts['flash_attention_wgmma']} flash launches and "
           f"{serve_counts['ssd_scan']} SSD launches", flush=True)
     print(f"   fig6 c_hi=6 slot: simulate {ms_single6:.3f} ms, "
           f"simulate_batch (B={FLEET}) {ms_fleet6:.3f} ms", flush=True)
+    print("   new families: " + "; ".join(
+        f"{a} prefill {p:.1f} ms, decode {d:.2f} ms a token"
+        for a, (p, d) in family_ms.items())
+        + "; engine ms a slot: " + ", ".join(
+            f"{k[0]} {k[1]} {v:.3f}" for k, v in g_ms.items()), flush=True)
     print(f"   card: {card}", flush=True)
     done(t0)
 

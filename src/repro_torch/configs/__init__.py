@@ -1,12 +1,20 @@
 """Architecture registry: ``get_config(arch_id, reduced=False)``.
 
-The port has the hybrid family (zamba2-7b) so far; every other
-architecture of the JAX package raises ``NotImplementedError``.
+The port has the dense family (gemma-7b, gemma3-27b, qwen1.5-32b,
+qwen2.5-32b), the ssm family (mamba2-2.7b) and the hybrid family
+(zamba2-7b); every other architecture of the JAX package raises
+``NotImplementedError``.
 """
-from . import zamba2_7b
+from . import (gemma3_27b, gemma_7b, mamba2_2_7b, qwen1_5_32b, qwen2_5_32b,
+               zamba2_7b)
 from .base import SHAPES, ModelConfig, Shape, shape_applicable
 
-_MODULES = {"zamba2-7b": zamba2_7b}
+_MODULES = {"qwen2.5-32b": qwen2_5_32b, "gemma3-27b": gemma3_27b,
+            "gemma-7b": gemma_7b, "qwen1.5-32b": qwen1_5_32b,
+            "zamba2-7b": zamba2_7b, "mamba2-2.7b": mamba2_2_7b}
+
+# the archs the port serves
+PORTED_ARCHS = tuple(_MODULES)
 
 # the JAX package's registry; the port serves those in _MODULES
 ARCHS = ("qwen2.5-32b", "gemma3-27b", "gemma-7b", "qwen1.5-32b", "zamba2-7b",
@@ -20,10 +28,10 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in _MODULES:
         raise NotImplementedError(
             f"{arch!r} is not ported to repro_torch yet (ROADMAP.md, Queue 1 "
-            f"items 12-13); ported: {tuple(_MODULES)}")
+            f"items 6-7); ported: {tuple(_MODULES)}")
     mod = _MODULES[arch]
     return mod.REDUCED if reduced else mod.FULL
 
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "Shape", "get_config",
+__all__ = ["ARCHS", "PORTED_ARCHS", "SHAPES", "ModelConfig", "Shape", "get_config",
            "shape_applicable"]

@@ -27,22 +27,24 @@ def greedy_pack(scores, eligible, A, c):
     """Greedily set x_e = 1 in descending score order under A x ≤ c.
 
     ``scores`` (B, E) float32, ``eligible`` (B, E) bool, ``A`` (K, E) and
-    ``c`` (K,) int32.  Returns x (B, E) int32.
+    ``c`` (K,) int32.  Returns x (B, E) int32.  Each edge's requirement
+    column and eligibility are gathered in score order once; the walk
+    then carries only the residual capacity.
     """
     B, E = scores.shape
     masked = torch.where(eligible, scores, -torch.inf)
     order = torch.argsort(masked, dim=-1, stable=True).flip(-1)
-    b_idx = torch.arange(B, device=scores.device)
-    At = A.T
+    need = A.T[order]  # (B, E, K) in score order
+    elig = eligible.gather(1, order)
     cap = c.expand(B, -1)
-    x = torch.zeros((B, E), dtype=torch.int32, device=scores.device)
+    take = []
     for j in range(E):
-        e = order[:, j]
-        need = At[e]  # (B, K)
-        ok = eligible[b_idx, e] & (cap >= need).all(dim=-1)
-        x[b_idx, e] = ok.to(torch.int32)
-        cap = cap - torch.where(ok[:, None], need, 0)
-    return x
+        ok = elig[:, j] & (cap >= need[:, j]).all(dim=-1)
+        cap = cap - torch.where(ok[:, None], need[:, j], 0)
+        take.append(ok)
+    return torch.zeros((B, E), dtype=torch.int32,
+                       device=scores.device).scatter_(
+        1, order, torch.stack(take, 1).to(torch.int32))
 
 
 def _on_device(**arrays):

@@ -165,13 +165,26 @@ class CachedSolver:
     fresh solutions of rows that hit, and their ticks restart).
 
     With the default quanta the cache is exact: hits are bit-identical to
-    cold solves.  ``exact`` says which mode this wrapper is in.
+    cold solves.  ``exact`` says which mode this wrapper is in.  ``scope``
+    labels the counters when a consumer owns several wrappers (one per A/B
+    variant in ``sched.engine``, which sets it to the variant's name when
+    it is ``None``).
     """
 
-    def __init__(self, base: Solver, cache=None, **cache_kwargs):
+    def __init__(
+        self, base: Solver, cache=None, scope: "str | None" = None, **cache_kwargs
+    ):
         from .incremental import SolveCache
         self.base = base
         self.cache = cache if cache is not None else SolveCache(**cache_kwargs)
+        self.scope = scope
+
+    def stats_dict(self) -> dict:
+        """``stats.as_dict()`` plus the ``scope`` label when set."""
+        d = self.cache.stats.as_dict()
+        if self.scope is not None:
+            d["scope"] = self.scope
+        return d
 
     @property
     def name(self) -> str:

@@ -18,8 +18,9 @@ A sweep is declared, not scripted::
     write_csv(rows, "results/fig6.csv")
 
 Each :class:`SweepRow` carries the stacked per-seed traces plus mean/CI
-aggregates; ``write_csv``/``write_json`` sink the aggregates.  The JAX
-package's ``engine_variant_records`` comes with the streaming engine.
+aggregates; ``write_csv``/``write_json`` sink the aggregates.
+:func:`engine_variant_records` flattens a streaming-engine output
+(``sched.engine.EngineOutput``) into one record per A/B variant.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from .scenarios import get_scenario
 
 __all__ = [
     "GridPoint", "SweepSpec", "SweepRow",
-    "run_spec", "summarize", "sweep_scenario_param",
+    "run_spec", "summarize", "sweep_scenario_param", "engine_variant_records",
     "write_csv", "write_json", "POLICY_FACTORIES", "default_policies",
 ]
 
@@ -192,6 +193,29 @@ def summarize(res: SimResult) -> dict:
         "oracle_asw_mean": float(res.sw_oracle.sum(axis=-1).mean()),
         "n_dispatched_mean": float(res.n_dispatched.mean()),
     }
+
+
+def engine_variant_records(
+    out, spec: str = "engine", point: str = "default"
+) -> list[dict]:
+    """Per-variant flat records of a ``sched.engine.EngineOutput``: one
+    record per A/B arm (``variant`` and ``policy`` carry its name) with
+    its routed and dispatched volume, realized welfare and cumulative
+    regret, under the keys ``SweepRow.to_record`` uses where they
+    overlap, so arms sit next to sweep rows in one table."""
+    recs = []
+    routed = np.asarray(out.routed_variant).sum(axis=0)
+    for i, name in enumerate(out.variants):
+        recs.append({
+            "spec": spec, "point": point, "policy": name, "variant": name,
+            "T": int(np.asarray(out.sw).shape[0]),
+            "asw_mean": float(np.asarray(out.sw_variant)[:, i].sum()),
+            "regret_mean": float(np.asarray(out.regret_variant)[:, i].sum()),
+            "routed": int(routed[i]),
+            "dispatched": int(np.asarray(out.dispatched_variant)[:, i].sum()),
+            "mode": out.mode,
+        })
+    return recs
 
 
 def _resolve_scenario(

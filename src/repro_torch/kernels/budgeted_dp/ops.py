@@ -31,7 +31,8 @@ from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
                      dp_forward_fused, epilogue_table, packed_words)
 from .tiling import check_tiling, choose_tiling
 
-__all__ = ["VALUE_BOUND", "prepare_tables", "max_achievable_value",
+__all__ = ["VALUE_BOUND", "prepare_tables", "prepare_operands",
+           "max_achievable_value",
            "validate_value_row", "solve_budgeted_dp_batched",
            "WarmCudaSolver"]
 
@@ -111,6 +112,14 @@ def _operands(tables: DPTables, s_cap: int, device: torch.device):
     return (torch.as_tensor(feas, device=device),
             torch.as_tensor(offs, device=device),
             core_dp.initial_plane(s_cap, tables.n_states, device))
+
+
+def prepare_operands(tables: DPTables, s_cap: int, device) -> None:
+    """Make the kernels' operands of ``tables`` at height ``s_cap`` on
+    ``device`` now (one copy to the card, kept for later solves), so that
+    a loop of solves that follows copies nothing from the host."""
+    dev = torch.empty(0, device=device).device  # "cuda" → "cuda:0"
+    _operands(tables, int(s_cap), dev)
 
 
 def max_achievable_value(sigma2, tables: DPTables) -> int:

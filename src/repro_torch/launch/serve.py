@@ -1,7 +1,8 @@
 """Serving from the command line: batched prefill + greedy decode of a
-reduced config.
+reduced config of any ported arch (zamba2-7b, mamba2-2.7b, gemma-7b,
+gemma3-27b, qwen1.5-32b, qwen2.5-32b).
 
-    python -m repro_torch.launch.serve --device cpu
+    python -m repro_torch.launch.serve --device cpu [--arch gemma3-27b]
 
 Runs on the card unless ``--device`` names another; prompts are drawn with
 numpy under ``--seed`` and the weights from a ``torch.Generator`` seeded
@@ -16,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..configs import PORTED_ARCHS, get_config
 from ..device import resolve_device
 from ..models import build_model
 from ..runtime import greedy_generate
@@ -24,7 +25,7 @@ from ..runtime import greedy_generate
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="zamba2-7b", choices=PORTED_ARCHS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

@@ -2,11 +2,13 @@
 parameter tree (nested dicts of numpy arrays, ``jax.device_get`` of
 ``Model.init``) into the port's ``ParamTree``.
 
-The JAX package stacks runs of layers — zamba2's ``groups/mamba/...``
-leaves are (G, M, ...) and ``tail/...`` leaves (T, ...) — and mounts the
-shared attention block once.  The port keeps one parameter per layer, so
-its path ``groups.g.mamba.m.mixer.wz`` reads ``groups/mamba/mixer/wz`` at
-``[g, m]``: the list positions of a port path index the JAX leaf.
+The JAX package stacks runs of layers — a dense or ssm LM's
+``blocks/...`` leaves are (L, ...), zamba2's ``groups/mamba/...`` (G, M,
+...) and ``tail/...`` (T, ...), with the shared attention block mounted
+once.  The port keeps one parameter per layer, so its path
+``groups.g.mamba.m.mixer.wz`` reads ``groups/mamba/mixer/wz`` at
+``[g, m]`` and ``blocks.i.attn.wq`` reads ``blocks/attn/wq`` at ``[i]``:
+the list positions of a port path index the JAX leaf.
 """
 from __future__ import annotations
 

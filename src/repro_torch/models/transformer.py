@@ -1,26 +1,33 @@
-"""Model stacks and the ``Model`` facade of the port; the hybrid family
-(zamba2) so far.
+"""Model stacks and the ``Model`` facade of the port: the dense family
+(gemma, gemma3, qwen1.5, qwen2.5), the ssm family (mamba2) and the hybrid
+family (zamba2).
 
 The JAX package scans stacked parameters with ``lax.scan``; the port runs
-its layers in Python loops over per-layer parameters: zamba2 is
-``n_groups`` groups of [``hybrid_every`` − 1 Mamba2 blocks + one SHARED
-attention block (one set of weights, applied once per group)] and a tail
-of Mamba2 blocks.
+its layers in Python loops over per-layer parameters.  A dense LM is
+``n_layers`` attention + MLP blocks, each with its own (window, θ) under a
+gemma3-style local:global pattern (:func:`layer_pattern`); an ssm LM is
+``n_layers`` Mamba2 blocks; zamba2 is ``n_groups`` groups of
+[``hybrid_every`` − 1 Mamba2 blocks + one SHARED attention block (one set
+of weights, applied once per group)] and a tail of Mamba2 blocks.
 
-The serving cache keeps the JAX layout —
+The serving caches keep the JAX layouts, in the compute dtype —
 
-  g_ssm  (G, M, B, H, P, N)      g_conv (G, M, B, W-1, conv_dim)
-  k, v   (G, B, S_max, KV, hd)   t_ssm  (T, B, H, P, N)
-                                 t_conv (T, B, W-1, conv_dim)
+  dense   dense: (k, v), each (L, B, S_max, KV, hd)
+  ssm     ssm (L, B, H, P, N)           conv (L, B, W-1, conv_dim)
+  hybrid  g_ssm  (G, M, B, H, P, N)     g_conv (G, M, B, W-1, conv_dim)
+          k, v   (G, B, S_max, KV, hd)  t_ssm  (T, B, H, P, N)
+                                        t_conv (T, B, W-1, conv_dim)
 
-— in the compute dtype.  ``Model.alloc_cache`` allocates it; prefill and
-decode write it in place (prefill's k/v go to positions [0, S)) and
-return it.  The JAX package's sharding hook ``rules`` is dropped (one
-card), and ``loss`` waits for the training slice.
+— ``Model.alloc_cache`` allocates one; prefill and decode write it in
+place (prefill's k/v go to positions [0, S)) and return it.  The JAX
+package's sharding hook ``rules`` is dropped (one card), and ``loss``
+waits for the training slice.  The moe, vlm and encdec families are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -30,7 +37,7 @@ from .layers import (DTYPES, Leaf, ParamTree, init_params, mlp_apply,
                      mlp_specs, norm_specs, rms_norm)
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
-__all__ = ["Model", "build_model", "hybrid_layout"]
+__all__ = ["Model", "build_model", "hybrid_layout", "layer_pattern"]
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +57,16 @@ def _lm_head_specs(cfg) -> dict:
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(DTYPES[cfg.compute_dtype])
+    """Token embeddings in the compute dtype, times √d under
+    ``embed_scale``: √d rounded to float32 and then to the compute dtype
+    before the multiply, as the JAX package rounds it (in bf16 the factor
+    is a bf16 value)."""
+    cdt = DTYPES[cfg.compute_dtype]
+    h = params["embed"][tokens].to(cdt)
+    if cfg.embed_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                             device=h.device).to(cdt)
+    return h
 
 
 def _logits(params, cfg, h):
@@ -106,11 +122,138 @@ class Model:
 
 
 def build_model(cfg) -> Model:
+    if cfg.family == "dense":
+        return _build_decoder_lm(cfg)
+    if cfg.family == "ssm":
+        return _build_ssm_lm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid_lm(cfg)
-    raise NotImplementedError(
-        f"the {cfg.family!r} family is not ported to repro_torch yet "
-        "(ROADMAP.md, Queue 1 items 12-13)")
+    if cfg.family in ("moe", "vlm", "encdec"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported to repro_torch yet "
+            "(ROADMAP.md, Queue 1 item 6)")
+    raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# decoder-only LM (the dense family)
+# ---------------------------------------------------------------------------
+
+def layer_pattern(cfg, n_layers: int):
+    """Per-layer (window, θ) lists of a gemma3-style local:global pattern
+    — every ``global_every``-th layer global (window 0, θ 10⁶), the rest
+    local (``window``, ``rope_theta``) — or ``(None, None)`` when
+    ``global_every`` ≤ 0 (every layer global, ``rope_theta``)."""
+    if cfg.global_every <= 0:
+        return None, None
+    is_global = [i % cfg.global_every == cfg.global_every - 1
+                 for i in range(n_layers)]
+    return ([0 if g else cfg.window for g in is_global],
+            [1_000_000.0 if g else float(cfg.rope_theta) for g in is_global])
+
+
+def _build_decoder_lm(cfg):
+    L = cfg.n_layers
+    spec = _lm_head_specs(cfg)
+    spec["blocks"] = [_dense_block_specs(cfg) for _ in range(L)]
+    windows, thetas = layer_pattern(cfg, L)
+    windows = windows or [None] * L
+    thetas = thetas or [None] * L
+
+    def alloc_cache(B, s_max, device):
+        shape = (L, B, s_max, cfg.n_kv_heads, cfg.head_dim)
+        cdt = DTYPES[cfg.compute_dtype]
+        return {"dense": (torch.zeros(shape, dtype=cdt, device=device),
+                          torch.zeros(shape, dtype=cdt, device=device))}
+
+    def prefill(params, batch, cache=None):
+        """batch["tokens"]: (B, S).  Returns the last position's logits
+        (B, vocab) f32 and the cache, allocated at S_max = S when none is
+        given, with every layer's k/v (after RoPE) at positions [0, S)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if cache is None:
+            cache = alloc_cache(B, S, tokens.device)
+        k_cache, v_cache = cache["dense"]
+        h = _embed(params, cfg, tokens)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        for i in range(L):
+            h, (k, v) = _dense_block_train(params["blocks"][i], cfg, h,
+                                           positions, windows[i], thetas[i])
+            k_cache[i, :, :S].copy_(k)
+            v_cache[i, :, :S].copy_(v)
+        h = _norm(params["final_norm"], cfg, h[:, -1:])
+        return _logits(params, cfg, h)[:, 0], cache
+
+    def decode(params, batch):
+        """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
+        attend up to, "cache".  Returns (logits (B, vocab) f32, cache)."""
+        cache, pos = batch["cache"], batch["pos"]
+        k_cache, v_cache = cache["dense"]
+        h = _embed(params, cfg, batch["token"])
+        for i in range(L):
+            h, _ = _dense_block_decode(params["blocks"][i], cfg, h, pos,
+                                       (k_cache[i], v_cache[i]), windows[i],
+                                       thetas[i])
+        h = _norm(params["final_norm"], cfg, h)
+        return _logits(params, cfg, h)[:, 0], cache
+
+    return Model(cfg, spec, prefill, decode, alloc_cache)
+
+
+# ---------------------------------------------------------------------------
+# attention-free SSM LM (mamba2)
+# ---------------------------------------------------------------------------
+
+def _build_ssm_lm(cfg):
+    L = cfg.n_layers
+    spec = _lm_head_specs(cfg)
+    spec["blocks"] = [_ssm_block_specs(cfg) for _ in range(L)]
+
+    def alloc_cache(B, s_max, device):
+        """The recurrent state: no sequence axis, so ``s_max`` is unused."""
+        del s_max
+        cdt = DTYPES[cfg.compute_dtype]
+        H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        return {"ssm": torch.zeros((L, B, H, P, N), dtype=cdt,
+                                   device=device),
+                "conv": torch.zeros((L, B, cfg.conv_width - 1, conv_dim(cfg)),
+                                    dtype=cdt, device=device)}
+
+    def prefill(params, batch, cache=None):
+        """Chunked-scan prefill (one SSD scan a layer); the cache is each
+        layer's final recurrent state.  batch["tokens"]: (B, S)."""
+        tokens = batch["tokens"]
+        if cache is None:
+            cache = alloc_cache(tokens.shape[0], 0, tokens.device)
+        h = _embed(params, cfg, tokens)
+        for i in range(L):
+            lp = params["blocks"][i]
+            y, st = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
+                                return_state=True)
+            cache["ssm"][i].copy_(st["ssm"])
+            cache["conv"][i].copy_(st["conv"])
+            h = h + y
+        h = _norm(params["final_norm"], cfg, h[:, -1:])
+        return _logits(params, cfg, h)[:, 0], cache
+
+    def decode(params, batch):
+        """batch: "token" (B, 1), "pos" (unused: the state carries the
+        position), "cache".  Returns (logits (B, vocab) f32, cache)."""
+        cache = batch["cache"]
+        h = _embed(params, cfg, batch["token"])
+        for i in range(L):
+            lp = params["blocks"][i]
+            y, st = mamba_decode(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
+                                 {"ssm": cache["ssm"][i],
+                                  "conv": cache["conv"][i]})
+            cache["ssm"][i].copy_(st["ssm"])
+            cache["conv"][i].copy_(st["conv"])
+            h = h + y
+        h = _norm(params["final_norm"], cfg, h)
+        return _logits(params, cfg, h)[:, 0], cache
+
+    return Model(cfg, spec, prefill, decode, alloc_cache)
 
 
 # ---------------------------------------------------------------------------

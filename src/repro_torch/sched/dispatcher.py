@@ -35,8 +35,8 @@ grow between config-family edges.
 
 ``fallback=True`` wraps the backend in the degradation chain
 ``core.solvers.FallbackSolver``, whose counters surface in
-``solve_stats``.  Not ported yet, and refused with
-``NotImplementedError``: the streaming engine (:meth:`ClusterSim.engine`).
+``solve_stats``.  :meth:`ClusterSim.engine` builds the streaming engine
+(``sched.engine.DispatchEngine``) on the sim's instance and schedule.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from ..device import resolve_device
 from ..runtime.fault import CrashRateTracker, FailureInjector
 
 __all__ = ["ClusterSim", "SimOutput", "FailureModel", "FailureRuntime",
-           "MalleableModel", "MalleableRuntime"]
+           "MalleableModel", "MalleableRuntime", "unrolled_trace"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -544,6 +544,30 @@ class MalleableRuntime:
         )
 
 
+def unrolled_trace(scenario, instance: Instance, T: int, seed: int):
+    """(arr_scale (T, P), speed (T, R), alive (T, R)) host arrays of a
+    ``scenario=`` argument: a registered regime's name or a
+    ``core.env.Scenario``, unrolled from ``seed`` on the CPU (so every
+    device replays the same realization), or an unrolled ``(arr_scale,
+    speed, alive)`` trace, checked and broadcast."""
+    from ..experiments.scenarios import get_scenario, unroll_scenario
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario)
+    if isinstance(scenario, Scenario):
+        return unroll_scenario(scenario, T, instance.n_servers, seed,
+                               n_ports=instance.n_ports, device="cpu")
+    arr_scale, speed, alive = (np.asarray(a) for a in scenario)
+    shapes = {"speed": (speed.shape, (T, instance.n_servers)),
+              "alive": (alive.shape, (T, instance.n_servers))}
+    for name, (got, want) in shapes.items():
+        if got != want:
+            raise ValueError(f"scenario trace {name} has shape {got}, "
+                             f"expected {want}")
+    arr_scale = np.broadcast_to(
+        arr_scale.astype(np.float32).reshape(T, -1), (T, instance.n_ports))
+    return (arr_scale, speed.astype(np.float32), alive.astype(bool))
+
+
 class ClusterSim:
     """Paired simulation of ESDP vs greedy policies on one cluster
     instance, on ``device`` (``None`` is the card)."""
@@ -559,6 +583,7 @@ class ClusterSim:
         scenario=None,
         solver=None,
         incremental: "str | None" = None,
+        solve_cache=None,
         warm_checkpoint_every: int = 8,
         failures: "FailureModel | None" = None,
         fallback: bool = False,
@@ -572,6 +597,8 @@ class ClusterSim:
           ``"cache"`` — wrap the backend in a ``CachedSolver``: a slot
             whose statistics were seen before skips the solve.  Any
             backend, ``run`` and ``run_batch`` (per-seed keys).
+            ``solve_cache`` optionally supplies a preconfigured
+            ``core.incremental.SolveCache`` (e.g. quantized).
           ``"warm"`` — ``WarmCudaSolver``: re-fold only the segments of
             ``warm_checkpoint_every`` edges after the first changed one.
             Needs the ``"cuda"`` backend (or ``"auto"``/None, which is
@@ -613,7 +640,8 @@ class ClusterSim:
             if speed_fn is not None or alive_fn is not None:
                 raise ValueError("pass either scenario= or "
                                  "speed_fn/alive_fn, not both")
-            arr_scale, speeds, alive = self._unrolled(scenario)
+            arr_scale, speeds, alive = unrolled_trace(scenario, instance, T,
+                                                      seed)
             self.arr_scale = arr_scale
             speed_fn = lambda t: speeds[t]  # noqa: E731 — row t ↔ slot t+1
             alive_fn = lambda t: alive[t]  # noqa: E731
@@ -641,7 +669,7 @@ class ClusterSim:
                     "wrapper via solver=) instead of stacking them here")
             self.solver = FallbackSolver(self.solver)
         if incremental == "cache":
-            self.solver = CachedSolver(self.solver)
+            self.solver = CachedSolver(self.solver, cache=solve_cache)
         elif incremental == "warm":
             if self.solver.name not in ("cuda", "auto"):
                 raise ValueError(
@@ -653,29 +681,6 @@ class ClusterSim:
             self._warm = WarmCudaSolver(
                 self.tables, self.s_cap, u_max=self.u_max,
                 checkpoint_every=warm_checkpoint_every, device=self.device)
-
-    def _unrolled(self, scenario):
-        """(arr_scale (T, L), speed (T, R), alive (T, R)) host arrays of a
-        ``scenario=`` argument."""
-        from ..experiments.scenarios import get_scenario, unroll_scenario
-        inst, T = self.inst, self.T
-        if isinstance(scenario, str):
-            scenario = get_scenario(scenario)
-        if isinstance(scenario, Scenario):
-            # the trace is host data: step it on the CPU, so that every
-            # device replays the same realization
-            return unroll_scenario(scenario, T, inst.n_servers, self.seed,
-                                   n_ports=inst.n_ports, device="cpu")
-        arr_scale, speed, alive = (np.asarray(a) for a in scenario)
-        shapes = {"speed": (speed.shape, (T, inst.n_servers)),
-                  "alive": (alive.shape, (T, inst.n_servers))}
-        for name, (got, want) in shapes.items():
-            if got != want:
-                raise ValueError(f"scenario trace {name} has shape {got}, "
-                                 f"expected {want}")
-        arr_scale = np.broadcast_to(
-            arr_scale.astype(np.float32).reshape(T, -1), (T, inst.n_ports))
-        return (arr_scale, speed.astype(np.float32), alive.astype(bool))
 
     def _solve_stats(self) -> "dict | None":
         if self.incremental == "cache":
@@ -721,12 +726,19 @@ class ClusterSim:
         return lockstep_run(self, policy, tiebreak)
 
     def engine(self, config=None):
-        """The JAX package's streaming engine (``DispatchEngine``) is not
-        ported yet."""
-        raise NotImplementedError(
-            "ClusterSim.engine() needs the streaming dispatch engine "
-            "(sched/engine.py DispatchEngine), which the port has not yet "
-            "(ROADMAP.md Queue 1 item 4); run() is its lockstep loop")
+        """A :class:`sched.engine.DispatchEngine` sharing this sim's
+        instance, horizon, schedule (already unrolled, with its arrival
+        scaling), ξ(t)/g(t) table, g, seed, failure model and device: the
+        streaming counterpart of :meth:`run` (admission control, a
+        bounded queue with backpressure, weighted A/B policy variants)."""
+        from .engine import DispatchEngine
+
+        return DispatchEngine(
+            self.inst, self.T, config,
+            speed_fn=self.speed_fn, alive_fn=self.alive_fn,
+            arr_scale=self.arr_scale, g_fn=self.g_fn, seed=self.seed,
+            failures=self.failures, device=self.device,
+            schedule=(self.xi_tab, self.g_tab))
 
     # ------------------------------------------------------------------
     def run_batch(

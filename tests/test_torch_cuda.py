@@ -538,6 +538,97 @@ def test_cuda_reduced_zamba2_prefill_matches_the_cpu():
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("arch,flash,ssd_scans", [
+    ("mamba2-2.7b", 0, 4), ("gemma-7b", 4, 0), ("gemma3-27b", 6, 0),
+    ("qwen2.5-32b", 4, 0)])
+def test_cuda_reduced_families_prefill_match_the_cpu(arch, flash, ssd_scans):
+    """The reduced ssm and dense archs (f32) on the card, through the
+    kernels — one SSD launch a Mamba2 block, one attention launch a dense
+    block (gemma3's local layers windowed: the prompt outruns the reduced
+    window of 64) — against the same weights on the CPU through the plain
+    versions."""
+    dev = _card()
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 100),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = model.prefill(params, {"tokens": tokens})
+    params.to(dev)
+    before = (fa.LAUNCHES["flash_attention_tf32"], ssd.LAUNCHES["ssd_scan"])
+    got, _ = model.prefill(params, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["flash_attention_tf32"] - before[0],
+            ssd.LAUNCHES["ssd_scan"] - before[1]) == (flash, ssd_scans)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _engine_pair(config, T=60, **kw):
+    from repro_torch import sched
+    inst = generate_instance(seed=0)
+    sch = stats.schedule_table(T, inst.m, stats.delta_default,
+                               stats.g_logt_only, "cpu")
+    return [sched.DispatchEngine(inst, T, config, seed=3, device=dev,
+                                 schedule=sch, **kw) for dev in ("cuda",
+                                                                 "cpu")]
+
+
+def _engine_same(a, b, fields):
+    for f in fields:
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)), err_msg=f)
+    for k in a.ledger:
+        np.testing.assert_array_equal(np.asarray(a.ledger[k]),
+                                      np.asarray(b.ledger[k]), err_msg=k)
+
+
+ENGINE_BITWISE = ("x", "queue_len", "routed_variant", "dispatched_variant",
+                  "n", "sumz")
+
+
+@pytest.mark.parametrize("backpressure", ["drop_oldest", "block",
+                                          "shed_by_utility"])
+def test_cuda_engine_stream_lockstep_batch_and_cpu(backpressure):
+    """The streaming engine on the card, A/B (ESDP 0.9 / HSWF 0.1) at
+    queue capacity 1 under triple arrivals: the stream loop reads nothing
+    back (``set_sync_debug_mode("error")`` around it), lockstep equals
+    stream on every field, ``run_batch`` each seed's ``run``, one K1/K2
+    forward and one epilogue a slot, and the CPU run (plain versions) the
+    same on the bitwise fields."""
+    _card()
+    import warnings
+
+    from repro_torch import sched
+    cfg = sched.EngineConfig(
+        queue_capacity=1, backpressure=backpressure,
+        variants=(sched.VariantSpec("esdp", weight=0.9),
+                  sched.VariantSpec("c", kind="hswf", weight=0.1)))
+    card, cpu = _engine_pair(cfg, arr_scale=3.0)
+    lock = card.run(mode="lockstep")  # also makes the device constants
+    one = card._inputs([card._streams(3)], [3])
+    fleet = card._inputs([card._streams(s) for s in (3, 4, 5)], [3, 4, 5])
+    before = dict(LAUNCHES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, recs, _ = card._horizon(one, 1)
+            card._horizon(fleet, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert moved == dict(dp_forward_batched=2 * card.T, dp_edge=0,
+                         dp_chunk=0, dp_epilogue=2 * card.T)
+    stream = card.run(mode="stream")
+    np.testing.assert_array_equal(stream.x, recs["x"].cpu().numpy()[:, 0])
+    fields = ENGINE_BITWISE + ("sw", "regret", "dispatch_share",
+                               "sw_variant", "regret_variant")
+    _engine_same(stream, lock, fields)
+    for s, out in zip((3, 4, 5), card.run_batch([3, 4, 5])):
+        _engine_same(out, card.run(mode="stream", seed=s), fields)
+    _engine_same(stream, cpu.run(mode="stream"), ENGINE_BITWISE)
+
+
 def _warm_sequence(inst, T, n, seed):
     """``n`` solves of drifting statistics at a horizon-T plane: each step
     changes one low-index edge (a late fold step), the first edge, the

@@ -427,8 +427,8 @@ def test_cluster_sim_scenario_matches_jax(regime, fleet):
 
 
 def test_refusals():
-    """The JAX package's own refusals, and the part of it the port has not
-    yet (the streaming engine), which raises ``NotImplementedError``."""
+    """The JAX package's own refusals; ``engine()`` builds the streaming
+    engine on the sim (``tests/test_torch_engine.py`` runs it)."""
     _, _, _, (inst, _) = _instances("cluster")
     with pytest.raises(ValueError, match="not both"):
         sched.ClusterSim(inst, 10, device="cpu", scenario="iid",
@@ -442,8 +442,8 @@ def test_refusals():
         sched.ClusterSim(inst, 10, device="cpu",
                          scenario=(np.ones((10, 1)), np.ones((9, 4)),
                                    np.ones((10, 4), bool)))
-    with pytest.raises(NotImplementedError, match="DispatchEngine"):
-        sched.ClusterSim(inst, 10, device="cpu").engine()
+    assert isinstance(sched.ClusterSim(inst, 10, device="cpu").engine(),
+                      sched.DispatchEngine)
     with pytest.raises(ValueError, match="incremental mode"):
         sched.ClusterSim(inst, 10, device="cpu", incremental="bogus")
     with pytest.raises(ValueError, match="carried-plane"):
