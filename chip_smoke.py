@@ -36,8 +36,12 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    ``simulate_batch`` (B = 64) on Table 2 (whole-plane forward, T
    launches each); the same at fig-6 c_hi = 6, T = 1500 (fused forward,
    ⌈E/block_e⌉·T launches, no whole-plane launch), with the card's
-   per-slot x equal to the CPU int32 reference on the same draws and
-   schedule in each of the first 500 slots; ESDP at c_hi = 5, T = 1500 and T = 2000 (the switch-over),
+   per-slot x of ``simulate`` and of ``simulate_batch`` rows 0, 1 and 63
+   equal to the CPU int32 reference on the same draws and schedule in
+   each of the 1500 slots (the reference runs in a worker process that
+   sees no card, started with the run's draws and read at the end, so it
+   overlaps the card's phases); ESDP at c_hi = 5, T = 1500 and T = 2000
+   (the switch-over),
    and the first 200 slots of ESDP on the whole-plane fig-6 planes
    (c_hi = 4 at T = 2000, c_hi = 5 at T = 1500) against the CPU
    reference;
@@ -98,7 +102,8 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    the six shapes of ``tests/test_kernels.py:28-58`` in f32 (the split-TF32
    kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
    version rounds q·k and p to bf16, the kernels do not), the Zamba2-7B
-   serving shape in bf16, a ragged GQA Sq < Sk case in both, and bf16 at
+   and dbrx-132b (GQA 48:8) serving shapes in bf16, a ragged GQA Sq < Sk
+   case in both, and bf16 at
    hd 136, 192, 200 and 256 (ragged GQA Sq < Sk and windowed cases among
    them); each case's distance from the plain version run in f64 printed
    beside the CUDA-core referee's (launched raw), and each bf16 case no
@@ -127,7 +132,15 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    FULL gemma-7b (28 wgmma attention launches, D = 256) and gemma3-27b
    at full width with 6 of its 62 layers (one 5 local : 1 global cycle;
    6 launches, D = 128, GQA 32:16, window 1024 on the local layers),
-   each with its prefill and decode ms and its logits check;
+   each with its prefill and decode ms and its logits check; (i) the
+   same for the moe family at full width, dbrx-132b with 4 of its 40
+   layers (4 wgmma attention launches, GQA 48:8, D = 128; 16 experts
+   top-4) and deepseek-v3-671b with 3 dense + 1 moe of its 61 layers
+   (4 launches of MLA attention at D = 192, v zero-padded from 128;
+   256 experts top-8 + 1 shared), each also with two bf16 prefills
+   bitwise equal (the combine has no atomics) and, per moe layer, the
+   routed-expert and kept-token indices that differ between the
+   kernels' and the plain versions' runs, in bf16 and in f32;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -143,9 +156,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    (split TF32, its bound three TF32 products per f32 product, the f32-FMA
    bound beside it), and in bf16 at gemma-7b's (hd 256), gemma3-27b's
    local layers' (GQA 32:16, hd 128, window 1024; SDPA with the window as
-   a boolean mask) and deepseek-v3's MLA (q/k 192, v 128, zero-padded to
-   192) attention, with the CUDA-core referee's time at the f32, gemma
-   and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; and
+   a boolean mask), dbrx-132b's (GQA 48:8, hd 128) and deepseek-v3's MLA
+   (q/k 192, v 128, zero-padded to 192) attention, each at batch 4 ×
+   2048 with its launches from (h) or (i), with the CUDA-core referee's
+   time at the f32, gemma and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; and
    the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
@@ -162,7 +176,9 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    kernel's device time on the row's grid and block, the floor no launch
    beats.
 
-The line before the last is the JSON kernel table; the last line is
+Last, the fig-6 c_hi = 6 run's 1500 slots against the CPU reference
+that ran alongside (phase 4).  The line before the last is the JSON
+kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
 it exits non-zero and prints no result.
 """
@@ -369,6 +385,45 @@ def dp_bench_problem(E, c, u_hi, B, seed=0, c_rand=None):
         sig.append(rng.integers(1, 5000, E))
     return (A, c, np.stack(ups).astype(np.int32),
             np.stack(sig).astype(np.int32))
+
+
+def fig6_cpu_reference(conn, src, horizon, seed_rows, single, rows, schedule):
+    """The fig-6 c_hi = 6 ESDP run through the CPU int32 reference, in a
+    worker process that sees no card: ``simulate`` on ``single`` (one
+    run's draws) and ``simulate_batch`` over ``seed_rows`` on ``rows``
+    (theirs), every slot on the given schedule; the draws and schedule are
+    numpy arrays (field tuples of ``Draws``, (xi, g, log1p_t)).  Sends
+    (x of the single run, x of the rows, its seconds) down ``conn``, or
+    the traceback of what failed."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # before torch: no card here
+    w0 = time.perf_counter()
+    try:
+        sys.path.insert(0, src)
+        import torch
+        # half the host's cores: the card's phases run on the other half
+        torch.set_num_threads(4)
+        from repro_torch.core import (Draws, build_tables, esdp,
+                                      generate_instance, simulate,
+                                      simulate_batch)
+        inst = generate_instance(seed=2, c_lo=1, c_hi=6)
+        tables = build_tables(inst.A, inst.c)
+        policy = esdp.make_esdp_policy(inst, horizon, tables=tables)
+        sched = tuple(torch.from_numpy(a) for a in schedule)
+
+        def draws(fields):
+            return Draws(*(torch.from_numpy(a) for a in fields))
+
+        one = simulate(inst, policy, horizon, tables=tables, device="cpu",
+                       draws=draws(single), schedule=sched)
+        batch = simulate_batch(inst, policy, horizon, seed_rows,
+                               tables=tables, device="cpu",
+                               draws=draws(rows), schedule=sched)
+        conn.send((one.x, batch.x, time.perf_counter() - w0))
+    except Exception:
+        import traceback
+        conn.send(traceback.format_exc())
+    finally:
+        conn.close()
 
 
 def main():
@@ -843,6 +898,26 @@ def main():
     draws6 = Draws(*(torch.cat([getattr(d, k) for d in per_seed])
                      for k in ("arr_u", "val_n", "pol_u")))
     n_chunks6 = -(-E6 // auto6[0])
+    # the CPU int32 reference of this run, all T6 slots of simulate and of
+    # two simulate_batch rows (minutes of CPU), in a worker process that
+    # runs alongside the card's phases; its decisions are read at the end
+    import multiprocessing
+    ref6_rows = [1, FLEET - 1]
+
+    def fields(d, pick):
+        return tuple(pick(getattr(d, k)).cpu().numpy()
+                     for k in ("arr_u", "val_n", "pol_u"))
+
+    ref6_conn, child_conn = multiprocessing.Pipe(duplex=False)
+    ref6 = multiprocessing.get_context("spawn").Process(
+        target=fig6_cpu_reference, daemon=True, args=(
+            child_conn, str(HERE / "src"), T6, [seeds[i] for i in ref6_rows],
+            fields(per_seed[0], lambda t: t),
+            fields(draws6, lambda t: t[ref6_rows]),
+            tuple(a.numpy() for a in sched6)))
+    ref6.start()
+    ref6_t0 = time.perf_counter()
+    child_conn.close()
     single6, counts_single6, ms_single6 = drive(
         f"main path: ESDP simulate, T={T6}, fig6 c_hi=6 (tiled)",
         lambda: simulate(big6, policy6, T6, tables=big6_tables,
@@ -954,32 +1029,6 @@ def main():
               "decisions on the same draws", flush=True)
     if not np.array_equal(fleet6.x[0], single6.x):
         fail("fig6 c_hi=6: simulate_batch row 0 differs from simulate in x")
-    # the CPU int32 reference over the run's first T6_CPU slots (all T6
-    # took ~3 min of CPU; the plane, the tiling and the draws are the full
-    # run's, and a prefix of a run is that run's first slots)
-    T6_CPU = 500
-    w0 = time.perf_counter()
-    sched6_cpu = tuple(a[:T6_CPU] for a in sched6)
-    cpu6 = simulate(big6, policy6, T6_CPU, tables=big6_tables, device="cpu",
-                    draws=moved(per_seed[0], lambda t: t[:, :T6_CPU].cpu()),
-                    schedule=sched6_cpu)
-    rows = [1, FLEET - 1]
-    cpu6_rows = simulate_batch(
-        big6, policy6, T6_CPU, [seeds[i] for i in rows], tables=big6_tables,
-        device="cpu", draws=moved(draws6, lambda t: t[rows, :T6_CPU].cpu()),
-        schedule=sched6_cpu)
-    if not np.array_equal(single6.x[:T6_CPU], cpu6.x):
-        slot = int(np.flatnonzero((single6.x[:T6_CPU] != cpu6.x).any(
-            axis=1))[0])
-        fail(f"fig6 c_hi=6: card and CPU reference ESDP differ at slot "
-             f"{slot + 1}")
-    if not np.array_equal(fleet6.x[rows][:, :T6_CPU], cpu6_rows.x):
-        fail(f"fig6 c_hi=6: simulate_batch rows {rows} differ from the CPU "
-             "reference")
-    print(f"   fig6 c_hi=6, T={T6}: card simulate and simulate_batch rows "
-          f"0, {rows} make the CPU int32 reference's decisions in each of "
-          f"the first {T6_CPU} slots on the same draws and schedule "
-          f"({time.perf_counter() - w0:.1f} s on the CPU)", flush=True)
     done(t0)
 
     t0 = phase(f"quickstart policies, T={T}, seed {SEED}")
@@ -1765,7 +1814,8 @@ def main():
         fail("torch.backends.cuda.matmul.allow_tf32 is True: the f32 plain "
              "version would run its products in TF32")
     # tests/test_kernels.py:28-58 as (B, Sq, Sk, H, KH, hd, causal,
-    # window), the serving shape, a ragged GQA Sq < Sk, and bf16 head dims
+    # window), the serving shape, dbrx-132b's (GQA 48:8, a group of 6
+    # heads folded into the rows), a ragged GQA Sq < Sk, and bf16 head dims
     # over 128 (three and four 64-column boxes: deepseek-v3's q/k 192,
     # gemma-7b's 256), ragged GQA Sq < Sk and windowed among them
     fa_cases = [(2, 256, 256, 4, 4, 64, True, 0),
@@ -1776,6 +1826,8 @@ def main():
                 (1, 128, 512, 4, 4, 64, True, 0)]
     fa_cases = ([(c, dt) for c in fa_cases for dt in ("f32", "bf16")]
                 + [((SERVE_B, SERVE_S, SERVE_S, 32, 32, 112, True, 0),
+                    "bf16"),
+                   ((SERVE_B, SERVE_S, SERVE_S, 48, 8, 128, True, 0),
                     "bf16"),
                    ((2, 333, 1000, 8, 2, 112, True, 0), "bf16"),
                    ((2, 333, 1000, 8, 2, 112, True, 0), "f32")]
@@ -2113,16 +2165,88 @@ def main():
     # -------------------------------------------- the new model families
     # (h) mamba2-2.7b (ssm) FULL, gemma-7b (dense) FULL and gemma3-27b
     # (dense) at full width with 6 of its 62 layers (one 5 local : 1
-    # global cycle), bf16, batch 4 x prompt 2048 + 32 tokens: launches a
-    # prefill, prefill and decode ms, and the kernels' prefill logits
-    # against the plain versions' (the Zamba2 phase's tolerances)
+    # global cycle); (i) the moe family at full width: dbrx-132b with 4 of
+    # its 40 layers and deepseek-v3-671b (MLA) with 3 dense + 1 moe of its
+    # 61 (n_layers 4 keeps moe_layer_start 3).  bf16, batch 4 x prompt
+    # 2048 + 32 tokens: launches a prefill, prefill and decode ms, and the
+    # kernels' prefill logits against the plain versions' (the Zamba2
+    # phase's tolerances); for the moe family also two bf16 prefills
+    # bitwise equal (the combine has no atomics) and, per moe layer, the
+    # routed experts and kept tokens that differ between the kernels' run
+    # and the plain versions' (a near tie that flips shows there)
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr_mod
     family_counts, family_ms = {}, {}
-    for arch, n_layers in (("mamba2-2.7b", None), ("gemma-7b", None),
-                           ("gemma3-27b", 6)):
+    TAIL = 64  # positions a row whose logits the moe family's check reads
+
+    @contextlib.contextmanager
+    def routing(calls):
+        """Record the index output of every ``stable_top_k`` call of the
+        moe layers: per layer the routed experts, then the kept tokens."""
+        saved = moe_mod.stable_top_k
+
+        def recording(x, k):
+            out = saved(x, k)
+            calls.append(out[1])
+            return out
+
+        moe_mod.stable_top_k = recording
+        try:
+            yield calls
+        finally:
+            moe_mod.stable_top_k = saved
+
+    def routing_diff(a, b):
+        """Per moe layer: ((token, expert) routes of run a that run b does
+        not take, of all of a's; (expert, token) pairs a's experts keep at
+        capacity that b's do not, of all)."""
+        def members(idx, n):
+            m = torch.zeros(idx.shape[:2] + (n,), dtype=torch.bool,
+                            device=idx.device)
+            return m.scatter_(-1, idx, True)
+
+        out = []
+        for i in range(0, len(a), 2):
+            n_e = int(max(a[i].max(), b[i].max())) + 1
+            n_t = int(max(a[i + 1].max(), b[i + 1].max())) + 1
+            ra, rb = members(a[i], n_e), members(b[i], n_e)
+            ka, kb = members(a[i + 1], n_t), members(b[i + 1], n_t)
+            out.append((int((ra & ~rb).sum()), a[i].numel(),
+                        int((ka & ~kb).sum()), a[i + 1].numel()))
+        return out
+
+    @contextlib.contextmanager
+    def last_hidden(out):
+        """Keep in out[0] the hidden states the prefill's last block
+        returns (the final norm's input, every position)."""
+        saved = tr_mod._dense_block_train
+
+        def recording(*args, **kw):
+            h, kv = saved(*args, **kw)
+            out[:] = [h]
+            return h, kv
+
+        tr_mod._dense_block_train = recording
+        try:
+            yield out
+        finally:
+            tr_mod._dense_block_train = saved
+
+    def tail_logits(params_, cfg_, h):
+        """The f32 logits of the last TAIL positions of each row."""
+        return tr_mod._logits(params_, cfg_, tr_mod._norm(
+            params_["final_norm"], cfg_, h[:, -TAIL:]))
+
+    for arch, n_layers, ph in (("mamba2-2.7b", None, "h"),
+                               ("gemma-7b", None, "h"),
+                               ("gemma3-27b", 6, "h"),
+                               ("dbrx-132b", 4, "i"),
+                               ("deepseek-v3-671b", 4, "i")):
         fcfg = get_config(arch)
         if n_layers is not None:
             fcfg = fcfg.replace(n_layers=n_layers)
-        t0 = phase(f"(h) serving {arch} ({fcfg.family}, "
+        moe = fcfg.family == "moe"
+        t0 = phase(f"({ph}) serving {arch} ({fcfg.family}, "
                    f"{fcfg.n_layers} layers), bf16, batch {SERVE_B} x prompt "
                    f"{SERVE_S} + {SERVE_GEN} tokens")
         if fcfg.family == "ssm":
@@ -2131,6 +2255,12 @@ def main():
         else:
             per_prefill = dict(flash_attention_wgmma=fcfg.n_layers)
             per_prefill32 = dict(flash_attention_tf32=fcfg.n_layers)
+        if fcfg.mla:
+            qk = fcfg.nope_head_dim + fcfg.rope_head_dim
+            print(f"   MLA: K6 {fa.kernel_for(torch.bfloat16, qk)} at width "
+                  f"{max(qk, fcfg.v_head_dim)} (q/k {qk}; v "
+                  f"{fcfg.v_head_dim}, zero-padded to {qk}), "
+                  f"{fcfg.n_heads} heads", flush=True)
         model = build_model(fcfg)
         w0 = time.perf_counter()
         params = model.init(torch.Generator(dev).manual_seed(SEED))
@@ -2189,41 +2319,104 @@ def main():
         print(f"   prefill {p_ms:.1f} ms (launches {counts}); decode "
               f"{d_ms:.2f} ms a token over {SERVE_GEN - 1} steps (no "
               f"kernel); {card}", flush=True)
+        if moe:
+            again, _ = prefill_step(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            if not torch.equal(again, logits_k):
+                fail(f"{arch}: two bf16 prefills on the same inputs differ "
+                     f"(largest |difference| "
+                     f"{float((again - logits_k).abs().max()):.3g})")
+            print("   two bf16 prefills on the same inputs: bitwise equal "
+                  "logits", flush=True)
+            del again
+        # the logits check: for the moe family its own bf16 prefill too,
+        # and, at deepseek, at batch 2: beside its f32 weights (4 bytes
+        # times 15.8 B) an 80 GB card has too little room at batch 4 for
+        # the plain attention's f32 chunk logits (B·H·S·1024·4 bytes)
+        check = prompt[:2] if fcfg.mla else prompt
+        if moe:
+            with routing([]) as route_k, last_hidden([]) as h_k:
+                logits_k, _ = prefill_step(params, {"tokens": check})
+            tail_k = tail_logits(params, fcfg, h_k[0])
         reset()
-        with plain_versions():
-            logits_p, _ = prefill_step(params, {"tokens": prompt})
+        with plain_versions(), routing([]) as route_p, \
+                last_hidden([]) as h_p:
+            logits_p, _ = prefill_step(params, {"tokens": check})
         torch.cuda.synchronize()
         if any(read_counts().values()):
             fail(f"{arch}: the plain-version prefill launched "
                  f"{read_counts()}")
+        tail_p = tail_logits(params, fcfg, h_p[0]) if moe else None
+        del h_p
         params.float()  # in place: the same weights, exactly, in f32
-        prefill32 = make_prefill_step(build_model(fcfg.replace(
-            param_dtype="float32", compute_dtype="float32")))
+        torch.cuda.empty_cache()
+        cfg32 = fcfg.replace(param_dtype="float32", compute_dtype="float32")
+        prefill32 = make_prefill_step(build_model(cfg32))
         reset()
-        logits_k32, _ = prefill32(params, {"tokens": prompt})
+        with routing([]) as route_k32, last_hidden([]) as h_k32:
+            logits_k32, _ = prefill32(params, {"tokens": check})
         torch.cuda.synchronize()
         if not expect(read_counts(), **per_prefill32):
             fail(f"{arch}: the f32 prefill launched {read_counts()}, "
                  f"expected {per_prefill32}")
-        with plain_versions():
-            logits_p32, _ = prefill32(params, {"tokens": prompt})
+        tail_k32 = tail_logits(params, cfg32, h_k32[0]) if moe else None
+        del h_k32
+        with plain_versions(), routing([]) as route_p32, \
+                last_hidden([]) as h_p32:
+            logits_p32, _ = prefill32(params, {"tokens": check})
         torch.cuda.synchronize()
+        tail_p32 = tail_logits(params, cfg32, h_p32[0]) if moe else None
+        del h_p32
         err32 = l2(logits_k32, logits_p32)
         bf16_k, bf16_p = l2(logits_k, logits_p32), l2(logits_p, logits_p32)
-        print(f"   f32: ‖kernels − plain‖ / ‖plain‖ = {err32:.3g} "
-              f"(tolerance 1e-3); bf16 against the f32 plain logits: "
-              f"kernels {bf16_k:.4g}, plain {bf16_p:.4g} (at most 1.5x + "
-              f"1e-3); top-1 agreement bf16 kernels vs plain "
-              f"{float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()):.2f}",
-              flush=True)
+        print(f"   batch {check.shape[0]}: f32: ‖kernels − plain‖ / ‖plain‖ "
+              f"= {err32:.3g} (tolerance 1e-3); bf16 against the f32 plain "
+              f"logits: kernels {bf16_k:.4g}, plain {bf16_p:.4g}"
+              + ("" if moe else " (at most 1.5x + 1e-3)")
+              + "; top-1 agreement bf16 kernels vs plain "
+              f"{float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()):.2f}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+              "GiB", flush=True)
         if not err32 <= 1e-3:
             fail(f"{arch} f32 prefill logits: kernels and plain versions "
                  f"differ by {err32:.3g}")
+        if moe:
+            # routing is discrete: bf16's rounding moves some tokens to
+            # other experts, in either run, so the last position's logits
+            # of a few rows are a draw; the bf16 check reads the last TAIL
+            # positions of each row
+            err32 = l2(tail_k32, tail_p32)
+            bf16_k, bf16_p = l2(tail_k, tail_p32), l2(tail_p, tail_p32)
+            agree_k, agree_p = (float((t.argmax(-1) == tail_p32.argmax(
+                -1)).float().mean()) for t in (tail_k, tail_p))
+            print(f"   the last {TAIL} positions of each row: f32 "
+                  f"‖kernels − plain‖ / ‖plain‖ = {err32:.3g} (tolerance "
+                  f"1e-3); bf16 against the f32 plain logits: kernels "
+                  f"{bf16_k:.4g}, plain {bf16_p:.4g} (at most 1.5x + 1e-3); "
+                  f"top-1 agreement with the f32 plain logits: kernels "
+                  f"{agree_k:.3f}, plain {agree_p:.3f}", flush=True)
+            for label, a, b in (
+                    ("bf16 kernels vs bf16 plain", route_k, route_p),
+                    ("f32 kernels vs f32 plain", route_k32, route_p32),
+                    ("bf16 kernels vs f32 plain", route_k, route_p32),
+                    ("bf16 plain vs f32 plain", route_p, route_p32)):
+                print(f"   routing, {label}, per moe layer (routes not "
+                      "taken by the second run / of all; kept tokens not "
+                      "kept by it / of all): " + "; ".join(
+                          f"{r}/{n_r}, {c}/{n_c}"
+                          for r, n_r, c, n_c in routing_diff(a, b)),
+                      flush=True)
+            if not err32 <= 1e-3:
+                fail(f"{arch} f32 logits of the last {TAIL} positions: "
+                     f"kernels and plain versions differ by {err32:.3g}")
+            del route_k, route_p, route_k32, route_p32
+            del tail_k, tail_p, tail_k32, tail_p32
         if not bf16_k <= 1.5 * bf16_p + 1e-3:
             fail(f"{arch} bf16 prefill logits: the kernels are {bf16_k:.4g} "
                  f"from the f32 logits, the plain versions {bf16_p:.4g}")
         del params, model, logits_k32, logits_p32, logits_k, logits_p
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         done(t0)
 
     # ------------------------------------------------------------ timing
@@ -2690,9 +2883,10 @@ def main():
     # K6 at the Zamba2-7B serving shape in bf16 (the serving path's wgmma
     # kernel) and in f32 (the f32 prefill's split-TF32 kernel), and the
     # wgmma kernel at gemma-7b's attention (configs/gemma_7b.py: 16 heads,
-    # hd 256) and deepseek-v3's MLA (configs/deepseek_v3_671b.py: 128
-    # heads, q/k 192 = nope 128 + rope 64, v 128), prompt 2048, causal;
-    # then K7 at its serving shape
+    # hd 256), gemma3-27b's local layers, dbrx-132b's (48:8 heads, hd 128)
+    # and deepseek-v3's MLA (configs/deepseek_v3_671b.py: 128 heads, q/k
+    # 192 = nope 128 + rope 64, v 128), batch 4, prompt 2048, causal; then
+    # K7 at its serving shape
     B, S = SERVE_B, SERVE_S
 
     def sdpa(q, k, v, scale, window=0):
@@ -2750,8 +2944,12 @@ def main():
             ("gemma3-27b local", SERVE_B, 32, 16, 128, 128, 1024,
              torch.bfloat16,
              family_counts["gemma3-27b"]["flash_attention_wgmma"], False),
-            ("deepseek-v3 MLA", 1, 128, 128, 192, 128, 0, torch.bfloat16,
-             serve_counts["flash_attention_wgmma"], True)):
+            ("dbrx-132b", SERVE_B, 48, 8, 128, 128, 0, torch.bfloat16,
+             family_counts["dbrx-132b"]["flash_attention_wgmma"], False),
+            ("deepseek-v3 MLA", SERVE_B, 128, 128, 192, 128, 0,
+             torch.bfloat16,
+             family_counts["deepseek-v3-671b"]["flash_attention_wgmma"],
+             True)):
         q, k, v = qkv(Bf, S, S, H, KH, hd, dtype, 7)
         if vh != hd:
             v = v[..., :vh].contiguous()
@@ -2862,6 +3060,34 @@ def main():
         + "; engine ms a slot: " + ", ".join(
             f"{k[0]} {k[1]} {v:.3f}" for k, v in g_ms.items()), flush=True)
     print(f"   card: {card}", flush=True)
+    done(t0)
+
+    t0 = phase(f"fig6 c_hi=6, T={T6}: the card's decisions against the CPU "
+               "int32 reference run alongside (simulate, simulate_batch rows "
+               f"0, {ref6_rows})")
+    try:
+        got6 = ref6_conn.recv()
+    except EOFError:
+        fail(f"the CPU reference worker ended with exit code "
+             f"{ref6.exitcode} and sent nothing")
+    ref6.join()
+    if isinstance(got6, str):
+        fail(f"the CPU reference worker failed:\n{got6}")
+    cpu6_x, cpu6_rows_x, cpu6_s = got6
+    if not np.array_equal(single6.x, cpu6_x):
+        slot = int(np.flatnonzero((single6.x != cpu6_x).any(axis=1))[0])
+        fail(f"fig6 c_hi=6: card and CPU reference ESDP differ at slot "
+             f"{slot + 1}")
+    if not np.array_equal(fleet6.x[ref6_rows], cpu6_rows_x):
+        slot = int(np.flatnonzero((fleet6.x[ref6_rows] != cpu6_rows_x).any(
+            axis=(0, 2)))[0])
+        fail(f"fig6 c_hi=6: simulate_batch rows {ref6_rows} differ from the "
+             f"CPU reference at slot {slot + 1}")
+    print(f"   card simulate and simulate_batch rows 0, {ref6_rows} make the "
+          f"CPU int32 reference's decisions in each of the {T6} slots on the "
+          f"same draws and schedule (the worker took {cpu6_s:.1f} s; its "
+          f"result read {time.perf_counter() - ref6_t0:.1f} s after it "
+          "started)", flush=True)
     done(t0)
 
     print(json.dumps({"kernels": rows_out}), flush=True)

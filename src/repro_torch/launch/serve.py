@@ -1,8 +1,10 @@
 """Serving from the command line: batched prefill + greedy decode of a
 reduced config of any ported arch (zamba2-7b, mamba2-2.7b, gemma-7b,
-gemma3-27b, qwen1.5-32b, qwen2.5-32b).
+gemma3-27b, qwen1.5-32b, qwen2.5-32b, dbrx-132b, deepseek-v3-671b).
 
     python -m repro_torch.launch.serve --device cpu [--arch gemma3-27b]
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+        --batch 4 --prompt-len 48 --gen 16    # examples/serve_batched.py's
 
 Runs on the card unless ``--device`` names another; prompts are drawn with
 numpy under ``--seed`` and the weights from a ``torch.Generator`` seeded

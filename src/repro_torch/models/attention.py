@@ -1,13 +1,19 @@
 """Grouped-query attention (GQA/MQA/MHA, optional bias and sliding
-window): the port of the JAX package's ``models/attention.py`` for the
-serving path.  MLA, cross-attention and M-RoPE wait for the families that
-use them.
+window) and DeepSeek-V3's multi-head latent attention (MLA): the port of
+the JAX package's ``models/attention.py`` for the serving path.
+Cross-attention and M-RoPE wait for the families that use them.
 
 Full-sequence attention goes through ``chunked_attention``: on the card
 the CUDA kernel of ``kernels/flash_attention`` (K6's counterpart), on the
-CPU its plain version, the online-softmax scan over KV chunks.
+CPU its plain version, the online-softmax scan over KV chunks.  MLA's
+prefill expands the compressed keys and values to every head and runs
+there too (q/k nope + rope wide, v ``v_head_dim`` wide).
 
-Cache: k/v (B, S_max, KV, hd) per layer, written in place by decode.
+Caches, per layer, written in place by decode:
+  GQA : k/v (B, S_max, KV, hd).
+  MLA : compressed c_kv (B, S_max, kv_lora) + k_rope (B, S_max, rope_hd);
+        decode runs in the absorbed form, in the compressed space, and
+        never expands the cache to the heads.
 """
 from __future__ import annotations
 
@@ -17,9 +23,10 @@ import torch
 
 from ..kernels.flash_attention import flash_attention_op
 from ..kernels.flash_attention.ref import NEG
-from .layers import Leaf, apply_rope
+from .layers import Leaf, apply_rope, rms_norm
 
-__all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode"]
+__all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode",
+           "mla_specs", "mla_train", "mla_decode"]
 
 
 def chunked_attention(
@@ -106,3 +113,84 @@ def attn_decode(p, cfg, x, pos, kv_cache, *, window=None, theta=None):
     ctx = torch.einsum("bkgqs,bskh->bqkgh", attn.to(v_cache.dtype), v_cache)
     out = ctx.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
     return out, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nh, rh, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    R = cfg.kv_lora_rank
+    return {"wq_a": Leaf((d, cfg.q_lora_rank)),
+            "q_norm": Leaf((cfg.q_lora_rank,), "ones"),
+            "wq_b": Leaf((cfg.q_lora_rank, H * (nh + rh))),
+            "wkv_a": Leaf((d, R + rh)), "kv_norm": Leaf((R,), "ones"),
+            "wk_b": Leaf((R, H * nh)), "wv_b": Leaf((R, H * vh)),
+            "wo": Leaf((H * vh, d))}
+
+
+def _mla_q(p, cfg, x, positions):
+    B, S, _ = x.shape
+    H, nh, rh = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    ql = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps, False)
+    q = (ql @ p["wq_b"]).reshape(B, S, H, nh + rh)
+    return q[..., :nh], apply_rope(q[..., nh:], positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, cfg, x, positions):
+    kv = x @ p["wkv_a"]
+    R = cfg.kv_lora_rank
+    c_kv = rms_norm(kv[..., :R], p["kv_norm"], cfg.norm_eps, False)
+    k_rope = apply_rope(kv[:, :, None, R:], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_train(p, cfg, x, positions, chunk: int = 1024):
+    """Naive-expansion MLA (prefill).  Returns (out, (c_kv, k_rope))."""
+    B, S, _ = x.shape
+    H, nh, rh, vh = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, nh)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, H, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rh)],
+                  dim=-1)
+    ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(nh + rh),
+                            causal=True, chunk=chunk)
+    return ctx.reshape(B, S, H * vh) @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode(p, cfg, x, pos, cache):
+    """Absorbed-form decode: attention entirely in the compressed
+    (kv_lora) space.  x: (B, 1, d); pos: (B,); cache: (c_kv (B, S_max,
+    kv_lora), k_rope (B, S_max, rh)), written in place."""
+    B = x.shape[0]
+    H, nh, rh, vh = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    R = cfg.kv_lora_rank
+    c_cache, r_cache = cache
+    S_max = c_cache.shape[1]
+
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
+    c_new, r_new = _mla_ckv(p, cfg, x, pos[:, None])
+    _scatter_kv(c_cache, c_new, pos)
+    _scatter_kv(r_cache, r_new, pos)
+
+    # absorb W_k^b into q:  q_eff[h] = q_nope[h] @ W_k^b[h]^T  ∈ R^R
+    q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope,
+                         p["wk_b"].reshape(R, H, nh))
+    scale = 1.0 / math.sqrt(nh + rh)
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_eff, c_cache.to(q_eff.dtype))
+              + torch.einsum("bqhp,bsp->bhqs", q_rope,
+                             r_cache.to(q_rope.dtype))) * scale
+    idx = torch.arange(S_max, device=x.device)[None, None, None, :]
+    attn = torch.softmax(torch.where(idx <= pos[:, None, None, None],
+                                     logits.float(), NEG), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", attn.to(c_cache.dtype), c_cache)
+    o = torch.einsum("bqhr,rhv->bqhv", ctx.to(x.dtype),
+                     p["wv_b"].reshape(R, H, vh))
+    return o.reshape(B, 1, H * vh) @ p["wo"], (c_cache, r_cache)

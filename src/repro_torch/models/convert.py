@@ -3,9 +3,10 @@ parameter tree (nested dicts of numpy arrays, ``jax.device_get`` of
 ``Model.init``) into the port's ``ParamTree``.
 
 The JAX package stacks runs of layers — a dense or ssm LM's
-``blocks/...`` leaves are (L, ...), zamba2's ``groups/mamba/...`` (G, M,
-...) and ``tail/...`` (T, ...), with the shared attention block mounted
-once.  The port keeps one parameter per layer, so its path
+``blocks/...`` leaves are (L, ...), a moe LM's ``moe_blocks/...`` (L_moe,
+...), zamba2's ``groups/mamba/...`` (G, M, ...) and ``tail/...`` (T,
+...), with zamba2's shared attention block and deepseek's ``mtp/block``
+mounted once.  The port keeps one parameter per layer, so its path
 ``groups.g.mamba.m.mixer.wz`` reads ``groups/mamba/mixer/wz`` at
 ``[g, m]`` and ``blocks.i.attn.wq`` reads ``blocks/attn/wq`` at ``[i]``:
 the list positions of a port path index the JAX leaf.

@@ -1,18 +1,25 @@
 """Model stacks and the ``Model`` facade of the port: the dense family
-(gemma, gemma3, qwen1.5, qwen2.5), the ssm family (mamba2) and the hybrid
-family (zamba2).
+(gemma, gemma3, qwen1.5, qwen2.5), the moe family (dbrx, deepseek-v3 with
+MLA), the ssm family (mamba2) and the hybrid family (zamba2).
 
 The JAX package scans stacked parameters with ``lax.scan``; the port runs
 its layers in Python loops over per-layer parameters.  A dense LM is
 ``n_layers`` attention + MLP blocks, each with its own (window, θ) under a
-gemma3-style local:global pattern (:func:`layer_pattern`); an ssm LM is
-``n_layers`` Mamba2 blocks; zamba2 is ``n_groups`` groups of
-[``hybrid_every`` − 1 Mamba2 blocks + one SHARED attention block (one set
-of weights, applied once per group)] and a tail of Mamba2 blocks.
+gemma3-style local:global pattern (:func:`layer_pattern`); a moe LM is
+``moe_layer_start`` such blocks (``blocks``) and then attention + MoE
+blocks (``moe_blocks``), the attention MLA under ``cfg.mla``, and
+deepseek's multi-token-prediction head (``mtp``) is declared for the
+loss, which reads it; an ssm LM is ``n_layers`` Mamba2 blocks; zamba2 is
+``n_groups`` groups of [``hybrid_every`` − 1 Mamba2 blocks + one SHARED
+attention block (one set of weights, applied once per group)] and a tail
+of Mamba2 blocks.
 
 The serving caches keep the JAX layouts, in the compute dtype —
 
   dense   dense: (k, v), each (L, B, S_max, KV, hd)
+  moe     dense (when moe_layer_start > 0), moe: (k, v) as dense, each
+          (L_dense or L_moe, B, S_max, KV, hd); under MLA (c_kv
+          (L, B, S_max, kv_lora), k_rope (L, B, S_max, rope_hd))
   ssm     ssm (L, B, H, P, N)           conv (L, B, W-1, conv_dim)
   hybrid  g_ssm  (G, M, B, H, P, N)     g_conv (G, M, B, W-1, conv_dim)
           k, v   (G, B, S_max, KV, hd)  t_ssm  (T, B, H, P, N)
@@ -21,8 +28,8 @@ The serving caches keep the JAX layouts, in the compute dtype —
 — ``Model.alloc_cache`` allocates one; prefill and decode write it in
 place (prefill's k/v go to positions [0, S)) and return it.  The JAX
 package's sharding hook ``rules`` is dropped (one card), and ``loss``
-waits for the training slice.  The moe, vlm and encdec families are not
-ported yet.
+(with the moe aux term and the mtp head) waits for the training slice.
+The vlm and encdec families are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ from typing import Any, Callable
 
 import torch
 
-from .attention import attn_decode, attn_specs, attn_train
+from .attention import (attn_decode, attn_specs, attn_train, mla_decode,
+                        mla_specs, mla_train)
 from .layers import (DTYPES, Leaf, ParamTree, init_params, mlp_apply,
                      mlp_specs, norm_specs, rms_norm)
+from .moe import moe_apply, moe_specs
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
 __all__ = ["Model", "build_model", "hybrid_layout", "layer_pattern"]
@@ -74,27 +83,43 @@ def _logits(params, cfg, h):
     return (h @ head).float()
 
 
-def _dense_block_specs(cfg) -> dict:
-    return {"ln1": norm_specs(cfg.d_model, cfg.norm_plus_one),
-            "attn": attn_specs(cfg),
-            "ln2": norm_specs(cfg.d_model, cfg.norm_plus_one),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.activation)}
+def _dense_block_specs(cfg, moe: bool = False) -> dict:
+    spec = {"ln1": norm_specs(cfg.d_model, cfg.norm_plus_one),
+            "attn": mla_specs(cfg) if cfg.mla else attn_specs(cfg),
+            "ln2": norm_specs(cfg.d_model, cfg.norm_plus_one)}
+    if moe:
+        spec["moe"] = moe_specs(cfg)
+    else:
+        spec["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.activation)
+    return spec
 
 
-def _dense_block_train(p, cfg, h, positions, window, theta):
-    a, kv = attn_train(p["attn"], cfg, _norm(p["ln1"], cfg, h), positions,
-                       window=window, theta=theta, chunk=cfg.attn_chunk)
+def _ffn(p, cfg, x, moe: bool):
+    if moe:
+        return moe_apply(p["moe"], cfg, x)[0]  # the aux loss: training's
+    return mlp_apply(p["mlp"], x, cfg.activation)
+
+
+def _dense_block_train(p, cfg, h, positions, window, theta, moe=False):
+    x = _norm(p["ln1"], cfg, h)
+    if cfg.mla:
+        a, kv = mla_train(p["attn"], cfg, x, positions, chunk=cfg.attn_chunk)
+    else:
+        a, kv = attn_train(p["attn"], cfg, x, positions, window=window,
+                           theta=theta, chunk=cfg.attn_chunk)
     h = h + a
-    return h + mlp_apply(p["mlp"], _norm(p["ln2"], cfg, h),
-                         cfg.activation), kv
+    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), kv
 
 
-def _dense_block_decode(p, cfg, h, pos, cache, window, theta):
-    a, cache = attn_decode(p["attn"], cfg, _norm(p["ln1"], cfg, h), pos,
-                           cache, window=window, theta=theta)
+def _dense_block_decode(p, cfg, h, pos, cache, window, theta, moe=False):
+    x = _norm(p["ln1"], cfg, h)
+    if cfg.mla:
+        a, cache = mla_decode(p["attn"], cfg, x, pos, cache)
+    else:
+        a, cache = attn_decode(p["attn"], cfg, x, pos, cache, window=window,
+                               theta=theta)
     h = h + a
-    return h + mlp_apply(p["mlp"], _norm(p["ln2"], cfg, h),
-                         cfg.activation), cache
+    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), cache
 
 
 def _ssm_block_specs(cfg) -> dict:
@@ -122,21 +147,21 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _build_decoder_lm(cfg)
     if cfg.family == "ssm":
         return _build_ssm_lm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid_lm(cfg)
-    if cfg.family in ("moe", "vlm", "encdec"):
+    if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "(ROADMAP.md, Queue 1 item 6 (c)-(d))")
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
-# decoder-only LM (the dense family)
+# decoder-only LM (the dense and moe families)
 # ---------------------------------------------------------------------------
 
 def layer_pattern(cfg, n_layers: int):
@@ -152,36 +177,73 @@ def layer_pattern(cfg, n_layers: int):
             [1_000_000.0 if g else float(cfg.rope_theta) for g in is_global])
 
 
+def _split_layers(cfg):
+    """(dense layers, moe layers): a moe config's first ``moe_layer_start``
+    layers are dense (deepseek's 3), the rest moe."""
+    if cfg.n_experts > 0:
+        return cfg.moe_layer_start, cfg.n_layers - cfg.moe_layer_start
+    return cfg.n_layers, 0
+
+
 def _build_decoder_lm(cfg):
-    L = cfg.n_layers
+    n_dense, n_moe = _split_layers(cfg)
     spec = _lm_head_specs(cfg)
-    spec["blocks"] = [_dense_block_specs(cfg) for _ in range(L)]
-    windows, thetas = layer_pattern(cfg, L)
-    windows = windows or [None] * L
-    thetas = thetas or [None] * L
+    if n_dense:
+        spec["blocks"] = [_dense_block_specs(cfg) for _ in range(n_dense)]
+    if n_moe:
+        spec["moe_blocks"] = [_dense_block_specs(cfg, moe=True)
+                              for _ in range(n_moe)]
+    if cfg.mtp:
+        spec["mtp"] = {"proj": Leaf((2 * cfg.d_model, cfg.d_model)),
+                       "norm_h": norm_specs(cfg.d_model, cfg.norm_plus_one),
+                       "norm_e": norm_specs(cfg.d_model, cfg.norm_plus_one),
+                       "block": _dense_block_specs(cfg)}
+    windows, thetas = layer_pattern(cfg, n_dense)  # moe stacks are uniform
+    # (stack, cache key, moe?, per-layer windows and θs)
+    stacks = [("blocks", "dense", False, windows or [None] * n_dense,
+               thetas or [None] * n_dense)] if n_dense else []
+    if n_moe:
+        stacks.append(("moe_blocks", "moe", True, [None] * n_moe,
+                       [None] * n_moe))
 
     def alloc_cache(B, s_max, device):
-        shape = (L, B, s_max, cfg.n_kv_heads, cfg.head_dim)
         cdt = DTYPES[cfg.compute_dtype]
-        return {"dense": (torch.zeros(shape, dtype=cdt, device=device),
-                          torch.zeros(shape, dtype=cdt, device=device))}
+
+        def kv(n):
+            if cfg.mla:
+                return (torch.zeros((n, B, s_max, cfg.kv_lora_rank),
+                                    dtype=cdt, device=device),
+                        torch.zeros((n, B, s_max, cfg.rope_head_dim),
+                                    dtype=cdt, device=device))
+            shape = (n, B, s_max, cfg.n_kv_heads, cfg.head_dim)
+            return (torch.zeros(shape, dtype=cdt, device=device),
+                    torch.zeros(shape, dtype=cdt, device=device))
+
+        cache = {}
+        if n_dense:
+            cache["dense"] = kv(n_dense)
+        if n_moe:
+            cache["moe"] = kv(n_moe)
+        return cache
 
     def prefill(params, batch, cache=None):
         """batch["tokens"]: (B, S).  Returns the last position's logits
         (B, vocab) f32 and the cache, allocated at S_max = S when none is
-        given, with every layer's k/v (after RoPE) at positions [0, S)."""
+        given, with every layer's k/v (after RoPE; c_kv and k_rope under
+        MLA) at positions [0, S)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         if cache is None:
             cache = alloc_cache(B, S, tokens.device)
-        k_cache, v_cache = cache["dense"]
         h = _embed(params, cfg, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        for i in range(L):
-            h, (k, v) = _dense_block_train(params["blocks"][i], cfg, h,
-                                           positions, windows[i], thetas[i])
-            k_cache[i, :, :S].copy_(k)
-            v_cache[i, :, :S].copy_(v)
+        for name, key, moe, wins, ths in stacks:
+            a_cache, b_cache = cache[key]
+            for i, lp in enumerate(params[name]):
+                h, (a, b) = _dense_block_train(lp, cfg, h, positions, wins[i],
+                                               ths[i], moe)
+                a_cache[i, :, :S].copy_(a)
+                b_cache[i, :, :S].copy_(b)
         h = _norm(params["final_norm"], cfg, h[:, -1:])
         return _logits(params, cfg, h)[:, 0], cache
 
@@ -189,12 +251,13 @@ def _build_decoder_lm(cfg):
         """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
         attend up to, "cache".  Returns (logits (B, vocab) f32, cache)."""
         cache, pos = batch["cache"], batch["pos"]
-        k_cache, v_cache = cache["dense"]
         h = _embed(params, cfg, batch["token"])
-        for i in range(L):
-            h, _ = _dense_block_decode(params["blocks"][i], cfg, h, pos,
-                                       (k_cache[i], v_cache[i]), windows[i],
-                                       thetas[i])
+        for name, key, moe, wins, ths in stacks:
+            a_cache, b_cache = cache[key]
+            for i, lp in enumerate(params[name]):
+                h, _ = _dense_block_decode(lp, cfg, h, pos,
+                                           (a_cache[i], b_cache[i]), wins[i],
+                                           ths[i], moe)
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 

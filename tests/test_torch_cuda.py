@@ -31,7 +31,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd
 from repro_torch.kernels.budgeted_dp import (LAUNCHES, build, kernel, ops,
                                              ref)
-from repro_torch.models import build_model
+from repro_torch.models import build_model, init_params
 
 
 def _card():
@@ -540,13 +540,13 @@ def test_cuda_reduced_zamba2_prefill_matches_the_cpu():
 
 @pytest.mark.parametrize("arch,flash,ssd_scans", [
     ("mamba2-2.7b", 0, 4), ("gemma-7b", 4, 0), ("gemma3-27b", 6, 0),
-    ("qwen2.5-32b", 4, 0)])
+    ("qwen2.5-32b", 4, 0), ("dbrx-132b", 4, 0), ("deepseek-v3-671b", 5, 0)])
 def test_cuda_reduced_families_prefill_match_the_cpu(arch, flash, ssd_scans):
-    """The reduced ssm and dense archs (f32) on the card, through the
-    kernels — one SSD launch a Mamba2 block, one attention launch a dense
-    block (gemma3's local layers windowed: the prompt outruns the reduced
-    window of 64) — against the same weights on the CPU through the plain
-    versions."""
+    """The reduced ssm, dense and moe archs (f32) on the card, through the
+    kernels — one SSD launch a Mamba2 block, one attention launch a dense,
+    moe or MLA block (gemma3's local layers windowed: the prompt outruns
+    the reduced window of 64) — against the same weights on the CPU
+    through the plain versions."""
     dev = _card()
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
@@ -561,6 +561,58 @@ def test_cuda_reduced_families_prefill_match_the_cpu(arch, flash, ssd_scans):
     assert (fa.LAUNCHES["flash_attention_tf32"] - before[0],
             ssd.LAUNCHES["ssd_scan"] - before[1]) == (flash, ssd_scans)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_prefill_matches_plain_version(dtype, monkeypatch):
+    """deepseek-v3's MLA prefill at the reduced widths (q/k 16 + 8 = 24, v
+    16: K6 at width 24, v zero-padded) on the card, one K6 launch, against
+    the same layer through the plain attention on the card (the K6
+    tolerances: 2e-5 f32 on the attention, 1e-4 after the projections;
+    2e-2 bf16)."""
+    from repro_torch.models import attention
+    dev = _card()
+    dt = getattr(torch, dtype)
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(
+        param_dtype=dtype, compute_dtype=dtype)
+    p = init_params(attention.mla_specs(cfg), dt,
+                    torch.Generator(dev).manual_seed(0))
+    x = torch.randn((2, 150, cfg.d_model), generator=torch.Generator(
+        dev).manual_seed(1), device=dev).to(dt)
+    pos = torch.arange(150, device=dev)[None].expand(2, 150)
+    name = fa.kernel_for(dt, 24)
+    before = fa.LAUNCHES[name]
+    got, (c, r) = attention.mla_train(p, cfg, x, pos)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    monkeypatch.setattr(attention, "chunked_attention",
+                        lambda q, k, v, **kw: fa.flash_attention_ref(
+                            q, k, v, scale=kw["scale"], causal=kw["causal"],
+                            chunk=kw["chunk"]))
+    want, (wc, wr) = attention.mla_train(p, cfg, x, pos)
+    assert fa.LAUNCHES[name] == before + 1
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(c, wc) and torch.equal(r, wr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_reduced_dbrx_prefill_is_bitwise_repeatable(dtype):
+    """Two prefills of the reduced dbrx-132b on the same weights and
+    tokens give the same bits: the moe combine adds each token's experts
+    in a fixed order, with no atomics."""
+    dev = _card()
+    cfg = get_config("dbrx-132b", reduced=True).replace(
+        param_dtype=dtype, compute_dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (4, 256), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    a, ca = model.prefill(params, {"tokens": tokens})
+    b, cb = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(ca["moe"], cb["moe"]))
 
 
 def _engine_pair(config, T=60, **kw):

@@ -36,8 +36,6 @@ from repro_torch.core import (Draws, build_tables, instance_from_arrays,
 from repro_torch.core import baselines, esdp
 from repro_torch.core import stats
 from repro_torch.core.env import _clipped_normal_mean, crash_events
-from repro_torch.core.solvers import Solver, get_solver
-from repro_torch.kernels.budgeted_dp import LAUNCHES, SMEM_LIMIT_BYTES
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -147,17 +145,25 @@ def test_esdp_quickstart_horizon_matches_jax(table2):
                                rtol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def jax_esdp_batch(table2):
+    """The JAX ESDP ``simulate_batch`` on Table 2 (T 150, seeds 3, 11,
+    42) that both solver cases compare against: (T, seeds, result)."""
+    jinst, jtables, inst, _ = table2
+    T, seeds = 150, [3, 11, 42]
+    jp = jax_esdp.make_esdp_policy(jinst, T, tables=jtables)
+    return T, seeds, jax_simulate_batch(jinst, _recording(jp, T, inst.n_edges),
+                                        T, seeds, tables=jtables)
+
+
 @pytest.mark.parametrize("solver", ["reference", "cuda"])
-def test_esdp_batch_matches_jax_simulate_batch(table2, solver):
+def test_esdp_batch_matches_jax_simulate_batch(table2, jax_esdp_batch, solver):
     """B = 3 seeds through ``simulate_batch``: every row equals the JAX
     batch row slot for slot.  ``cuda`` runs the kernel wrappers' plain
     versions here (CPU tensors), ``reference`` the int32 edge fold."""
-    jinst, jtables, inst, tables = table2
-    T, seeds = 150, [3, 11, 42]
-    jp = jax_esdp.make_esdp_policy(jinst, T, tables=jtables)
+    _, _, inst, tables = table2
+    T, seeds, want = jax_esdp_batch
     tp = esdp.make_esdp_policy(inst, T, tables=tables, solver=solver)
-    want = jax_simulate_batch(jinst, _recording(jp, T, inst.n_edges), T,
-                              seeds, tables=jtables)
     got = simulate_batch(inst, tp, T, seeds, tables=tables, device="cpu",
                          draws=_jax_draws(seeds, T, inst.n_ports,
                                           inst.n_edges),
@@ -166,45 +172,6 @@ def test_esdp_batch_matches_jax_simulate_batch(table2, solver):
                                                 jax_stats.g_default))
     assert got.x.shape == (3, T, inst.n_edges)
     _assert_parity(got, want.policy_final[1], want)
-
-
-def test_esdp_fig6_c_hi6_tiled_matches_jax_slot_for_slot():
-    """ESDP on the fig-6 c_hi = 6 instance (a 721 × 126 plane at T = 150,
-    over one block's shared memory) through the ``cuda`` backend — on the
-    CPU the auto-tiled host loop with the plain versions of the fused
-    kernel — makes the JAX ESDP's decisions (``reference`` backend) every
-    slot on injected draws and schedule.  Every solve gets u_max =
-    ``u_max_for_horizon``, as in the JAX ESDP, and its Υ̂ stays under it."""
-    jinst = jax_generate_instance(seed=2, c_lo=1, c_hi=6)
-    inst = instance_from_arrays(**dataclasses.asdict(jinst))
-    jtables, tables = (jax_build_tables(jinst.A, jinst.c),
-                       build_tables(inst.A, inst.c))
-    T, seed = 150, 42
-    s_cap = stats.s_cap_for_horizon(T, inst.m)
-    assert 4 * (s_cap + 1) * tables.n_states > SMEM_LIMIT_BYTES
-    seen = []
-    cuda = get_solver("cuda")
-
-    def recording(ups, sig, tables_, s_cap_, s_limit, allowed, u_max):
-        seen.append((int(ups.max()), u_max))
-        return cuda(ups, sig, tables_, s_cap_, s_limit, allowed, u_max)
-
-    jp = jax_esdp.make_esdp_policy(jinst, T, tables=jtables)
-    tp = esdp.make_esdp_policy(inst, T, tables=tables,
-                               solver=Solver("recording", recording,
-                                             accepts_batch=True))
-    want = jax_simulate(jinst, _recording(jp, T, inst.n_edges), T,
-                        seed=seed, tables=jtables)
-    before = dict(LAUNCHES)
-    got = simulate(inst, tp, T, tables=tables, device="cpu",
-                   draws=_jax_draws([seed], T, inst.n_ports, inst.n_edges),
-                   schedule=_jax_schedule(T, inst.m, jax_stats.delta_default,
-                                          jax_stats.g_default))
-    _assert_parity(got, want.policy_final[1], want)
-    assert LAUNCHES == before  # plain versions on the CPU count nothing
-    u_max = stats.u_max_for_horizon(T, inst.m)
-    assert len(seen) == T and {u for _, u in seen} == {u_max}
-    assert max(top for top, _ in seen) < u_max
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,6 @@ from repro.core import build_tables as jax_build_tables
 from repro.core import env as jax_env
 from repro.core import generate_instance as jax_generate_instance
 from repro.core import simulate_batch as jax_simulate_batch
-from repro.core import simulate_grid as jax_simulate_grid
 from repro.core import baselines as jax_baselines
 from repro.core import esdp as jax_esdp
 from repro.core import stats as jax_stats
@@ -40,16 +39,14 @@ from repro.experiments import get_scenario as jax_get_scenario
 from repro.experiments import scenario_names as jax_scenario_names
 from repro.experiments import unroll_scenario as jax_unroll
 from repro.experiments.scenarios import power_allocation as jax_power
-from repro_torch.core import (ScenarioDraws, Solver, build_tables,
-                              get_solver, instance_from_arrays,
-                              make_scenario_draws, replay_scenario, simulate,
-                              simulate_batch, simulate_grid)
+from repro_torch.core import (ScenarioDraws, build_tables,
+                              instance_from_arrays, make_scenario_draws,
+                              replay_scenario, simulate, simulate_batch)
 from repro_torch.core import baselines, esdp
 from repro_torch.core.env import Scenario
 from repro_torch.experiments import (SCENARIOS, get_scenario,
                                      power_allocation, register_scenario,
-                                     scenario_names, sweep_scenario_param,
-                                     unroll_scenario)
+                                     scenario_names, unroll_scenario)
 from test_torch_env import _jax_draws, _jax_schedule, _recording
 
 try:
@@ -427,83 +424,3 @@ def test_misshaped_scenario_draws_raise(table2):
     with pytest.raises(ValueError, match="scenario_draws"):
         simulate(inst, baselines.make_hswf_policy(inst), 12, tables=tables,
                  device="cpu", scenario=scn, scenario_draws=draws)
-
-
-# ---------------------------------------------------------------------------
-# simulate_grid: the grid × seeds as one batch
-# ---------------------------------------------------------------------------
-
-def test_simulate_grid_matches_jax_and_per_point_batches(table2):
-    """``chronic_straggler`` over three straggler speeds × two seeds, ESDP
-    on Table 2, T 80: rows bit-equal in x to the JAX ``simulate_grid`` on
-    the same draws, to the port's per-point ``simulate_batch`` — and the
-    whole grid solves in ONE solver call a slot."""
-    jinst, jtables, inst, tables = table2
-    T, seeds, speeds = 80, [1, 2], [0.3, 0.6, 1.0]
-    calls = []
-    ref = get_solver("reference")
-
-    def counting(*args):
-        calls.append(args[0].shape)
-        return ref(*args[:5], allowed=args[5], u_max=args[6])
-
-    tp = esdp.make_esdp_policy(inst, T, tables=tables,
-                               solver=Solver("counting", counting,
-                                             accepts_batch=True))
-    jscn = jax_get_scenario("chronic_straggler")
-    jp = jax_esdp.make_esdp_policy(jinst, T, tables=jtables)
-    stacked = {"frac": jnp.full(3, 0.25, jnp.float32),
-               "straggler_speed": jnp.asarray(speeds, jnp.float32)}
-    want = jax_simulate_grid(jinst, _recording(jp, T, inst.n_edges), T,
-                             seeds, jscn, stacked, tables=jtables)
-    draws = _jax_draws(seeds, T, inst.n_ports, inst.n_edges)
-    sdraws = jax_scenario_draws("chronic_straggler", seeds, T,
-                                inst.n_servers)
-    schedule = _jax_schedule(T, inst.m, jax_stats.delta_default,
-                             jax_stats.g_default)
-    got = simulate_grid(inst, tp, T, seeds, get_scenario("chronic_straggler"),
-                        {"frac": [0.25] * 3, "straggler_speed": speeds},
-                        tables=tables, device="cpu", draws=draws,
-                        schedule=schedule, scenario_draws=sdraws)
-    assert got.x.shape == (3, 2, T, inst.n_edges)
-    assert len(calls) == T and set(calls) == {(6, inst.n_edges)}
-    np.testing.assert_array_equal(got.x, want.policy_final[1])
-    np.testing.assert_allclose(got.sw, want.sw, **TOL)
-    np.testing.assert_allclose(got.regret, want.regret, **ORACLE_TOL)
-    for g, v in enumerate(speeds):
-        point = simulate_batch(
-            inst, tp, T, seeds, tables=tables, device="cpu", draws=draws,
-            schedule=schedule, scenario_draws=sdraws,
-            scenario=get_scenario("chronic_straggler", straggler_speed=v))
-        np.testing.assert_array_equal(got.x[g], point.x)
-        np.testing.assert_array_equal(got.sw_oracle[g], point.sw_oracle)
-    assert not np.array_equal(got.x[0], got.x[2])
-
-
-def test_sweep_scenario_param_grid(table2):
-    """``sweep_scenario_param`` on the port's own draws: (G, S, T) rows
-    equal to per-point ``simulate_batch`` runs; an unknown parameter is a
-    ``KeyError``, an unknown regime a ``ValueError``."""
-    _, _, inst, tables = table2
-    T, seeds = 40, (0, 1)
-    factory = esdp.esdp_factory()
-    grid = sweep_scenario_param(inst, factory, T, seeds, "markov_dvfs",
-                                "slow_speed", (0.3, 0.9), tables=tables,
-                                device="cpu")
-    assert grid.sw.shape == (2, 2, T) and grid.x.shape[:3] == (2, 2, T)
-    for g, v in enumerate((0.3, 0.9)):
-        point = simulate_batch(inst, factory(inst, T, tables), T, seeds,
-                               tables=tables, device="cpu",
-                               scenario=get_scenario("markov_dvfs",
-                                                     slow_speed=v))
-        np.testing.assert_array_equal(grid.x[g], point.x)
-    with pytest.raises(KeyError, match="slow_speed"):
-        sweep_scenario_param(inst, factory, T, seeds, "markov_dvfs", "bogus",
-                             (1.0,), tables=tables, device="cpu")
-    with pytest.raises(ValueError, match="registered scenarios"):
-        sweep_scenario_param(inst, factory, T, seeds, "bogus", "x", (1.0,),
-                             tables=tables, device="cpu")
-    with pytest.raises(ValueError, match="stacked_params"):
-        simulate_grid(inst, factory(inst, T, tables), T, seeds,
-                      get_scenario("markov_dvfs"), {"slow_speed": [0.5]},
-                      tables=tables, device="cpu")

@@ -190,7 +190,7 @@ def test_from_jax_params_rejects_a_foreign_tree():
 
 
 PORTED = ("zamba2-7b", "mamba2-2.7b", "gemma-7b", "gemma3-27b", "qwen1.5-32b",
-          "qwen2.5-32b")
+          "qwen2.5-32b", "dbrx-132b", "deepseek-v3-671b")
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
@@ -202,8 +202,8 @@ def test_unported_archs_raise(arch):
 def test_unknown_arch_and_family_raise():
     with pytest.raises(KeyError):
         get_config("llama-9000")
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(get_config("zamba2-7b").replace(family="moe"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        build_model(get_config("zamba2-7b").replace(family="vlm"))
 
 
 def test_device_none_means_the_card(monkeypatch):
