@@ -103,7 +103,9 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    kernel, tolerance 2e-5) and bf16 (the wgmma kernel, 2e-2: the plain
    version rounds q·k and p to bf16, the kernels do not), the Zamba2-7B
    and dbrx-132b (GQA 48:8) serving shapes in bf16, a ragged GQA Sq < Sk
-   case in both, and bf16 at
+   case in both, whisper-medium's bidirectional shapes in both (16 heads
+   of 64 over 1500 frames, from 1, 416 and 1500 queries), qwen2-vl-72b's
+   prefill (GQA 64:8, 3072 positions) in bf16, and bf16 at
    hd 136, 192, 200 and 256 (ragged GQA Sq < Sk and windowed cases among
    them); each case's distance from the plain version run in f64 printed
    beside the CUDA-core referee's (launched raw), and each bf16 case no
@@ -140,7 +142,15 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    256 experts top-8 + 1 shared), each also with two bf16 prefills
    bitwise equal (the combine has no atomics) and, per moe layer, the
    routed-expert and kept-token indices that differ between the
-   kernels' and the plain versions' runs, in bf16 and in f32;
+   kernels' and the plain versions' runs, in bf16 and in f32; (j) the
+   same for qwen2-vl-72b at full width with 8 of its 80 layers (1024
+   patch embeddings before the 2048-token prompt at Qwen2-VL's grid
+   positions on three M-RoPE streams; 8 wgmma attention launches, GQA
+   64:8, D = 128) and FULL whisper-medium (1500 frame embeddings, a
+   416-token decoder prompt: 24 encoder, 24 self- and 24
+   cross-attention launches a prefill, D = 64, and 24 cross-attention
+   launches a decode token, whose f32 decode step is held to the plain
+   versions' too), each with the peak memory and whisper's encoder ms;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -158,7 +168,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    local layers' (GQA 32:16, hd 128, window 1024; SDPA with the window as
    a boolean mask), dbrx-132b's (GQA 48:8, hd 128) and deepseek-v3's MLA
    (q/k 192, v 128, zero-padded to 192) attention, each at batch 4 ×
-   2048 with its launches from (h) or (i), with the CUDA-core referee's
+   2048 with its launches from (h) or (i), qwen2-vl-72b's (GQA 64:8 over
+   3072 positions) and whisper-medium's four (the encoder, the decoder's
+   self-attention, cross-attention in prefill and in decode, Sq = 1) with
+   their launches from (j), with the CUDA-core referee's
    time at the f32, gemma and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; and
    the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
@@ -219,6 +232,7 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 WARM_FROM, N_WARM, WARM_K = 1000, 50, 8
 # the Zamba2-7B serving shape (configs/zamba2_7b.py FULL)
 SERVE_B, SERVE_S, SERVE_GEN = 4, 2048, 32
+WHISPER_S = 416  # whisper's decoder prompt: + SERVE_GEN = its 448 positions
 
 
 def fail(msg):
@@ -1817,7 +1831,11 @@ def main():
     # window), the serving shape, dbrx-132b's (GQA 48:8, a group of 6
     # heads folded into the rows), a ragged GQA Sq < Sk, and bf16 head dims
     # over 128 (three and four 64-column boxes: deepseek-v3's q/k 192,
-    # gemma-7b's 256), ragged GQA Sq < Sk and windowed among them
+    # gemma-7b's 256), ragged GQA Sq < Sk and windowed among them; the
+    # shapes of phase (j) in both dtypes — whisper-medium's cross-attention
+    # in decode (one query row against 1500 frames) and in prefill (416
+    # queries), its encoder's bidirectional 1500 frames (a ragged last key
+    # tile) — and qwen2-vl-72b's prefill (GQA 64:8 over 3072 positions)
     fa_cases = [(2, 256, 256, 4, 4, 64, True, 0),
                 (1, 256, 256, 8, 2, 64, True, 0),
                 (2, 128, 128, 4, 1, 32, True, 0),
@@ -1831,6 +1849,10 @@ def main():
                     "bf16"),
                    ((2, 333, 1000, 8, 2, 112, True, 0), "bf16"),
                    ((2, 333, 1000, 8, 2, 112, True, 0), "f32")]
+                + [((SERVE_B, Sq, 1500, 16, 16, 64, False, 0), dt)
+                   for Sq in (1, WHISPER_S, 1500) for dt in ("bf16", "f32")]
+                + [((SERVE_B, 1024 + SERVE_S, 1024 + SERVE_S, 64, 8, 128,
+                     True, 0), "bf16")]
                 + [(c, "bf16") for c in (
                     (2, 512, 512, 8, 2, 136, True, 0),
                     (1, 333, 1000, 16, 4, 192, True, 0),
@@ -2167,16 +2189,43 @@ def main():
     # (dense) at full width with 6 of its 62 layers (one 5 local : 1
     # global cycle); (i) the moe family at full width: dbrx-132b with 4 of
     # its 40 layers and deepseek-v3-671b (MLA) with 3 dense + 1 moe of its
-    # 61 (n_layers 4 keeps moe_layer_start 3).  bf16, batch 4 x prompt
-    # 2048 + 32 tokens: launches a prefill, prefill and decode ms, and the
-    # kernels' prefill logits against the plain versions' (the Zamba2
-    # phase's tolerances); for the moe family also two bf16 prefills
-    # bitwise equal (the combine has no atomics) and, per moe layer, the
-    # routed experts and kept tokens that differ between the kernels' run
-    # and the plain versions' (a near tie that flips shows there)
+    # 61 (n_layers 4 keeps moe_layer_start 3); (j) qwen2-vl-72b (vlm) at
+    # full width with 8 of its 80 layers, 1024 patch embeddings before the
+    # prompt at Qwen2-VL's grid positions (t = 0, h = row, w = col on a
+    # 32 x 32 grid, the text from 32 on all three M-RoPE streams), and
+    # whisper-medium (encdec) FULL over 1500 frame embeddings, its decoder
+    # prompt 416 (416 + 32 = 448, whisper's decoder context).  bf16, batch
+    # 4 x prompt 2048 (whisper 416) + 32 tokens: launches a prefill and a
+    # decode token, prefill and decode ms (whisper's encoder alone too),
+    # and the kernels' prefill logits against the plain versions' (the
+    # Zamba2 phase's tolerances; whisper's decode runs K6 too, so one f32
+    # decode step is held the same way); for the moe family also two bf16
+    # prefills bitwise equal (the combine has no atomics) and, per moe
+    # layer, the routed experts and kept tokens that differ between the
+    # kernels' run and the plain versions' (a near tie that flips shows
+    # there)
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tr_mod
     family_counts, family_ms = {}, {}
+    family_shapes = {}  # arch: attention calls by (Sq, Sk, causal), in
+    # the timed prefill and in the timed decode steps
+
+    @contextlib.contextmanager
+    def attention_shapes(tally):
+        """Tally the model's attention calls by (Sq, Sk, causal): on the
+        card each is one K6 launch (the counts hold the total to it)."""
+        saved = attn_mod.chunked_attention
+
+        def recording(q, k, v, **kw):
+            key = (q.shape[1], k.shape[1], kw.get("causal", True))
+            tally[key] = tally.get(key, 0) + 1
+            return saved(q, k, v, **kw)
+
+        attn_mod.chunked_attention = recording
+        try:
+            yield tally
+        finally:
+            attn_mod.chunked_attention = saved
     TAIL = 64  # positions a row whose logits the moe family's check reads
 
     @contextlib.contextmanager
@@ -2237,21 +2286,75 @@ def main():
         return tr_mod._logits(params_, cfg_, tr_mod._norm(
             params_["final_norm"], cfg_, h[:, -TAIL:]))
 
-    for arch, n_layers, ph in (("mamba2-2.7b", None, "h"),
-                               ("gemma-7b", None, "h"),
-                               ("gemma3-27b", 6, "h"),
-                               ("dbrx-132b", 4, "i"),
-                               ("deepseek-v3-671b", 4, "i")):
+    def serving_batch(fcfg, S_):
+        """The prefill's inputs at batch SERVE_B and prompt S_ (for vlm
+        after the patches), the first decode position, and a function of
+        the decode step i that gives its batch entries besides the token
+        and the cache."""
+        prompt_ = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, fcfg.vocab, (SERVE_B, S_)), device=dev)
+        batch_ = {"tokens": prompt_}
+        g = torch.Generator(dev).manual_seed(SEED + 1)
+        pos0_ = S_
+        if fcfg.family == "vlm":
+            nv = fcfg.n_vision_tokens
+            grid = int(round(nv ** 0.5))
+            r = torch.arange(nv, device=dev)
+            vision = torch.stack([torch.zeros_like(r), r // grid, r % grid])
+            text = torch.arange(S_, device=dev).expand(3, S_) + grid
+            batch_["positions"] = torch.cat([vision, text], dim=1)[
+                :, None].expand(3, SERVE_B, nv + S_)
+            batch_["patch_embeds"] = torch.randn(
+                (SERVE_B, nv, fcfg.d_model), generator=g, device=dev)
+            pos0_ = S_ + nv
+        if fcfg.family == "encdec":
+            batch_["enc_embeds"] = torch.randn(
+                (SERVE_B, fcfg.enc_len, fcfg.d_model), generator=g,
+                device=dev)
+
+        def decode_extra(i):  # greedy_generate's rule
+            extra = {"pos": torch.full((SERVE_B,), pos0_ + i, device=dev)}
+            if fcfg.family == "vlm":
+                extra["positions"] = torch.full((3, SERVE_B, 1), pos0_ + i,
+                                                device=dev)
+            return extra
+
+        return batch_, pos0_, decode_extra
+
+    for arch, n_layers, S_arch, ph in (
+            ("mamba2-2.7b", None, SERVE_S, "h"),
+            ("gemma-7b", None, SERVE_S, "h"),
+            ("gemma3-27b", 6, SERVE_S, "h"),
+            ("dbrx-132b", 4, SERVE_S, "i"),
+            ("deepseek-v3-671b", 4, SERVE_S, "i"),
+            ("qwen2-vl-72b", 8, SERVE_S, "j"),
+            ("whisper-medium", None, WHISPER_S, "j")):
         fcfg = get_config(arch)
         if n_layers is not None:
             fcfg = fcfg.replace(n_layers=n_layers)
         moe = fcfg.family == "moe"
+        encdec = fcfg.family == "encdec"
         t0 = phase(f"({ph}) serving {arch} ({fcfg.family}, "
-                   f"{fcfg.n_layers} layers), bf16, batch {SERVE_B} x prompt "
-                   f"{SERVE_S} + {SERVE_GEN} tokens")
+                   f"{fcfg.n_layers} layers"
+                   + (f" + {fcfg.n_enc_layers} encoder layers over "
+                      f"{fcfg.enc_len} frames" if encdec else "")
+                   + (f", {fcfg.n_vision_tokens} patch embeddings"
+                      if fcfg.family == "vlm" else "")
+                   + f"), bf16, batch {SERVE_B} x prompt {S_arch} + "
+                   f"{SERVE_GEN} tokens")
+        per_decode, per_decode32 = {}, {}
         if fcfg.family == "ssm":
             per_prefill = dict(ssd_scan=fcfg.n_layers)
             per_prefill32 = per_prefill
+        elif encdec:
+            # the encoder's, the decoder's self- and cross-attention; a
+            # decode token's cross-attention (its self-attention reads
+            # the cache without K6)
+            n_fa = fcfg.n_enc_layers + 2 * fcfg.n_layers
+            per_prefill = dict(flash_attention_wgmma=n_fa)
+            per_prefill32 = dict(flash_attention_tf32=n_fa)
+            per_decode = dict(flash_attention_wgmma=fcfg.n_layers)
+            per_decode32 = dict(flash_attention_tf32=fcfg.n_layers)
         else:
             per_prefill = dict(flash_attention_wgmma=fcfg.n_layers)
             per_prefill32 = dict(flash_attention_tf32=fcfg.n_layers)
@@ -2268,29 +2371,48 @@ def main():
         n_params = sum(p.numel() for p in params.parameters())
         print(f"   {n_params} parameters drawn on the card in "
               f"{time.perf_counter() - w0:.2f} s", flush=True)
-        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
-            0, fcfg.vocab, (SERVE_B, SERVE_S)), device=dev)
-        s_max = SERVE_S + SERVE_GEN
+        batch, pos0, decode_extra = serving_batch(fcfg, S_arch)
+        s_max = pos0 + SERVE_GEN
+        per_generate = {k: per_prefill.get(k, 0)
+                        + (SERVE_GEN - 1) * per_decode.get(k, 0)
+                        for k in set(per_prefill) | set(per_decode)}
         reset()
-        tokens_out = greedy_generate(model, params, {"tokens": prompt},
-                                     steps=SERVE_GEN, s_max=s_max)
+        tokens_out = greedy_generate(model, params, batch, steps=SERVE_GEN,
+                                     s_max=s_max)
         torch.cuda.synchronize()
         counts = read_counts()
-        if not expect(counts, **per_prefill):
+        if not expect(counts, **per_generate):
             fail(f"{arch} greedy_generate launched {counts}, expected "
-                 f"{per_prefill} (one prefill, no kernel in decode)")
+                 f"{per_generate} (one prefill, {SERVE_GEN - 1} decode "
+                 "steps)")
         toks = tokens_out.cpu().numpy()
         if toks.shape != (SERVE_B, SERVE_GEN) or toks.min() < 0 or \
                 toks.max() >= fcfg.vocab:
             fail(f"{arch} greedy_generate returned shape {toks.shape}")
         prefill_step, decode_step = (make_prefill_step(model),
                                      make_decode_step(model))
+        e_txt = ""
+        if encdec:  # the encoder alone, with its launches
+            model.encode(params, batch["enc_embeds"])  # warm
+            reset()
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            model.encode(params, batch["enc_embeds"])
+            torch.cuda.synchronize()
+            e_ms = (time.perf_counter() - w0) * 1e3
+            e_counts = read_counts()
+            if not expect(e_counts, flash_attention_wgmma=fcfg.n_enc_layers):
+                fail(f"{arch} encoder launched {e_counts}")
+            e_txt = (f"; encoder alone {e_ms:.1f} ms "
+                     f"({e_counts['flash_attention_wgmma']} launches)")
+            device_breakdown(f"{arch} encoder", lambda: model.encode(
+                params, batch["enc_embeds"]))
         cache = model.alloc_cache(SERVE_B, s_max, dev)
         reset()
         torch.cuda.synchronize()
         w0 = time.perf_counter()
-        logits_k, cache = prefill_step(params, {"tokens": prompt},
-                                       cache=cache)
+        with attention_shapes({}) as p_shapes:
+            logits_k, cache = prefill_step(params, batch, cache=cache)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - w0) * 1e3
         counts = read_counts()
@@ -2301,26 +2423,45 @@ def main():
         reset()
         torch.cuda.synchronize()
         w0 = time.perf_counter()
-        for i in range(SERVE_GEN - 1):
-            nxt, logits_d, cache = decode_step(params, {
-                "token": tok, "cache": cache,
-                "pos": torch.full((SERVE_B,), SERVE_S + i, device=dev)})
-            tok = nxt[:, None]
+        with attention_shapes({}) as d_shapes:
+            for i in range(SERVE_GEN - 1):
+                nxt, logits_d, cache = decode_step(params, {
+                    "token": tok, "cache": cache, **decode_extra(i)})
+                tok = nxt[:, None]
         torch.cuda.synchronize()
         d_ms = (time.perf_counter() - w0) * 1e3 / (SERVE_GEN - 1)
-        if not expect(read_counts()):
-            fail(f"{arch} decode launched {read_counts()}")
+        dec_counts = read_counts()
+        family_shapes[arch] = (p_shapes, d_shapes)
+        # every attention call of the prefill and of the decode steps that
+        # goes through the wrapper is one launch (MLA's absorbed decode
+        # and the self-attention decode read the cache without it)
+        for label_, shapes_, counts_ in (("prefill", p_shapes, counts),
+                                         ("decode", d_shapes, dec_counts)):
+            n_fa = counts_["flash_attention_wgmma"]
+            if n_fa and sum(shapes_.values()) != n_fa:
+                fail(f"{arch} {label_}: attention calls {shapes_}, "
+                     f"{n_fa} launches")
+        if not expect(dec_counts, **{k: (SERVE_GEN - 1) * n
+                                     for k, n in per_decode.items()}):
+            fail(f"{arch} decode launched {dec_counts}, expected "
+                 f"{per_decode} a token")
         if not (torch.isfinite(logits_k).all() and torch.isfinite(
                 logits_d).all() and tuple(logits_k.shape) == (SERVE_B,
                                                               fcfg.vocab)):
             fail(f"{arch}: non-finite or misshapen serving logits")
         del cache
         family_ms[arch] = (p_ms, d_ms)
+        if encdec:
+            print(f"   attention launches by (Sq, Sk, causal): prefill "
+                  f"{p_shapes}; decode steps {d_shapes}", flush=True)
         print(f"   prefill {p_ms:.1f} ms (launches {counts}); decode "
-              f"{d_ms:.2f} ms a token over {SERVE_GEN - 1} steps (no "
-              f"kernel); {card}", flush=True)
+              f"{d_ms:.2f} ms a token over {SERVE_GEN - 1} steps ("
+              + (f"{per_decode} a token" if per_decode else "no kernel")
+              + f"){e_txt}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+              f" GiB; {card}", flush=True)
         if moe:
-            again, _ = prefill_step(params, {"tokens": prompt})
+            again, _ = prefill_step(params, batch)
             torch.cuda.synchronize()
             if not torch.equal(again, logits_k):
                 fail(f"{arch}: two bf16 prefills on the same inputs differ "
@@ -2333,15 +2474,15 @@ def main():
         # and, at deepseek, at batch 2: beside its f32 weights (4 bytes
         # times 15.8 B) an 80 GB card has too little room at batch 4 for
         # the plain attention's f32 chunk logits (B·H·S·1024·4 bytes)
-        check = prompt[:2] if fcfg.mla else prompt
+        check = {"tokens": batch["tokens"][:2]} if fcfg.mla else batch
         if moe:
             with routing([]) as route_k, last_hidden([]) as h_k:
-                logits_k, _ = prefill_step(params, {"tokens": check})
+                logits_k, _ = prefill_step(params, check)
             tail_k = tail_logits(params, fcfg, h_k[0])
         reset()
         with plain_versions(), routing([]) as route_p, \
                 last_hidden([]) as h_p:
-            logits_p, _ = prefill_step(params, {"tokens": check})
+            logits_p, _ = prefill_step(params, check)
         torch.cuda.synchronize()
         if any(read_counts().values()):
             fail(f"{arch}: the plain-version prefill launched "
@@ -2354,7 +2495,7 @@ def main():
         prefill32 = make_prefill_step(build_model(cfg32))
         reset()
         with routing([]) as route_k32, last_hidden([]) as h_k32:
-            logits_k32, _ = prefill32(params, {"tokens": check})
+            logits_k32, _ = prefill32(params, check)
         torch.cuda.synchronize()
         if not expect(read_counts(), **per_prefill32):
             fail(f"{arch}: the f32 prefill launched {read_counts()}, "
@@ -2363,13 +2504,13 @@ def main():
         del h_k32
         with plain_versions(), routing([]) as route_p32, \
                 last_hidden([]) as h_p32:
-            logits_p32, _ = prefill32(params, {"tokens": check})
+            logits_p32, _ = prefill32(params, check)
         torch.cuda.synchronize()
         tail_p32 = tail_logits(params, cfg32, h_p32[0]) if moe else None
         del h_p32
         err32 = l2(logits_k32, logits_p32)
         bf16_k, bf16_p = l2(logits_k, logits_p32), l2(logits_p, logits_p32)
-        print(f"   batch {check.shape[0]}: f32: ‖kernels − plain‖ / ‖plain‖ "
+        print(f"   batch {check['tokens'].shape[0]}: f32: ‖kernels − plain‖ / ‖plain‖ "
               f"= {err32:.3g} (tolerance 1e-3); bf16 against the f32 plain "
               f"logits: kernels {bf16_k:.4g}, plain {bf16_p:.4g}"
               + ("" if moe else " (at most 1.5x + 1e-3)")
@@ -2414,6 +2555,32 @@ def main():
         if not bf16_k <= 1.5 * bf16_p + 1e-3:
             fail(f"{arch} bf16 prefill logits: the kernels are {bf16_k:.4g} "
                  f"from the f32 logits, the plain versions {bf16_p:.4g}")
+        if per_decode32:
+            # a decode step that launches K6 (whisper's cross-attention,
+            # one query row against the 1500 frames): one f32 step through
+            # the kernels against the plain versions on copies of one cache
+            model32 = build_model(cfg32)
+            cache_k = model32.alloc_cache(SERVE_B, pos0 + 1, dev)
+            logits32, cache_k = model32.prefill(params, batch, cache=cache_k)
+            cache_p = {k: v.clone() for k, v in cache_k.items()}
+            step = {"token": torch.argmax(logits32, dim=-1)[:, None],
+                    **decode_extra(0)}
+            reset()
+            dec_k, _ = model32.decode(params, {**step, "cache": cache_k})
+            torch.cuda.synchronize()
+            if not expect(read_counts(), **per_decode32):
+                fail(f"{arch}: the f32 decode step launched {read_counts()}, "
+                     f"expected {per_decode32}")
+            with plain_versions():
+                dec_p, _ = model32.decode(params, {**step, "cache": cache_p})
+            err_d = l2(dec_k, dec_p)
+            print(f"   one f32 decode step ({per_decode32} a token): "
+                  f"‖kernels − plain‖ / ‖plain‖ = {err_d:.3g} (tolerance "
+                  "1e-3)", flush=True)
+            if not err_d <= 1e-3:
+                fail(f"{arch} f32 decode logits: kernels and plain versions "
+                     f"differ by {err_d:.3g}")
+            del cache_k, cache_p, logits32, dec_k, dec_p
         del params, model, logits_k32, logits_p32, logits_k, logits_p
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2885,15 +3052,19 @@ def main():
     # wgmma kernel at gemma-7b's attention (configs/gemma_7b.py: 16 heads,
     # hd 256), gemma3-27b's local layers, dbrx-132b's (48:8 heads, hd 128)
     # and deepseek-v3's MLA (configs/deepseek_v3_671b.py: 128 heads, q/k
-    # 192 = nope 128 + rope 64, v 128), batch 4, prompt 2048, causal; then
-    # K7 at its serving shape
+    # 192 = nope 128 + rope 64, v 128), batch 4, prompt 2048, causal;
+    # qwen2-vl-72b's (64:8, hd 128, causal over 1024 patches + 2048
+    # tokens) and whisper-medium's four (16 heads of 64: the encoder's
+    # bidirectional 1500 frames, the decoder's causal 416 tokens, and
+    # cross-attention from 416 queries and from one, a decode token's,
+    # to the 1500 frames); then K7 at its serving shape
     B, S = SERVE_B, SERVE_S
 
-    def sdpa(q, k, v, scale, window=0):
-        """scaled_dot_product_attention's ms on the same inputs (causal;
-        GQA and a sliding window through ``enable_gqa`` and a boolean
-        mask), and the backend it takes: a yardstick, never called by the
-        port."""
+    def sdpa(q, k, v, scale, window=0, causal=True):
+        """scaled_dot_product_attention's ms on the same inputs (causal or
+        not; GQA and a sliding window through ``enable_gqa`` and a
+        boolean mask), and the backend it takes: a yardstick, never
+        called by the port."""
         import torch.nn.attention
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kw = dict(scale=scale)
@@ -2903,7 +3074,7 @@ def main():
             i = torch.arange(q.shape[1], device=dev)
             kw["attn_mask"] = (i[None] <= i[:, None]) & (
                 i[:, None] - i[None] < window)
-        else:
+        elif causal:
             kw["is_causal"] = True
         try:  # a private helper: where it is missing, say so
             backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
@@ -2928,29 +3099,53 @@ def main():
         prof_ms, _ = profiled_ms(raw, 5, "flash_fwd_kernel")
         return per_call_ms(raw, 3, reps=3) if prof_ms is None else prof_ms
 
-    def pairs(S_, window):
-        """(query, key) pairs a causal attention over S_ positions scores,
-        within ``window`` (0: none)."""
-        w = window or S_
-        return sum(min(i + 1, w) for i in range(S_))
+    def pairs(Sq, Sk, causal, window):
+        """(query, key) pairs an attention of Sq queries over Sk keys
+        scores: all of them bidirectional; causally, query i (at position
+        i + Sk - Sq) the keys up to its own, within ``window`` (0:
+        none)."""
+        if not causal:
+            return Sq * Sk
+        w = window or Sk
+        return sum(min(i + 1 + Sk - Sq, w) for i in range(Sq))
 
-    for label, Bf, H, KH, hd, vh, window, dtype, launches, with_referee in (
-            ("Zamba2-7B", SERVE_B, 32, 32, 112, 112, 0, torch.bfloat16,
-             serve_counts["flash_attention_wgmma"], False),
-            ("Zamba2-7B", SERVE_B, 32, 32, 112, 112, 0, torch.float32,
-             f32_counts["flash_attention_tf32"], True),
-            ("gemma-7b", SERVE_B, 16, 16, 256, 256, 0, torch.bfloat16,
-             family_counts["gemma-7b"]["flash_attention_wgmma"], True),
-            ("gemma3-27b local", SERVE_B, 32, 16, 128, 128, 1024,
-             torch.bfloat16,
-             family_counts["gemma3-27b"]["flash_attention_wgmma"], False),
-            ("dbrx-132b", SERVE_B, 48, 8, 128, 128, 0, torch.bfloat16,
-             family_counts["dbrx-132b"]["flash_attention_wgmma"], False),
-            ("deepseek-v3 MLA", SERVE_B, 128, 128, 192, 128, 0,
-             torch.bfloat16,
-             family_counts["deepseek-v3-671b"]["flash_attention_wgmma"],
-             True)):
-        q, k, v = qkv(Bf, S, S, H, KH, hd, dtype, 7)
+    wgmma = "flash_attention_wgmma"
+    nv = get_config("qwen2-vl-72b").n_vision_tokens
+    wm = get_config("whisper-medium")
+    wp, wd = family_shapes["whisper-medium"]
+    Se = wm.enc_len
+    # label, B, Sq, Sk, H, KH, q/k and v head dims, causal, window, dtype,
+    # launches on the main path (a prefill; whisper's cross-attention in
+    # decode: the 31 timed decode steps), the referee's time beside it?
+    for (label, Bf, Sq, Sk, H, KH, hd, vh, causal, window, dtype, launches,
+         with_referee) in (
+            ("Zamba2-7B", SERVE_B, S, S, 32, 32, 112, 112, True, 0,
+             torch.bfloat16, serve_counts[wgmma], False),
+            ("Zamba2-7B", SERVE_B, S, S, 32, 32, 112, 112, True, 0,
+             torch.float32, f32_counts["flash_attention_tf32"], True),
+            ("gemma-7b", SERVE_B, S, S, 16, 16, 256, 256, True, 0,
+             torch.bfloat16, family_counts["gemma-7b"][wgmma], True),
+            ("gemma3-27b local", SERVE_B, S, S, 32, 16, 128, 128, True, 1024,
+             torch.bfloat16, family_counts["gemma3-27b"][wgmma], False),
+            ("dbrx-132b", SERVE_B, S, S, 48, 8, 128, 128, True, 0,
+             torch.bfloat16, family_counts["dbrx-132b"][wgmma], False),
+            ("deepseek-v3 MLA", SERVE_B, S, S, 128, 128, 192, 128, True, 0,
+             torch.bfloat16, family_counts["deepseek-v3-671b"][wgmma],
+             True),
+            ("qwen2-vl-72b", SERVE_B, nv + S, nv + S, 64, 8, 128, 128, True,
+             0, torch.bfloat16, family_counts["qwen2-vl-72b"][wgmma], False),
+            ("whisper encoder", SERVE_B, Se, Se, 16, 16, 64, 64, False, 0,
+             torch.bfloat16, wp.get((Se, Se, False), 0), False),
+            ("whisper decoder self", SERVE_B, WHISPER_S, WHISPER_S, 16, 16,
+             64, 64, True, 0, torch.bfloat16,
+             wp.get((WHISPER_S, WHISPER_S, True), 0), False),
+            ("whisper cross, prefill", SERVE_B, WHISPER_S, Se, 16, 16, 64, 64,
+             False, 0, torch.bfloat16, wp.get((WHISPER_S, Se, False), 0),
+             False),
+            (f"whisper cross, decode ({SERVE_GEN - 1} steps)", SERVE_B, 1, Se,
+             16, 16, 64, 64, False, 0, torch.bfloat16,
+             wd.get((1, Se, False), 0), False)):
+        q, k, v = qkv(Bf, Sq, Sk, H, KH, hd, dtype, 7)
         if vh != hd:
             v = v[..., :vh].contiguous()
         scale = hd ** -0.5
@@ -2960,7 +3155,7 @@ def main():
         keep.append(o)
         name = fa.kernel_for(dtype, width)
         args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), Bf,
-                S, S, H, KH, width, scale, 1, window, stream)
+                Sq, Sk, H, KH, width, scale, int(causal), window, stream)
         if name == "flash_attention_wgmma":
             raw = checked(fa.WGMMA_LIBRARY.load().flash_attention_wgmma_launch,
                           args)
@@ -2970,19 +3165,20 @@ def main():
                           args)
             kname, src = "flash_fwd_tf32_kernel", FAT_SOURCE
         t_k = timed(raw, lambda: fa.flash_attention(q, k, v, scale=scale,
+                                                    causal=causal,
                                                     window=window), kname, 20)
         p_k = per_call_ms(lambda: fa.flash_attention_ref(q, k, v,
                                                          scale=scale,
+                                                         causal=causal,
                                                          window=window),
                           2, reps=3)
-        lib_ms, backend = sdpa(q, k, v, scale, window)
-        # q·k and p·v over the (windowed) causal triangle (the function's
-        # own widths, not the padded one); q, k, v read and o written
-        # once.  f32 runs each product as three TF32 products on the
-        # tensor cores
-        f_ops = 2 * (hd + vh) * Bf * H * pairs(S, window)
+        lib_ms, backend = sdpa(q, k, v, scale, window, causal)
+        # q·k and p·v over the pairs scored (the function's own widths,
+        # not the padded one); q, k, v read and o written once.  f32 runs
+        # each product as three TF32 products on the tensor cores
+        f_ops = 2 * (hd + vh) * Bf * H * pairs(Sq, Sk, causal, window)
         f_bytes = (q.numel() + k.numel() + v.numel()
-                   + Bf * S * H * vh) * q.element_size()
+                   + Bf * Sq * H * vh) * q.element_size()
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         if dt == "f32":
             ops, rate, kind = (3 * f_ops, TF32_OPS_PER_S,
@@ -2991,9 +3187,10 @@ def main():
             ops, rate, kind = f_ops, BF16_OPS_PER_S, "bf16 tensor-core"
         row(f"{name} (K6 _flash_kernel, {dt}, {label})",
             "src/repro/kernels/flash_attention/kernel.py:24",
-            f"B={Bf} Sq=Sk={S} H={H} KH={KH} q/k {hd} v {vh} (kernel width "
-            f"{width}) {dt} causal" + (f", window {window}" if window
-                                       else ""), launches, worst_abs[name],
+            f"B={Bf} Sq={Sq} Sk={Sk} H={H} KH={KH} q/k {hd} v {vh} (kernel "
+            f"width {width}) {dt} {'causal' if causal else 'bidirectional'}"
+            + (f", window {window}" if window else ""), launches,
+            worst_abs[name],
             t_k, p_k, (f_bytes, ops), source=src, ops_per_s=rate,
             ops_kind=kind, library_ms=lib_ms)
         core = (f"{referee_ms(qp, kp, vp, scale):.4f} ms" if with_referee

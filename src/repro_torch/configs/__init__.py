@@ -1,24 +1,23 @@
 """Architecture registry: ``get_config(arch_id, reduced=False)``.
 
-The port has the dense family (gemma-7b, gemma3-27b, qwen1.5-32b,
-qwen2.5-32b), the moe family (dbrx-132b, and deepseek-v3-671b with MLA),
-the ssm family (mamba2-2.7b) and the hybrid family (zamba2-7b); the vlm
-(qwen2-vl-72b) and encdec (whisper-medium) architectures of the JAX
-package raise ``NotImplementedError``.
+Every arch of the JAX package's registry: the dense family (gemma-7b,
+gemma3-27b, qwen1.5-32b, qwen2.5-32b), the moe family (dbrx-132b, and
+deepseek-v3-671b with MLA), the ssm family (mamba2-2.7b), the hybrid
+family (zamba2-7b), the vlm family (qwen2-vl-72b, M-RoPE) and the encdec
+family (whisper-medium).
 """
 from . import (dbrx_132b, deepseek_v3_671b, gemma3_27b, gemma_7b,
-               mamba2_2_7b, qwen1_5_32b, qwen2_5_32b, zamba2_7b)
+               mamba2_2_7b, qwen1_5_32b, qwen2_5_32b, qwen2_vl_72b,
+               whisper_medium, zamba2_7b)
 from .base import SHAPES, ModelConfig, Shape, shape_applicable
 
 _MODULES = {"qwen2.5-32b": qwen2_5_32b, "gemma3-27b": gemma3_27b,
             "gemma-7b": gemma_7b, "qwen1.5-32b": qwen1_5_32b,
             "zamba2-7b": zamba2_7b, "dbrx-132b": dbrx_132b,
-            "deepseek-v3-671b": deepseek_v3_671b, "mamba2-2.7b": mamba2_2_7b}
+            "deepseek-v3-671b": deepseek_v3_671b, "mamba2-2.7b": mamba2_2_7b,
+            "qwen2-vl-72b": qwen2_vl_72b, "whisper-medium": whisper_medium}
 
-# the archs the port serves
-PORTED_ARCHS = tuple(_MODULES)
-
-# the JAX package's registry; the port serves those in _MODULES
+# the JAX package's registry, in its order; the port serves all of it
 ARCHS = ("qwen2.5-32b", "gemma3-27b", "gemma-7b", "qwen1.5-32b", "zamba2-7b",
          "dbrx-132b", "deepseek-v3-671b", "whisper-medium", "mamba2-2.7b",
          "qwen2-vl-72b")
@@ -27,13 +26,9 @@ ARCHS = ("qwen2.5-32b", "gemma3-27b", "gemma-7b", "qwen1.5-32b", "zamba2-7b",
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet (ROADMAP.md, Queue 1 "
-            f"item 6 (c)-(d)); ported: {tuple(_MODULES)}")
     mod = _MODULES[arch]
     return mod.REDUCED if reduced else mod.FULL
 
 
-__all__ = ["ARCHS", "PORTED_ARCHS", "SHAPES", "ModelConfig", "Shape", "get_config",
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "Shape", "get_config",
            "shape_applicable"]

@@ -1,19 +1,23 @@
-"""Grouped-query attention (GQA/MQA/MHA, optional bias and sliding
-window) and DeepSeek-V3's multi-head latent attention (MLA): the port of
-the JAX package's ``models/attention.py`` for the serving path.
-Cross-attention and M-RoPE wait for the families that use them.
+"""Grouped-query attention (GQA/MQA/MHA, optional bias, sliding window,
+M-RoPE), whisper's bidirectional encoder attention and cross-attention,
+and DeepSeek-V3's multi-head latent attention (MLA): the port of the JAX
+package's ``models/attention.py`` for the serving path.
 
 Full-sequence attention goes through ``chunked_attention``: on the card
 the CUDA kernel of ``kernels/flash_attention`` (K6's counterpart), on the
 CPU its plain version, the online-softmax scan over KV chunks.  MLA's
 prefill expands the compressed keys and values to every head and runs
-there too (q/k nope + rope wide, v ``v_head_dim`` wide).
+there too (q/k nope + rope wide, v ``v_head_dim`` wide), and so does
+cross-attention, in prefill and in decode alike (Sq queries against the
+encoder's Se keys, no mask).
 
 Caches, per layer, written in place by decode:
-  GQA : k/v (B, S_max, KV, hd).
-  MLA : compressed c_kv (B, S_max, kv_lora) + k_rope (B, S_max, rope_hd);
-        decode runs in the absorbed form, in the compressed space, and
-        never expands the cache to the heads.
+  GQA   : k/v (B, S_max, KV, hd).
+  MLA   : compressed c_kv (B, S_max, kv_lora) + k_rope (B, S_max, rope_hd);
+          decode runs in the absorbed form, in the compressed space, and
+          never expands the cache to the heads.
+  cross : ck/cv (B, Se, H, hd), the encoder's keys and values, written
+          once by prefill (``cross_kv``) and only read by decode.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ..kernels.flash_attention.ref import NEG
 from .layers import Leaf, apply_rope, rms_norm
 
 __all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode",
+           "attn_encode", "cross_attn_specs", "cross_kv", "cross_attn",
            "mla_specs", "mla_train", "mla_decode"]
 
 
@@ -68,11 +73,21 @@ def attn_train(p, cfg, x, positions, *, window=None, theta=None, chunk: int = 10
     theta = cfg.rope_theta if theta is None else theta
     q, k, v = _qkv(p, cfg, x)
     if cfg.use_rope:
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        q = apply_rope(q, positions, theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, theta, cfg.mrope_sections)
     ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(hd), causal=True,
                             window=window, chunk=chunk)
     return ctx.reshape(B, S, H * hd) @ p["wo"], (k, v)
+
+
+def attn_encode(p, cfg, x, chunk: int = 1024):
+    """whisper's encoder self-attention: bidirectional, no RoPE, nothing
+    cached (``transformer.py:731-737`` of the JAX package)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
+                            causal=False, chunk=chunk)
+    return ctx.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
 def _scatter_kv(cache, new, pos):
@@ -84,10 +99,13 @@ def _scatter_kv(cache, new, pos):
     return cache
 
 
-def attn_decode(p, cfg, x, pos, kv_cache, *, window=None, theta=None):
+def attn_decode(
+    p, cfg, x, pos, kv_cache, *, window=None, theta=None, rope_positions=None
+):
     """One-token decode. x: (B, 1, d); pos: (B,) absolute positions (cache
-    write index + mask); kv_cache: (k, v) each (B, S_max, KV, hd), written
-    in place."""
+    write index + mask); ``rope_positions`` overrides the rotary stream
+    (M-RoPE decode passes (3, B, 1)); kv_cache: (k, v) each (B, S_max, KV,
+    hd), written in place."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = cfg.rope_theta if theta is None else theta
@@ -95,9 +113,10 @@ def attn_decode(p, cfg, x, pos, kv_cache, *, window=None, theta=None):
     S_max = k_cache.shape[1]
 
     q, k_new, v_new = _qkv(p, cfg, x)
+    pos_b = pos[:, None] if rope_positions is None else rope_positions
     if cfg.use_rope:
-        q = apply_rope(q, pos[:, None], theta)
-        k_new = apply_rope(k_new, pos[:, None], theta)
+        q = apply_rope(q, pos_b, theta, cfg.mrope_sections)
+        k_new = apply_rope(k_new, pos_b, theta, cfg.mrope_sections)
     _scatter_kv(k_cache, k_new, pos)
     _scatter_kv(v_cache, v_new, pos)
 
@@ -113,6 +132,37 @@ def attn_decode(p, cfg, x, pos, kv_cache, *, window=None, theta=None):
     ctx = torch.einsum("bkgqs,bskh->bqkgh", attn.to(v_cache.dtype), v_cache)
     out = ctx.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
     return out, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_specs(cfg) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"wq": Leaf((d, H * hd)), "wk": Leaf((d, H * hd)),
+            "wv": Leaf((d, H * hd)), "wo": Leaf((H * hd, d))}
+
+
+def cross_kv(p, cfg, enc_out):
+    """The encoder output's keys and values, each (B, Se, H, hd)."""
+    B, Se, _ = enc_out.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(B, Se, H, hd),
+            (enc_out @ p["wv"]).reshape(B, Se, H, hd))
+
+
+def cross_attn(p, cfg, x, enc_kv, chunk: int = 1024):
+    """x: (B, Sq, d); enc_kv: (k, v) each (B, Se, H, hd), precomputed.
+    Every query sees every encoder key (no mask), on K6 in prefill and in
+    decode (Sq = 1)."""
+    B, Sq, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    k, v = enc_kv
+    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+    ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(hd),
+                            causal=False, chunk=chunk)
+    return ctx.reshape(B, Sq, H * hd) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Parameter trees and basic layers (norm, rope, MLP) of the port.
+"""Parameter trees and basic layers (norms, rope and M-RoPE, MLP) of the
+port.
 
 A model's parameters are declared as a nested spec — dicts of ``Leaf``
 declarations, with lists for runs of layers — and materialized as a
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "DTYPES", "Leaf", "ParamTree", "init_params", "rms_norm",
+    "DTYPES", "Leaf", "ParamTree", "init_params", "rms_norm", "layer_norm",
     "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "norm_specs",
 ]
 
@@ -103,8 +104,19 @@ def rms_norm(x, w, eps: float, plus_one: bool):
     return (x * scale).to(dt)
 
 
+def layer_norm(x, w, b, eps: float):
+    """LayerNorm computed in f32 (mean, variance, ``rsqrt``, affine),
+    returned in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
-# rotary embeddings (standard; M-RoPE waits for the VLM family)
+# rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -113,11 +125,34 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return float(theta) ** -exponents  # a host scalar: no copy to the card
 
 
-def apply_rope(x, positions, theta):
-    """x: (B, S, H, hd); positions: (B, S) integer."""
+def apply_rope(x, positions, theta, mrope_sections=None):
+    """x: (B, S, H, hd); positions: (B, S) integer, or (3, B, S) for
+    M-RoPE.
+
+    M-RoPE (qwen2-vl): the hd/2 frequency pairs split into (t, h, w)
+    sections, which sum to hd/2; section i rotates by position stream i,
+    and the angles are concatenated in that order.  Without sections a
+    (3, B, S) input uses stream 0; text passes identical streams, which
+    reduces M-RoPE to standard RoPE.
+    """
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
-    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    if mrope_sections is None:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    else:
+        if positions.dim() != 3 or sum(mrope_sections) != hd // 2:
+            raise ValueError(
+                f"M-RoPE needs (3, B, S) positions and sections summing to "
+                f"hd/2 = {hd // 2}: got {tuple(positions.shape)}, "
+                f"{mrope_sections}")
+        parts, start = [], 0
+        for i, n in enumerate(mrope_sections):
+            parts.append(positions[i][..., None].float()
+                         * freqs[start:start + n])
+            start += n
+        angles = torch.cat(parts, dim=-1)  # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,6 +1,7 @@
 """Model stacks and the ``Model`` facade of the port: the dense family
 (gemma, gemma3, qwen1.5, qwen2.5), the moe family (dbrx, deepseek-v3 with
-MLA), the ssm family (mamba2) and the hybrid family (zamba2).
+MLA), the vlm family (qwen2-vl), the ssm family (mamba2), the hybrid
+family (zamba2) and the encdec family (whisper).
 
 The JAX package scans stacked parameters with ``lax.scan``; the port runs
 its layers in Python loops over per-layer parameters.  A dense LM is
@@ -9,14 +10,21 @@ gemma3-style local:global pattern (:func:`layer_pattern`); a moe LM is
 ``moe_layer_start`` such blocks (``blocks``) and then attention + MoE
 blocks (``moe_blocks``), the attention MLA under ``cfg.mla``, and
 deepseek's multi-token-prediction head (``mtp``) is declared for the
-loss, which reads it; an ssm LM is ``n_layers`` Mamba2 blocks; zamba2 is
-``n_groups`` groups of [``hybrid_every`` − 1 Mamba2 blocks + one SHARED
-attention block (one set of weights, applied once per group)] and a tail
-of Mamba2 blocks.
+loss, which reads it; a vlm LM is a dense LM whose prefill puts the
+caller's patch embeddings (the vision tower is a stub, as in JAX) before
+the text and rotates by M-RoPE's three position streams; an ssm LM is
+``n_layers`` Mamba2 blocks; zamba2 is ``n_groups`` groups of
+[``hybrid_every`` − 1 Mamba2 blocks + one SHARED attention block (one
+set of weights, applied once per group)] and a tail of Mamba2 blocks;
+whisper is an encoder of ``n_enc_layers`` bidirectional blocks over the
+caller's frame embeddings (the conv frontend is a stub) and a decoder of
+``n_layers`` blocks with causal self-attention and cross-attention to
+the encoder's output.
 
 The serving caches keep the JAX layouts, in the compute dtype —
 
   dense   dense: (k, v), each (L, B, S_max, KV, hd)
+  vlm     as dense; S_max counts the n_vision_tokens patch positions
   moe     dense (when moe_layer_start > 0), moe: (k, v) as dense, each
           (L_dense or L_moe, B, S_max, KV, hd); under MLA (c_kv
           (L, B, S_max, kv_lora), k_rope (L, B, S_max, rope_hd))
@@ -24,12 +32,12 @@ The serving caches keep the JAX layouts, in the compute dtype —
   hybrid  g_ssm  (G, M, B, H, P, N)     g_conv (G, M, B, W-1, conv_dim)
           k, v   (G, B, S_max, KV, hd)  t_ssm  (T, B, H, P, N)
                                         t_conv (T, B, W-1, conv_dim)
+  encdec  k, v   (L, B, S_max, KV, hd)  ck, cv (L, B, enc_len, H, hd)
 
 — ``Model.alloc_cache`` allocates one; prefill and decode write it in
 place (prefill's k/v go to positions [0, S)) and return it.  The JAX
 package's sharding hook ``rules`` is dropped (one card), and ``loss``
 (with the moe aux term and the mtp head) waits for the training slice.
-The vlm and encdec families are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +45,14 @@ import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from .attention import (attn_decode, attn_specs, attn_train, mla_decode,
+from .attention import (attn_decode, attn_encode, attn_specs, attn_train,
+                        cross_attn, cross_attn_specs, cross_kv, mla_decode,
                         mla_specs, mla_train)
-from .layers import (DTYPES, Leaf, ParamTree, init_params, mlp_apply,
-                     mlp_specs, norm_specs, rms_norm)
+from .layers import (DTYPES, Leaf, ParamTree, init_params, layer_norm,
+                     mlp_apply, mlp_specs, norm_specs, rms_norm)
 from .moe import moe_apply, moe_specs
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
@@ -111,13 +121,15 @@ def _dense_block_train(p, cfg, h, positions, window, theta, moe=False):
     return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), kv
 
 
-def _dense_block_decode(p, cfg, h, pos, cache, window, theta, moe=False):
+def _dense_block_decode(
+    p, cfg, h, pos, cache, window, theta, moe=False, rope_positions=None
+):
     x = _norm(p["ln1"], cfg, h)
     if cfg.mla:
         a, cache = mla_decode(p["attn"], cfg, x, pos, cache)
     else:
         a, cache = attn_decode(p["attn"], cfg, x, pos, cache, window=window,
-                               theta=theta)
+                               theta=theta, rope_positions=rope_positions)
     h = h + a
     return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), cache
 
@@ -138,6 +150,7 @@ class Model:
     prefill: Callable  # (params, batch, cache=None) -> (last_logits, cache)
     decode: Callable  # (params, batch) -> (logits, cache)
     alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
+    encode: Callable | None = None  # encdec: (params, enc_embeds) -> h
 
     def init(self, generator: torch.Generator) -> ParamTree:
         """Random parameters on the generator's device, in the config's
@@ -147,21 +160,19 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _build_decoder_lm(cfg)
     if cfg.family == "ssm":
         return _build_ssm_lm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid_lm(cfg)
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1 item 6 (c)-(d))")
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
-# decoder-only LM (the dense and moe families)
+# decoder-only LM (the dense, moe and vlm families)
 # ---------------------------------------------------------------------------
 
 def layer_pattern(cfg, n_layers: int):
@@ -226,17 +237,31 @@ def _build_decoder_lm(cfg):
             cache["moe"] = kv(n_moe)
         return cache
 
+    def embed_input(params, batch):
+        """Token embeddings, after the patch embeddings (vlm) when the
+        batch holds them, and their positions: ``batch["positions"]``
+        when given ((B, S), or (3, B, S) under M-RoPE), else 0..S-1 —
+        ``embed_input`` of the JAX package."""
+        h = _embed(params, cfg, batch["tokens"])
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+        B, S, _ = h.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        return h, positions
+
     def prefill(params, batch, cache=None):
-        """batch["tokens"]: (B, S).  Returns the last position's logits
-        (B, vocab) f32 and the cache, allocated at S_max = S when none is
-        given, with every layer's k/v (after RoPE; c_kv and k_rope under
-        MLA) at positions [0, S)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        """batch["tokens"]: (B, S); optional "positions" and, for vlm,
+        "patch_embeds" (B, n_vision_tokens, d) before the text.  Returns
+        the last position's logits (B, vocab) f32 and the cache, allocated
+        at S_max = S (plus the patches) when none is given, with every
+        layer's k/v (after RoPE; c_kv and k_rope under MLA) at positions
+        [0, S)."""
+        h, positions = embed_input(params, batch)
+        B, S, _ = h.shape
         if cache is None:
-            cache = alloc_cache(B, S, tokens.device)
-        h = _embed(params, cfg, tokens)
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+            cache = alloc_cache(B, S, h.device)
         for name, key, moe, wins, ths in stacks:
             a_cache, b_cache = cache[key]
             for i, lp in enumerate(params[name]):
@@ -249,15 +274,17 @@ def _build_decoder_lm(cfg):
 
     def decode(params, batch):
         """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
-        attend up to, "cache".  Returns (logits (B, vocab) f32, cache)."""
+        attend up to, "cache", and for M-RoPE "positions" (3, B, 1), the
+        rotary streams.  Returns (logits (B, vocab) f32, cache)."""
         cache, pos = batch["cache"], batch["pos"]
+        rope_positions = batch.get("positions")
         h = _embed(params, cfg, batch["token"])
         for name, key, moe, wins, ths in stacks:
             a_cache, b_cache = cache[key]
             for i, lp in enumerate(params[name]):
                 h, _ = _dense_block_decode(lp, cfg, h, pos,
                                            (a_cache[i], b_cache[i]), wins[i],
-                                           ths[i], moe)
+                                           ths[i], moe, rope_positions)
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
@@ -415,3 +442,118 @@ def _build_hybrid_lm(cfg):
         return _logits(params, cfg, h)[:, 0], cache
 
     return Model(cfg, spec, prefill, decode, alloc_cache)
+
+
+# ---------------------------------------------------------------------------
+# enc-dec (whisper): the conv frontend is a stub — the caller gives frame
+# embeddings (B, enc_len, d); sinusoidal positions on the encoder, a
+# learned position table on the decoder
+# ---------------------------------------------------------------------------
+
+def _sinusoid(S, d, device=None):
+    """(S, d) f32: sin then cos of pos / 10⁴^(2i/d), computed in f64 by
+    numpy as the JAX package computes it."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10_000 ** (2 * i / d))
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.as_tensor(out.astype(np.float32), device=device)
+
+
+def _ln(p, cfg, x):
+    return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+
+
+def _ln_specs(d: int) -> dict:
+    return {"w": Leaf((d,), "ones"), "b": Leaf((d,), "zeros")}
+
+
+def _build_encdec(cfg):
+    L, d = cfg.n_layers, cfg.d_model
+    cdt = DTYPES[cfg.compute_dtype]
+    spec = {"embed": Leaf((cfg.vocab, d), "normal"),
+            "pos_embed": Leaf((cfg.max_positions, d), "normal"),
+            "enc_final_ln": _ln_specs(d), "dec_final_ln": _ln_specs(d),
+            "enc": [{"ln1": _ln_specs(d), "attn": attn_specs(cfg),
+                     "ln2": _ln_specs(d),
+                     "mlp": mlp_specs(d, cfg.d_ff, "gelu")}
+                    for _ in range(cfg.n_enc_layers)],
+            "dec": [{"ln1": _ln_specs(d), "attn": attn_specs(cfg),
+                     "ln2": _ln_specs(d), "xattn": cross_attn_specs(cfg),
+                     "ln3": _ln_specs(d),
+                     "mlp": mlp_specs(d, cfg.d_ff, "gelu")}
+                    for _ in range(L)]}
+
+    def alloc_cache(B, s_max, device):
+        """The decoder's self-attention k/v at ``s_max`` positions and the
+        cross-attention's ck/cv over the encoder's ``enc_len`` frames."""
+        kv = (L, B, s_max, cfg.n_kv_heads, cfg.head_dim)
+        ckv = (L, B, cfg.enc_len, cfg.n_heads, cfg.head_dim)
+        return {k: torch.zeros(shape, dtype=cdt, device=device)
+                for k, shape in (("k", kv), ("v", kv), ("ck", ckv),
+                                 ("cv", ckv))}
+
+    def encode(params, enc_embeds):
+        """The encoder over frame embeddings (B, Se, d): the embeddings
+        plus the sinusoid, both in the compute dtype, then bidirectional
+        blocks; returns the final LayerNorm's output."""
+        h = enc_embeds.to(cdt) + _sinusoid(enc_embeds.shape[1], d,
+                                           enc_embeds.device).to(cdt)
+        for lp in params["enc"]:
+            h = h + attn_encode(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
+                                chunk=cfg.attn_chunk)
+            h = h + mlp_apply(lp["mlp"], _ln(lp["ln2"], cfg, h), "gelu")
+        return _ln(params["enc_final_ln"], cfg, h)
+
+    def logits(params, h):
+        """The tied head on the final LayerNorm of h (B, d), in f32."""
+        return (_ln(params["dec_final_ln"], cfg, h) @ params["embed"].T
+                ).float()
+
+    def prefill(params, batch, cache=None):
+        """batch: "tokens" (B, S), "enc_embeds" (B, enc_len, d).  Returns
+        the last position's logits (B, vocab) f32 and the cache, allocated
+        at S_max = S when none is given: each decoder layer's self k/v at
+        positions [0, S) and its cross ck/cv over the encoder's output."""
+        tokens, frames = batch["tokens"], batch["enc_embeds"]
+        B, S = tokens.shape
+        if tuple(frames.shape) != (B, cfg.enc_len, d):
+            raise ValueError(f"enc_embeds {tuple(frames.shape)}: the cache "
+                             f"holds ({B}, enc_len={cfg.enc_len}, {d})")
+        if cache is None:
+            cache = alloc_cache(B, S, tokens.device)
+        enc_out = encode(params, frames)
+        # added in the parameter dtype, then cast: the JAX order
+        h = (params["embed"][tokens] + params["pos_embed"][:S]).to(cdt)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        for i, lp in enumerate(params["dec"]):
+            a, (k, v) = attn_train(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
+                                   positions, chunk=cfg.attn_chunk)
+            cache["k"][i, :, :S].copy_(k)
+            cache["v"][i, :, :S].copy_(v)
+            h = h + a
+            ck, cv = cross_kv(lp["xattn"], cfg, enc_out)
+            cache["ck"][i].copy_(ck)
+            cache["cv"][i].copy_(cv)
+            h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
+                               (ck, cv), chunk=cfg.attn_chunk)
+            h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+        return logits(params, h[:, -1]), cache
+
+    def decode(params, batch):
+        """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
+        attend up to (and the row of the position table), "cache".
+        Returns (logits (B, vocab) f32, cache)."""
+        cache, pos = batch["cache"], batch["pos"]
+        h = (params["embed"][batch["token"]]
+             + params["pos_embed"][pos][:, None, :]).to(cdt)
+        for i, lp in enumerate(params["dec"]):
+            a, _ = attn_decode(lp["attn"], cfg, _ln(lp["ln1"], cfg, h), pos,
+                               (cache["k"][i], cache["v"][i]))
+            h = h + a
+            h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
+                               (cache["ck"][i], cache["cv"][i]))
+            h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+        return logits(params, h[:, 0]), cache
+
+    return Model(cfg, spec, prefill, decode, alloc_cache, encode)

@@ -296,6 +296,14 @@ def _rel(got, want):
     (1, 150, 333, 8, 2, 200, True, 0),  # four boxes, ragged GQA Sq < Sk
     (1, 200, 200, 4, 4, 256, True, 0),  # gemma-7b's hd
     (1, 96, 260, 4, 1, 256, True, 70),  # MQA, a window
+    # whisper-medium: cross-attention in decode (one query row folded
+    # into a 128-row block) and in prefill (Sq < Sk, no mask), and the
+    # encoder over 1500 frames (a ragged last key tile: 23 · 64 + 28);
+    # qwen2-vl-72b's GQA 64:8 at D 128
+    (4, 1, 1500, 16, 16, 64, False, 0),
+    (4, 416, 1500, 16, 16, 64, False, 0),
+    (2, 1500, 1500, 16, 16, 64, False, 0),
+    (1, 200, 200, 64, 8, 128, True, 0),
 ])
 def test_cuda_flash_wgmma_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, window):
     """bf16 goes to the wgmma kernel at every hd up to 256 (one to four
@@ -350,6 +358,11 @@ def test_cuda_flash_bf16_hd_256_takes_the_wgmma_kernel():
     (1, 150, 333, 8, 2, 200, True, 40),
     (1, 77, 300, 4, 4, 256, True, 50),
     (2, 100, 100, 2, 2, 256, False, 0),
+    # whisper-medium's and qwen2-vl-72b's shapes, as for the wgmma kernel
+    (4, 1, 1500, 16, 16, 64, False, 0),
+    (4, 416, 1500, 16, 16, 64, False, 0),
+    (2, 1500, 1500, 16, 16, 64, False, 0),
+    (1, 200, 200, 64, 8, 128, True, 0),
 ])
 def test_cuda_flash_tf32_matches_plain_version(B, Sq, Sk, H, KH, hd, causal, window):
     """f32 goes to the split-TF32 kernel at every hd up to 256: one launch,
@@ -561,6 +574,85 @@ def test_cuda_reduced_families_prefill_match_the_cpu(arch, flash, ssd_scans):
     assert (fa.LAUNCHES["flash_attention_tf32"] - before[0],
             ssd.LAUNCHES["ssd_scan"] - before[1]) == (flash, ssd_scans)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_reduced_qwen2_vl_prefill_and_decode_match_the_cpu():
+    """The reduced qwen2-vl (f32) on the card, 16 patch embeddings before
+    the text at distinct M-RoPE streams: one attention launch a layer in
+    the prefill, none in a decode step, against the same weights and
+    inputs on the CPU through the plain versions."""
+    dev = _card()
+    cfg = get_config("qwen2-vl-72b", reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    nv, S = cfg.n_vision_tokens, 60
+    tokens = torch.randint(0, cfg.vocab, (2, S), generator=g)
+    patches = torch.randn((2, nv, cfg.d_model), generator=g)
+    r = torch.arange(nv) // 4
+    vision = torch.stack([torch.zeros(nv, dtype=torch.long), r,
+                          torch.arange(nv) % 4])
+    pos = torch.cat([vision, torch.arange(S).expand(3, S) + 4], dim=1)
+    batch = {"tokens": tokens, "patch_embeds": patches,
+             "positions": pos[:, None].expand(3, 2, nv + S)}
+
+    def serve(device):
+        cache = model.alloc_cache(2, nv + S + 1, device)
+        b = {k: v.to(device) for k, v in batch.items()}
+        logits, cache = model.prefill(params, b, cache=cache)
+        before = fa.LAUNCHES["flash_attention_tf32"]
+        dec, _ = model.decode(params, {
+            "token": logits.argmax(-1)[:, None], "cache": cache,
+            "pos": torch.full((2,), nv + S, device=device),
+            "positions": torch.full((3, 2, 1), S + 4, device=device)})
+        return logits, dec, fa.LAUNCHES["flash_attention_tf32"] - before
+
+    want, want_dec, _ = serve("cpu")
+    params.to(dev)
+    before = fa.LAUNCHES["flash_attention_tf32"]
+    got, got_dec, decode_launches = serve(dev)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_tf32"] - before == cfg.n_layers
+    assert decode_launches == 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got_dec.cpu(), want_dec, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_reduced_whisper_prefill_and_decode_match_the_cpu():
+    """The reduced whisper (f32) on the card: an encoder, a self and a
+    cross-attention launch a layer in the prefill (3 + 3 + 3), one
+    cross-attention launch a layer (Sq = 1 against the 64 frames) in a
+    decode step, against the same weights and inputs on the CPU through
+    the plain versions."""
+    dev = _card()
+    cfg = get_config("whisper-medium", reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 45), generator=g)
+    frames = torch.randn((2, cfg.enc_len, cfg.d_model), generator=g)
+
+    def serve(device):
+        cache = model.alloc_cache(2, 46, device)
+        logits, cache = model.prefill(params, {
+            "tokens": tokens.to(device), "enc_embeds": frames.to(device)},
+            cache=cache)
+        before = fa.LAUNCHES["flash_attention_tf32"]
+        dec, _ = model.decode(params, {
+            "token": logits.argmax(-1)[:, None], "cache": cache,
+            "pos": torch.full((2,), 45, device=device)})
+        return logits, dec, fa.LAUNCHES["flash_attention_tf32"] - before
+
+    want, want_dec, _ = serve("cpu")
+    params.to(dev)
+    before = fa.LAUNCHES["flash_attention_tf32"]
+    got, got_dec, decode_launches = serve(dev)
+    torch.cuda.synchronize()
+    assert decode_launches == cfg.n_layers
+    assert fa.LAUNCHES["flash_attention_tf32"] - before == \
+        cfg.n_enc_layers + 2 * cfg.n_layers + decode_launches
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got_dec.cpu(), want_dec, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -135,6 +135,32 @@ def test_prefill_decode_consistency(runs):
     close(runs["dec"], runs["full"])
 
 
+@pytest.mark.parametrize("arch", ["gemma-7b", "qwen2.5-32b"])
+def test_prefill_takes_the_callers_positions(arch):
+    """A prefill given ``batch["positions"]`` rotates by them, as JAX's
+    ``embed_input`` does: increasing positions with gaps, from 5, match
+    JAX and move the logits away from the default 0..S-1 (an offset alone
+    would not: RoPE sees only the distances)."""
+    S = 24
+    jcfg = jax_config(arch, reduced=True)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(3))
+    tokens = np.random.default_rng(3).integers(0, jcfg.vocab, (B, S))
+    gaps = np.random.default_rng(4).integers(1, 4, (B, S))
+    pos = (np.cumsum(gaps, axis=1) + 4).astype(np.int32)
+    want, _ = jax.jit(jmodel.prefill)(jparams, {
+        "tokens": jnp.asarray(tokens), "positions": jnp.asarray(pos)})
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = from_jax_params(cfg, jax.tree.map(np.asarray, jparams))
+    t = torch.as_tensor(tokens)
+    got, _ = model.prefill(params, {"tokens": t,
+                                    "positions": torch.as_tensor(pos)})
+    close(got, want)
+    default, _ = model.prefill(params, {"tokens": t})
+    assert np.abs(default.numpy() - np.asarray(want)).max() > 1e-3
+
+
 def _count(node):
     if isinstance(node, Leaf):
         return int(np.prod(node.shape))
