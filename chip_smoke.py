@@ -5,12 +5,13 @@
 Run from the root of a checkout (it imports ``repro_torch`` from
 ``src/``).  Phases, each asserted; any failure exits non-zero:
 
-1. build the port's five CUDA libraries (budgeted DP, the three flash
+1. build the port's seven CUDA libraries (budgeted DP, the three flash
    attention kernels — bf16 on wgmma, f32 in split TF32, and the f32-FMA
-   referee —, SSD scan), one nvcc each, all started together (timed);
-   print ptxas's registers and spills for every kernel, and fail if a
-   budgeted-DP, SSD or TF32 attention kernel, or the wgmma attention at
-   D = 192 or 256, spills;
+   referee —, SSD scan, and the attention and SSD backward kernels), one
+   nvcc each, all started together (timed); print ptxas's registers and
+   spills for every kernel, and fail if a budgeted-DP, SSD (forward or
+   backward) or TF32 attention kernel, or the wgmma attention at D = 192
+   or 256, spills;
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
@@ -151,6 +152,31 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    cross-attention launches a prefill, D = 64, and 24 cross-attention
    launches a decode token, whose f32 decode step is held to the plain
    versions' too), each with the peak memory and whisper's encoder ms;
+   (k) training, with no fallback to the plain versions: the attention
+   backward kernel (``flash_attention_bwd``) against its plain version
+   and the plain version run in f64 at qwen2.5-32b's, gemma-7b's (D 256),
+   gemma3-27b's local (window 1024), whisper's encoder and cross
+   (1500 × 1500, 448 × 1500), deepseek-v3's MLA (q/k 192, v 128) shapes
+   in bf16 and Zamba2's (D 112) in f32 — bf16 no farther from the f64
+   backward than 1.5 × the bf16 plain version + 2e-3, f32 than 2 × the
+   f32 plain version + 1e-5 — with the forward's log-sum-exp leaving its
+   output's bits alone; the SSD backward (``ssd_bwd``) the same way at
+   Mamba2-2.7B's (S 2049: S % Q = 1; and its training shape, S 2048
+   with no final-state gradient) and Zamba2-7B's shapes; both bitwise
+   equal over two runs; every gradient leaf of the attention layers
+   (qwen2.5-32b, 4 layers) and of the Mamba2 mixers (Mamba2-2.7B, 16
+   layers) at full width in f32, through the kernels, within 1e-3
+   (‖Δg‖₂ / ‖g‖₂) of the same leaf through the plain versions, with a
+   planted fault (dK or dB zeroed) that must land outside that limit;
+   qwen2.5-32b at full width with 4 of its
+   64 layers and FULL Mamba2-2.7B through ``make_train_step`` in bf16,
+   5 AdamW steps on one 2 × 2049-token ``SyntheticLM`` batch under remat
+   "full", the loss falling, each step's launches counted (2 forward and
+   1 backward a layer), the first step's loss and gradient norm within
+   1e-3 (relative) of the same step through the plain versions, and the
+   planted fault's gradient norm outside it, the step ms and the peak
+   memory; ``launch.train`` on the reduced qwen2.5-32b with a failure at
+   step 12, one restart from its checkpoint, and its launches counted;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -172,7 +198,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    3072 positions) and whisper-medium's four (the encoder, the decoder's
    self-attention, cross-attention in prefill and in decode, Sq = 1) with
    their launches from (j), with the CUDA-core referee's
-   time at the f32, gemma and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; and
+   time at the f32, gemma and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; the
+   attention backward at qwen2.5-32b's training shape beside torch
+   autograd of ``scaled_dot_product_attention`` (its backward alone) and
+   the SSD backward at Mamba2-2.7B's; and
    the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
@@ -227,6 +256,9 @@ FAW_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 FAT_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_tf32.cu")
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+FAB_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd.cu")
+SSB_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu"
 # warm_tiled: solves WARM_FROM .. WARM_FROM + N_WARM of an ESDP run on the
 # fig-6 c_hi = 6 plane, re-solved in segments of WARM_K edges
 WARM_FROM, N_WARM, WARM_K = 1000, 50, 8
@@ -279,7 +311,8 @@ def profiled_ms(fn, calls, kernel_names, launches_per_call=1):
     than were launched: a name's time a call is then the mean of the
     events the trace holds times ``launches_per_call`` (its launches a
     call), and the shortfall is printed; ``None`` where a call's launches
-    vary, which divides the trace's total by ``calls``."""
+    vary, which divides the trace's total by ``calls``; a dict gives each
+    name its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if isinstance(kernel_names, str):
@@ -300,14 +333,16 @@ def profiled_ms(fn, calls, kernel_names, launches_per_call=1):
                     getattr(evt, "cuda_time_total", 0.0)) / 1e3
                 events[name] += evt.count
     for name in kernel_names:
-        if launches_per_call is None or not events[name]:
+        per = (launches_per_call.get(name, 1)
+               if isinstance(launches_per_call, dict) else launches_per_call)
+        if per is None or not events[name]:
             shares[name] /= calls
             continue
-        if events[name] < calls * launches_per_call:
+        if events[name] < calls * per:
             print(f"   the trace holds {events[name]} of the "
-                  f"{calls * launches_per_call} {name} launches: its time "
-                  "a call from their mean", flush=True)
-        shares[name] *= launches_per_call / events[name]
+                  f"{calls * per} {name} launches: its time a call from "
+                  "their mean", flush=True)
+        shares[name] *= per / events[name]
     total = sum(shares.values())
     return (total if total > 0 else None), shares
 
@@ -482,7 +517,11 @@ def main():
           f"{FAW_SOURCE}; flash_attention_tf32 (K6, f32) from {FAT_SOURCE}; "
           f"the f32-FMA referee flash_fwd_kernel (no input routed to it) "
           f"from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel: "
-          f"{', '.join(ssd.KERNELS)}) from {SSD_SOURCE}", flush=True)
+          f"{', '.join(ssd.KERNELS)}) from {SSD_SOURCE}; for training "
+          f"flash_attention_bwd (new, no TPU kernel: the gradient of K6's "
+          f"function) from {FAB_SOURCE} and ssd_bwd (new: the gradient of "
+          f"K7's, {', '.join(ssd.BWD_KERNELS)}) from {SSB_SOURCE}",
+          flush=True)
     # a reference states both: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -490,7 +529,7 @@ def main():
     # ------------------------------------------------------------- build
     t0 = phase("build (one nvcc per library, all started together)")
     libraries = (build.LIBRARY, fa.WGMMA_LIBRARY, fa.TF32_LIBRARY,
-                 fa.LIBRARY, ssd.LIBRARY)
+                 fa.LIBRARY, ssd.LIBRARY, fa.BWD_LIBRARY, ssd.BWD_LIBRARY)
     nvcc.build_all(libraries)
     for lib in libraries:
         lib.load()
@@ -499,12 +538,14 @@ def main():
         for name, regs, spilled in kernels:
             print(f"      {name}: {regs} registers, {spilled} bytes spilled",
                   flush=True)
-        # the redesigned kernels must not spill: every DP, SSD and TF32
-        # attention kernel, and the wgmma attention at D = 192 and 256
-        gated = {fa.LIBRARY: [], fa.WGMMA_LIBRARY: [
+        # the redesigned kernels must not spill: every DP, SSD (forward
+        # and backward) and TF32 attention kernel, and the wgmma attention
+        # at D = 192 and 256; the referee and the attention backward (a
+        # first, CUDA-core design) are reported only
+        gated = {fa.LIBRARY: [], fa.BWD_LIBRARY: [], fa.WGMMA_LIBRARY: [
             k for k in kernels if k[0].endswith(("<192>", "<256>"))]}.get(
                 lib, kernels)
-        if (lib is not fa.LIBRARY and not gated) or any(
+        if (lib not in (fa.LIBRARY, fa.BWD_LIBRARY) and not gated) or any(
                 sp for _, _, sp in gated):
             fail(f"{lib.source.name}: ptxas reports spills (or no report): "
                  f"{gated}")
@@ -2271,9 +2312,9 @@ def main():
         saved = tr_mod._dense_block_train
 
         def recording(*args, **kw):
-            h, kv = saved(*args, **kw)
+            h, kv, aux = saved(*args, **kw)
             out[:] = [h]
-            return h, kv
+            return h, kv, aux
 
         tr_mod._dense_block_train = recording
         try:
@@ -2586,6 +2627,349 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         done(t0)
 
+    # ------------------------------------------------------------ training
+    # (k) training on the card, no fallback: the attention (K6) and SSD
+    # (K7) backward kernels against their plain versions (and the plain
+    # versions run in f64), bitwise repeatable; qwen2.5-32b at full width
+    # with 4 of its 64 layers and FULL mamba2-2.7b through
+    # make_train_step, bf16, 5 AdamW steps on one 2 x 2049-token batch of
+    # SyntheticLM, the loss falling, the launches of each step counted
+    # (remat "full": the forward, its recompute and one backward a layer),
+    # the first step's loss and gradient norm against the same step under
+    # plain_versions(), and every gradient leaf of the attention layers and
+    # the Mamba2 mixers in f32, each gate beside a planted fault that it
+    # must see; launch.train on the reduced qwen2.5-32b with a scheduled
+    # failure, restarted once from its checkpoint
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainState, make_train_step
+    torch.cuda.empty_cache()
+    bwd_err = {"flash_attention_bwd": 0.0, "ssd_bwd": 0.0}
+
+    def grad_dist(got, want):
+        """max |got − want| / (1 + |want|) over one gradient, in f64."""
+        return float(((got.double() - want).abs() / (1 + want.abs())).max())
+
+    t0 = phase("(k) training: the attention backward (K6) against its plain "
+               "version and the f64 plain version")
+    # label, B, Sq, Sk, H, KH, q/k and v head dims, causal, window, dtype
+    for (label, B, Sq, Sk, H, KH, hd, vh, causal, window, dtype) in (
+            ("qwen2.5-32b", 2, 2048, 2048, 40, 8, 128, 128, True, 0,
+             torch.bfloat16),
+            ("gemma-7b", 2, 2048, 2048, 16, 16, 256, 256, True, 0,
+             torch.bfloat16),
+            ("gemma3-27b local", 2, 2048, 2048, 32, 16, 128, 128, True, 1024,
+             torch.bfloat16),
+            ("whisper encoder", 2, 1500, 1500, 16, 16, 64, 64, False, 0,
+             torch.bfloat16),
+            ("whisper cross", 2, 448, 1500, 16, 16, 64, 64, False, 0,
+             torch.bfloat16),
+            ("deepseek-v3 MLA", 1, 2048, 2048, 128, 128, 192, 128, True, 0,
+             torch.bfloat16),
+            ("zamba2-7b", 2, 2048, 2048, 32, 32, 112, 112, True, 0,
+             torch.float32)):
+        g = torch.Generator(dev).manual_seed(Sq + hd + vh)
+        q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                       for s in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                                 (B, Sk, KH, vh), (B, Sq, H, vh)))
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        if not torch.equal(o, fa.flash_attention(q, k, v, **kw)):
+            fail(f"K6 {label}: the output with the log-sum-exp differs from "
+                 "the output without it")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K6 backward {label}: two runs differ")
+        po, plse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        plain = fa.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+        del po, plse
+        d64 = [t.double() for t in (q, k, v, do)]
+        o64, l64 = fa.flash_attention_ref(*d64[:3], return_lse=True,
+                                          chunk=512, **kw)
+        exact = fa.flash_attention_bwd_ref(*d64[:3], o64, l64, d64[3],
+                                           chunk=512, **kw)
+        del d64, o64, l64
+        dt_ = "bf16" if dtype == torch.bfloat16 else "f32"
+        lse_err = float((lse.double() - fa.flash_attention_ref(
+            q.double(), k.double(), v.double(), return_lse=True, chunk=512,
+            **kw)[1]).abs().max())
+        parts = []
+        for name, a, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            err_k, err_p = grad_dist(a, e), grad_dist(p, e)
+            bwd_err["flash_attention_bwd"] = max(
+                bwd_err["flash_attention_bwd"],
+                float((a.float() - p.float()).abs().max()))
+            limit = (2 * err_p + 1e-5 if dtype == torch.float32
+                     else 1.5 * err_p + 2e-3)
+            parts.append(f"{name} {err_k:.3g} (plain {err_p:.3g}, limit "
+                         f"{limit:.3g})")
+            if not err_k <= limit:
+                fail(f"K6 backward {label} {dt_}: {name} is {err_k:.4g} from "
+                     f"the f64 plain version, over {limit:.4g}")
+        print(f"   {label} {dt_} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} q/k {hd} "
+              f"v {vh} {'causal' if causal else 'bidirectional'}"
+              + (f" window {window}" if window else "") + ": from the f64 "
+              "plain backward, max |a − exact| / (1 + |exact|): "
+              + "; ".join(parts) + f"; lse {lse_err:.3g} from f64; two runs "
+              "bitwise equal", flush=True)
+        del q, k, v, do, o, lse, got, again, plain, exact
+        torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase("(k) training: the SSD backward (K7) against its plain "
+               "version and the f64 plain version")
+    # the last case is the Mamba2 training path's: 16 whole chunks and no
+    # final-state gradient (the model drops the final state)
+    for label, (B, S, H, P, N, Q), with_dst in (
+            ("mamba2-2.7b, S % Q = 1", (2, 2049, 80, 64, 128, 128), True),
+            ("zamba2-7b", (2, 2048, 112, 64, 64, 128), True),
+            ("mamba2-2.7b training, no final-state gradient",
+             (2, 2048, 80, 64, 128, 128), False)):
+        args = ssd_inputs(B, S, H, P, N, 23)
+        g = torch.Generator(dev).manual_seed(29)
+        dy = torch.randn((B, S, H, P), generator=g, device=dev)
+        dst = (torch.randn((B, H, N, P), generator=g, device=dev)
+               if with_dst else None)
+        _, _, states, cum = ssd.ssd_scan_saved(*args, Q)
+        got = ssd.ssd_bwd(*args, Q, dy, dst, states, cum)
+        again = ssd.ssd_bwd(*args, Q, dy, dst, states, cum)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K7 backward {label}: two runs differ")
+        plain = ssd.ssd_bwd_ref(*args, Q, dy, dst)
+        exact = ssd.ssd_bwd_ref(*(t.double() for t in args), Q, dy.double(),
+                                None if dst is None else dst.double())
+        parts = []
+        for name, a, p, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                                 exact):
+            scale = float(e.abs().max())  # dA sums every step of every row
+            err_k = grad_dist(a / scale, e / scale)
+            err_p = grad_dist(p / scale, e / scale)
+            bwd_err["ssd_bwd"] = max(bwd_err["ssd_bwd"],
+                                     float((a - p).abs().max()))
+            limit = 2 * err_p + 1e-5
+            parts.append(f"{name} {err_k:.3g} (plain {err_p:.3g})")
+            if not err_k <= limit:
+                fail(f"K7 backward {label}: {name} is {err_k:.4g} from the "
+                     f"f64 plain version, over {limit:.4g}")
+        print(f"   {label} B={B} S={S} H={H} P={P} N={N} Q={Q}: from the f64 "
+              "plain backward, max |a − exact| / (1 + |exact|) over the "
+              "gradient scaled to max |exact| = 1 (limit twice the f32 plain "
+              "version's + 1e-5): " + "; ".join(parts) + "; two runs bitwise "
+              "equal", flush=True)
+        del args, dy, dst, states, cum, got, again, plain, exact
+        torch.cuda.empty_cache()
+    done(t0)
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    @contextlib.contextmanager
+    def planted_fault():
+        """For the controls only: the backward kernels' dK (attention) and
+        dB (SSD) set to zero, faults that the gradient gates must see."""
+        saved = fa_ops.flash_attention_bwd, ssd_ops.ssd_bwd
+
+        def attention_bwd(*args, **kw):
+            dq, dk, dv = saved[0](*args, **kw)
+            return dq, torch.zeros_like(dk), dv
+
+        def scan_bwd(*args, **kw):
+            dx, ddt, dA, dB, dC = saved[1](*args, **kw)
+            return dx, ddt, dA, torch.zeros_like(dB), dC
+
+        fa_ops.flash_attention_bwd, ssd_ops.ssd_bwd = attention_bwd, scan_bwd
+        try:
+            yield
+        finally:
+            fa_ops.flash_attention_bwd, ssd_ops.ssd_bwd = saved
+
+    def first_grads(model_t, params_t, batch_t, keep=lambda name: False):
+        """One forward and backward of the loss: the loss, the global
+        gradient norm (f32) and the gradients of the leaves ``keep``
+        names."""
+        named = list(params_t.named_parameters())
+        loss, _ = model_t.loss(params_t, batch_t, remat="full")
+        gs = torch.autograd.grad(loss, [p for _, p in named],
+                                 allow_unused=True)
+        norm = float(torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                                    for x in gs if x is not None)))
+        return (float(loss.detach()), norm,
+                {n: x for (n, _), x in zip(named, gs) if keep(n)})
+
+    def leaf_gap(got, want):
+        """The largest ‖got − want‖₂ / ‖want‖₂ over the leaves, and its
+        leaf."""
+        return max((float(torch.linalg.vector_norm(got[n].float() - w.float())
+                          / torch.linalg.vector_norm(w.float())), n)
+                   for n, w in want.items())
+
+    def train_batch(cfg_t):
+        tokens = SyntheticLM(vocab=cfg_t.vocab, seq_len=2048, global_batch=2,
+                             seed=SEED).batch(0)["tokens"]
+        return {"tokens": torch.as_tensor(tokens, device=dev).long()}
+
+    # every gradient leaf that the backward kernels feed, in f32, where the
+    # kernels and the plain versions agree to ~1e-5 and a wrong gradient
+    # stands out; bf16's rounding spreads over the layers (its leaves
+    # differ by several percent between two sound paths), so there the
+    # gate is the global norm below
+    LEAF_LIMIT = 1e-3
+    for arch, n_layers, keep, what in (
+            ("qwen2.5-32b", 4,
+             # the key bias's gradient is zero in exact arithmetic (a
+             # softmax does not see a shift common to its row), so both
+             # paths hold only rounding there
+             lambda n: ".attn." in n and not n.endswith(".bk"),
+             "the attention leaves"),
+            ("mamba2-2.7b", 16, lambda n: ".mixer." in n,
+             "the Mamba2 mixers' leaves")):
+        cfg_l = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        t0 = phase(f"(k) training: {what} of {arch} ({n_layers} layers, "
+                   "full width, f32), one step's gradient through the "
+                   "kernels against the plain versions, and a planted fault")
+        model_l = build_model(cfg_l)
+        params_l = model_l.init(torch.Generator(dev).manual_seed(SEED),
+                                trainable=True)
+        batch_l = train_batch(cfg_l)
+        with plain_versions():
+            _, _, want = first_grads(model_l, params_l, batch_l, keep)
+        _, _, got = first_grads(model_l, params_l, batch_l, keep)
+        sound = leaf_gap(got, want)
+        del got
+        with planted_fault():
+            _, _, bad = first_grads(model_l, params_l, batch_l, keep)
+        control = leaf_gap(bad, want)
+        del bad
+        print(f"   {len(want)} leaves; the largest ‖Δg‖₂ / ‖g‖₂ from the "
+              f"plain versions': kernels {sound[0]:.3g} ({sound[1]}), "
+              f"planted fault {control[0]:.3g} ({control[1]}); limit "
+              f"{LEAF_LIMIT:g}", flush=True)
+        if not sound[0] <= LEAF_LIMIT:
+            fail(f"{arch} f32: the gradient of {sound[1]} is {sound[0]:.4g} "
+                 f"from the plain versions', over {LEAF_LIMIT:g}")
+        if not control[0] > LEAF_LIMIT:
+            fail(f"{arch} f32: the planted fault stays within {LEAF_LIMIT:g} "
+                 f"({control[0]:.4g}): the leaf gate cannot see it")
+        del model_l, params_l, batch_l, want
+        torch.cuda.empty_cache()
+        done(t0)
+
+    train_counts, train_ms = {}, {}
+    TRAIN_STEPS, TRAIN_LR = 5, 1e-4
+    STEP_LIMIT = 1e-3  # relative, for the first step's loss and norm
+
+    def train_phase(arch, n_layers, per_step):
+        """``TRAIN_STEPS`` steps of ``arch`` (``n_layers`` of them, or
+        FULL) at full width in bf16 on one batch; ``per_step``: the
+        launches a step must make."""
+        cfg_t = get_config(arch)
+        if n_layers:
+            cfg_t = dataclasses.replace(cfg_t, n_layers=n_layers)
+        t0 = phase(f"(k) training: {arch} ({cfg_t.n_layers} layers, full "
+                   f"width), bf16, {TRAIN_STEPS} AdamW steps on a 2 x 2049-"
+                   "token SyntheticLM batch, remat full")
+        model_t = build_model(cfg_t)
+        params_t = model_t.init(torch.Generator(dev).manual_seed(SEED),
+                                trainable=True)
+        n_par = sum(p.numel() for p in params_t.parameters())
+        batch_t = train_batch(cfg_t)
+        # the first step's loss and gradient norm through the plain
+        # versions, before any update, and the norm under a planted fault
+        reset()
+        with plain_versions():
+            loss_p, gnorm_p, _ = first_grads(model_t, params_t, batch_t)
+        if not expect(read_counts()):
+            fail(f"{arch}: the plain-version step launched {read_counts()}")
+        with planted_fault():
+            _, gnorm_c, _ = first_grads(model_t, params_t, batch_t)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt_t = AdamW(lr=TRAIN_LR)
+        state_t = TrainState(params=params_t, opt=opt_t.init(params_t),
+                             err=None)
+        step_t = make_train_step(model_t, opt_t, remat="full")
+        losses, step_ms = [], []
+        reset()
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            state_t, m = step_t(state_t, batch_t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - w0) * 1e3)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                gnorm_k = float(m["grad_norm"])
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+        print(f"   {n_par} parameters; launches over {TRAIN_STEPS} steps "
+              f"{counts}; losses {[round(x, 4) for x in losses]}; step ms "
+              f"{[round(x, 1) for x in step_ms]}; peak memory {peak:.2f} GiB",
+              flush=True)
+        gap_l = abs(losses[0] - loss_p) / abs(loss_p)
+        gap_n, gap_c = (abs(x - gnorm_p) / gnorm_p for x in (gnorm_k, gnorm_c))
+        print(f"   first step: loss {losses[0]:.6f} (plain versions "
+              f"{loss_p:.6f}, {gap_l:.3g} relative), gradient norm "
+              f"{gnorm_k:.6f} (plain {gnorm_p:.6f}, {gap_n:.3g}); limit "
+              f"{STEP_LIMIT:g} relative for each (bf16: the plain attention "
+              "rounds q·k and p to bf16, the kernels do not); the planted "
+              f"fault's norm {gnorm_c:.6f} ({gap_c:.3g})", flush=True)
+        if not expect(counts, **want):
+            fail(f"{arch} training launched {counts}, expected {want}")
+        if not losses[-1] < losses[0] or not all(map(np.isfinite, losses)):
+            fail(f"{arch}: the loss did not fall over {TRAIN_STEPS} steps: "
+                 f"{losses}")
+        if not gap_c > STEP_LIMIT:
+            fail(f"{arch}: the planted fault moves the gradient norm by "
+                 f"{gap_c:.4g}, within {STEP_LIMIT:g}: the gate cannot see it")
+        if not (gap_l <= STEP_LIMIT and gap_n <= STEP_LIMIT):
+            fail(f"{arch}: the first step's loss {losses[0]} / gradient norm "
+                 f"{gnorm_k} differ from the plain versions' {loss_p} / "
+                 f"{gnorm_p}")
+        train_counts[arch] = counts
+        train_ms[arch] = (sorted(step_ms[1:])[len(step_ms[1:]) // 2], peak)
+        del model_t, params_t, state_t, step_t, opt_t, batch_t, m
+        torch.cuda.empty_cache()
+        done(t0)
+
+    q_layers = 4
+    train_phase("qwen2.5-32b", q_layers, {
+        "flash_attention_wgmma": 2 * q_layers,
+        "flash_attention_bwd": q_layers})
+    m_layers = get_config("mamba2-2.7b").n_layers
+    train_phase("mamba2-2.7b", 0, {"ssd_scan": 2 * m_layers,
+                                   "ssd_bwd": m_layers})
+
+    t0 = phase("(k) training: launch.train on the card, reduced qwen2.5-32b, "
+               "30 steps, a failure at step 12, a checkpoint every 5")
+    import tempfile
+    with tempfile.TemporaryDirectory() as ckdir:
+        reset()
+        summary = train_mod.main([
+            "--arch", "qwen2.5-32b", "--reduced", "--steps", "30", "--batch",
+            "2", "--seq", "64", "--fail-at", "12", "--save-every", "5",
+            "--ckpt-dir", ckdir])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    ran = summary["steps"] + summary["lost_steps"]
+    n_l = get_config("qwen2.5-32b", reduced=True).n_layers
+    print(f"   summary {summary}; launches {counts} over {ran} steps run",
+          flush=True)
+    if summary["restarts"] != 1 or summary["steps"] != 30 or not (
+            summary["last_loss"] < summary["first_loss"]):
+        fail(f"launch.train: {summary}")
+    if not expect(counts, flash_attention_tf32=n_l * ran,
+                  flash_attention_bwd=n_l * ran):
+        fail(f"launch.train launched {counts}, expected {n_l * ran} of each "
+             "attention kernel")
+    done(t0)
+
     # ------------------------------------------------------------ timing
     t0 = phase("times at the main paths' shapes (profiler device time, "
                "CUDA events over back-to-back launches)")
@@ -2657,8 +3041,9 @@ def main():
               f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} bytes, {nops} "
               f"{ops_kind} ops), launches {launches}", flush=True)
 
-    def timed(raw, wrapper, kernel_names, calls):
-        prof_ms, shares = profiled_ms(raw, calls, kernel_names)
+    def timed(raw, wrapper, kernel_names, calls, launches_per_call=1):
+        prof_ms, shares = profiled_ms(raw, calls, kernel_names,
+                                      launches_per_call)
         if len(shares) > 1:
             print("   device ms per call by kernel: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in shares.items()), flush=True)
@@ -3154,8 +3539,9 @@ def main():
         o = torch.empty_like(qp)
         keep.append(o)
         name = fa.kernel_for(dtype, width)
-        args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), Bf,
-                Sq, Sk, H, KH, width, scale, int(causal), window, stream)
+        args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+                None, Bf, Sq, Sk, H, KH, width, scale, int(causal), window,
+                stream)  # no log-sum-exp: the serving forward
         if name == "flash_attention_wgmma":
             raw = checked(fa.WGMMA_LIBRARY.load().flash_attention_wgmma_launch,
                           args)
@@ -3246,6 +3632,111 @@ def main():
             source=SSD_SOURCE, ops_per_s=TF32_OPS_PER_S,
             ops_kind="TF32 tensor-core (3 per f32 product)")
         del xs, dts, As, Bs, Cs
+    # the backward kernels at phase (k)'s training shapes: K6's at
+    # qwen2.5-32b's attention (bf16, B 2, S 2048, GQA 40:8, D 128, causal),
+    # beside torch autograd of scaled_dot_product_attention (its backward
+    # alone); K7's at mamba2-2.7b's (B 2, S 2048, H 80, P 64, N 128)
+    q, k, v = qkv(2, 2048, 2048, 40, 8, 128, torch.bfloat16, 31)
+    do = torch.randn_like(q)
+    kw = dict(scale=128 ** -0.5, causal=True, window=0)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((2, 40, 2048), device=dev)
+    keep.append((o, lse, dq, dk, dv, delta, do))
+    raw = checked(fa.BWD_LIBRARY.load().flash_attention_bwd_launch, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), 2, 2048, 2048, 40, 8, 128,
+        kw["scale"], 1, 0, 1, stream))
+    t_k = timed(raw, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw),
+                ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
+                 "fa_bwd_dq_kernel"), 5)
+    p_k = per_call_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                         **kw), 1, reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, scale=kw["scale"], is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = per_call_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    # the five products (S recomputed, dV, dP, dQ, dK) over the causal
+    # pairs; q, k, v, o, dO and lse read, dq, dk, dv written once
+    b_pairs = 2 * 40 * pairs(2048, 2048, True, 0)
+    b_ops = 2 * (3 * 128 + 2 * 128) * b_pairs
+    b_bytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                   + q.numel()) + 4 * lse.numel()
+    row("flash_attention_bwd (the gradient of K6's function; bf16, "
+        "qwen2.5-32b training)", "src/repro/kernels/flash_attention/"
+        "kernel.py:24 (its gradient; JAX differentiates the pure-JAX "
+        "chunked_attention)",
+        "B=2 Sq=Sk=2048 H=40 KH=8 D=128 bf16 causal, three kernels a call",
+        train_counts["qwen2.5-32b"]["flash_attention_bwd"],
+        bwd_err["flash_attention_bwd"], t_k, p_k, (b_bytes, b_ops),
+        source=FAB_SOURCE, ops_per_s=BF16_OPS_PER_S, ops_kind="bf16",
+        library_ms=lib_ms)
+    print(f"   flash_attention_bwd: SDPA's backward (torch autograd of "
+          f"scaled_dot_product_attention, enable_gqa) {lib_ms:.4f} ms; "
+          f"f32-FMA bound {b_ops / F32_OPS_PER_S * 1e3:.4f} ms (the kernel "
+          "runs its products on the CUDA cores)", flush=True)
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    B, S, H, P, N, Q = 2, 2048, m2.n_ssm_heads, m2.ssm_head_dim, \
+        m2.ssm_state, m2.ssm_chunk
+    xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 37)
+    dy = torch.randn((B, S, H, P), device=dev)
+    _, _, states, cum = ssd.ssd_scan_saved(xs, dts, As, Bs, Cs, Q)
+    n_chunks = -(-S // Q)
+    f32 = dict(device=dev)
+    outs = (torch.empty((B, S, H, P), **f32), torch.empty((B, S, H), **f32),
+            torch.empty((H,), **f32), torch.empty((B, S, N), **f32),
+            torch.empty((B, S, N), **f32), torch.empty_like(states),
+            torch.empty((H, B, S, N), **f32), torch.empty((H, B, S, N), **f32),
+            torch.empty((B, H, n_chunks), **f32))
+    keep.append((dy, states, cum, outs))
+    dx_, ddt_, dA_, dB_, dC_, gbuf, dBp, dCp, dAp = outs
+    raw = checked(ssd.BWD_LIBRARY.load().ssd_bwd_launch, (
+        xs.data_ptr(), *xs.stride()[:3], dts.data_ptr(), *dts.stride(),
+        As.data_ptr(), Bs.data_ptr(), *Bs.stride()[:2], Cs.data_ptr(),
+        *Cs.stride()[:2], dy.data_ptr(), None, states.data_ptr(),
+        cum.data_ptr(), gbuf.data_ptr(), dx_.data_ptr(), ddt_.data_ptr(),
+        dA_.data_ptr(), dB_.data_ptr(), dC_.data_ptr(), dBp.data_ptr(),
+        dCp.data_ptr(), dAp.data_ptr(), B, S, H, P, N, Q, stream))
+    t_k = timed(raw, lambda: ssd.ssd_bwd(xs, dts, As, Bs, Cs, Q, dy, None,
+                                         states, cum),
+                ssd.BWD_KERNELS, 10,
+                {name: 1 + (name == "ssd_bwd_reduce_kernel")
+                 for name in ssd.BWD_KERNELS})
+    p_k = per_call_ms(lambda: ssd.ssd_bwd_ref(xs, dts, As, Bs, Cs, Q, dy),
+                      1, reps=3)
+    # what these inputs need: C·Bᵀ on the lower triangle once per (b,
+    # chunk); per (b, h, chunk) dy·xᵀ and Mᵀ·dy on the triangle, R·C and
+    # R·B (dB, dC), and four Q·N·P products with the chunk-boundary
+    # states (the state gradient's chunk term, Gᵀ·B, G·x, S_in·dy), 2
+    # flops a multiply-add, at the rate K7's forward row takes: three TF32
+    # products a f32 product on the tensor cores, which the port's own
+    # forward shows the card reaches; x, dt, A, B, C, dy read and dx, ddt,
+    # dA, dB, dC written once
+    tri = Q * (Q + 1) // 2
+    sb_ops = 2 * (B * n_chunks * tri * N
+                  + B * H * n_chunks * (2 * tri * P + 2 * tri * N
+                                        + 4 * Q * N * P))
+    sb_bytes = 4 * (2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N))
+    row("ssd_bwd (the gradient of K7's function; mamba2-2.7b training)",
+        "src/repro/kernels/ssd/kernel.py:28 (its gradient; JAX "
+        "differentiates the pure-JAX ssd_chunked)",
+        f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32, "
+        f"{len(ssd.BWD_KERNELS) + 1} launches a call",
+        train_counts["mamba2-2.7b"]["ssd_bwd"], bwd_err["ssd_bwd"], t_k, p_k,
+        (sb_bytes, 3 * sb_ops), source=SSB_SOURCE, ops_per_s=TF32_OPS_PER_S,
+        ops_kind="TF32 tensor-core (3 per f32 product)")
+    print(f"   ssd_bwd: f32-FMA bound {sb_ops / F32_OPS_PER_S * 1e3:.4f} ms "
+          "(the kernel runs its products on the CUDA cores)", flush=True)
+    del xs, dts, As, Bs, Cs, dy, states, cum, outs
+    print("   training (k): " + "; ".join(
+        f"{a} {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), peak "
+        f"{peak:.2f} GiB" for a, (ms, peak) in train_ms.items()),
+          flush=True)
     print(f"   serving prefill {prefill_ms:.1f} ms: "
           f"{serve_counts['flash_attention_wgmma']} flash launches and "
           f"{serve_counts['ssd_scan']} SSD launches", flush=True)

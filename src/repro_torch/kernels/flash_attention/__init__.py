@@ -1,10 +1,13 @@
-"""Forward flash attention (K6) for Hopper, with its plain PyTorch version
-(``ref``)."""
-from .kernel import (LAUNCHES, LIBRARY, MAX_HEAD_DIM, TF32_LIBRARY,
-                     WGMMA_LIBRARY, flash_attention, kernel_for, zero_pad)
-from .ops import flash_attention_op
-from .ref import flash_attention_ref
+"""Flash attention (K6) for Hopper, forward and backward, with their plain
+PyTorch versions (``ref``)."""
+from .kernel import (BWD_LIBRARY, LAUNCHES, LIBRARY, MAX_HEAD_DIM,
+                     TF32_LIBRARY, WGMMA_LIBRARY, flash_attention,
+                     flash_attention_bwd, kernel_for, zero_pad)
+from .ops import FlashAttentionFn, flash_attention_op
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["LAUNCHES", "LIBRARY", "MAX_HEAD_DIM", "TF32_LIBRARY",
-           "WGMMA_LIBRARY", "flash_attention", "flash_attention_op",
+__all__ = ["BWD_LIBRARY", "FlashAttentionFn", "LAUNCHES", "LIBRARY",
+           "MAX_HEAD_DIM", "TF32_LIBRARY", "WGMMA_LIBRARY",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_op",
            "flash_attention_ref", "kernel_for", "zero_pad"]

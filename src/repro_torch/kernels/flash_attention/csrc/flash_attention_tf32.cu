@@ -147,8 +147,9 @@ __device__ __forceinline__ void cp_async_wait() {
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-    int H, int KH, int hd, float scale, int causal, int window) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, int hd,
+    float scale, int causal, int window) {
   constexpr int FK = C::FK;
   constexpr int LD = C::LD;
   constexpr int NS = FK / 8;     // n-tiles of S: 8 keys each
@@ -383,6 +384,9 @@ __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_tf32_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float den = fmaxf(l[i], 1e-30f);
     const int f = wrow0 + gq + 8 * i;
+    if (lse != nullptr && tq == 0 && f < R)  // natural log: m is base 2
+      lse[((size_t)b * H + kh * g + f % g) * Sq + f / g] =
+          (m[i] + log2f(den)) * 0.6931471805599453f;
     if (f < R) {
       float* orow = o + (((size_t)b * Sq + f / g) * H + kh * g + f % g) * hd;
 #pragma unroll
@@ -396,17 +400,17 @@ __global__ void __launch_bounds__(C::THREADS, 1) flash_fwd_tf32_kernel(
 }
 
 template <class C>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KH, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KH, int hd, float scale,
+           int causal, int window, cudaStream_t stream) {
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_tf32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((H / KH * Sq + C::BM - 1) / C::BM, KH, B);
   flash_fwd_tf32_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, H,
-      KH, hd, scale, causal, window);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Sk, H, KH, hd, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -415,23 +419,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Sk,KH,hd) and o (B,Sq,H,hd), contiguous f32, each
-// 16-byte aligned; hd a multiple of 8 up to 256, H % KH == 0.  Returns the
-// launch's cudaError_t (0 on success).
+// 16-byte aligned; hd a multiple of 8 up to 256, H % KH == 0.  lse, when
+// not null, gets each row's log-sum-exp of the scaled logits (B,H,Sq) for
+// the backward; o is the same either way.  Returns the launch's
+// cudaError_t (0 on success).
 int flash_attention_tf32_launch(const void* q, const void* k, const void* v,
-                                void* o, int B, int Sq, int Sk, int H, int KH,
-                                int hd, float scale, int causal, int window,
-                                void* stream) {
+                                void* o, float* lse, int B, int Sq, int Sk,
+                                int H, int KH, int hd, float scale,
+                                int causal, int window, void* stream) {
   if (hd % 8 != 0 || hd < 8 || hd > 256 || KH < 1 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (hd <= 64)
-    return launch<Cfg64>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                         window, st);
+    return launch<Cfg64>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                          causal, window, st);
   if (hd <= 128)
-    return launch<Cfg128>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                          window, st);
-  return launch<Cfg256>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                        window, st);
+    return launch<Cfg128>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                          causal, window, st);
+  return launch<Cfg256>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                          causal, window, st);
 }
 
 const char* fat_error_string(int err) {

@@ -447,8 +447,8 @@ __global__ void __launch_bounds__(threads_for(D), 1) flash_fwd_wgmma_kernel(
     __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v,
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-    int Sq, int Sk, int H, int KH, int hd, float scale, int causal,
-    int window) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int KH, int hd,
+    float scale, int causal, int window) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -684,6 +684,13 @@ __global__ void __launch_bounds__(threads_for(D), 1) flash_fwd_wgmma_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float den = fmaxf(l[i], 1e-30f);
     const int rr = wg * 64 + warp * 16 + (lane >> 2) + 8 * i;
+    if (lse != nullptr && (lane & 3) == 0 && row0 + rr < R) {
+      // the row's natural log-sum-exp of the scaled logits, for the
+      // backward: m is in base 2, so ln(sum) = (m + log2(l)) ln 2
+      const int f = row0 + rr;
+      lse[((size_t)b * H + kh * g + f % g) * Sq + f / g] =
+          (m[i] + log2f(den)) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
@@ -767,9 +774,9 @@ int kv_map(CUtensorMap* map, const void* base, int B, int Sk, int KH,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KH, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KH, int hd, float scale,
+           int causal, int window, cudaStream_t stream) {
   CUtensorMap tm_k, tm_v;
   int err = kv_map(&tm_k, k, B, Sk, KH, hd);
   if (err == 0) err = kv_map(&tm_v, v, B, Sk, KH, hd);
@@ -781,8 +788,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((H / KH * Sq + BM - 1) / BM, KH, B);
   flash_fwd_wgmma_kernel<D><<<grid, threads_for(D), smem, stream>>>(
-      tm_k, tm_v, (const __nv_bfloat16*)q, (__nv_bfloat16*)o, Sq, Sk, H, KH,
-      hd, scale, causal, window);
+      tm_k, tm_v, (const __nv_bfloat16*)q, (__nv_bfloat16*)o, lse, Sq, Sk, H,
+      KH, hd, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -791,28 +798,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Sk,KH,hd) and o (B,Sq,H,hd), contiguous bf16;
-// hd a multiple of 8 up to 256, H % KH == 0.  Returns 0 on success, else
-// a cudaError_t or one of this library's codes (faw_error_string).
+// hd a multiple of 8 up to 256, H % KH == 0.  lse, when not null, gets
+// each row's log-sum-exp of the scaled logits, f32 (B,H,Sq), for the
+// backward; o is the same either way.  Returns 0 on success, else a
+// cudaError_t or one of this library's codes (faw_error_string).
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Sk, int H,
-                                 int KH, int hd, float scale, int causal,
-                                 int window, void* stream) {
+                                 void* o, float* lse, int B, int Sq, int Sk,
+                                 int H, int KH, int hd, float scale,
+                                 int causal, int window, void* stream) {
   if (hd % 8 != 0 || hd < 8 || hd > 256 || KH < 1 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch ((hd + 63) / 64) {  // 64-column boxes a row
     case 1:
-      return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                        window, st);
+      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                        causal, window, st);
     case 2:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                         window, st);
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                        causal, window, st);
     case 3:
-      return launch<192>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                         window, st);
+      return launch<192>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                        causal, window, st);
     default:
-      return launch<256>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal,
-                         window, st);
+      return launch<256>(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, scale,
+                        causal, window, st);
   }
 }
 

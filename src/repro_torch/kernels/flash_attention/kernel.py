@@ -21,6 +21,13 @@ CUDA tensor launches its kernel or raises — there is no fallback.  The
 wrapper counts each kernel's launches in ``LAUNCHES``.  A v head dim
 other than q/k's runs the kernel at the wider of the two, on zero columns
 (:func:`flash_attention`).
+
+For training, both tensor-core kernels also write each row's log-sum-exp
+when asked (``return_lse``), and :func:`flash_attention_bwd` launches the
+backward (``csrc/flash_attention_bwd.cu``: a preprocess, a dK/dV kernel
+and a dQ kernel, f32 or bf16, CUDA-core FMAs), counted as
+``flash_attention_bwd``; ``ops.FlashAttentionFn`` puts the two under
+autograd.
 """
 from __future__ import annotations
 
@@ -34,12 +41,13 @@ from . import ref
 from ..nvcc import CudaLibrary
 
 __all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "TF32_LIBRARY",
-           "MAX_HEAD_DIM", "kernel_for", "zero_pad", "flash_attention"]
+           "BWD_LIBRARY", "MAX_HEAD_DIM", "kernel_for", "zero_pad",
+           "flash_attention", "flash_attention_bwd"]
 
 # launches of each CUDA kernel by the wrapper (plain-version calls are not
 # counted; "flash_attention", the referee, is never launched by it)
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
-            "flash_attention_tf32": 0}
+            "flash_attention_tf32": 0, "flash_attention_bwd": 0}
 
 # both kernels: the bf16 one pads hd to at most four 64-column boxes (the
 # N = 256 of wgmma's p·V), the f32 one holds hd / 2 accumulator registers
@@ -56,14 +64,22 @@ def _declare(lib) -> None:
 
 def _declare_tensor_core(fn: str):
     """The declaration of the tensor-core kernels' entry point ``fn``:
-    ``int fn(q, k, v, o, B, Sq, Sk, H, KH, hd, float scale, causal,
+    ``int fn(q, k, v, o, lse, B, Sq, Sk, H, KH, hd, float scale, causal,
     window, stream)``."""
     def declare(lib) -> None:
         p, i = ctypes.c_void_p, ctypes.c_int
         entry = getattr(lib, fn)
-        entry.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, i, i, p]
+        entry.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, p]
         entry.restype = i
     return declare
+
+
+def _declare_bwd(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = ([p] * 10 + [i] * 6
+                                               + [ctypes.c_float] + [i] * 3
+                                               + [p])
+    lib.flash_attention_bwd_launch.restype = i
 
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -75,6 +91,8 @@ WGMMA_LIBRARY = CudaLibrary(
 TF32_LIBRARY = CudaLibrary(
     _CSRC / "flash_attention_tf32.cu",
     _declare_tensor_core("flash_attention_tf32_launch"), "fat_error_string")
+BWD_LIBRARY = CudaLibrary(_CSRC / "flash_attention_bwd.cu", _declare_bwd,
+                          "fab_error_string")
 
 
 def kernel_for(dtype, hd: int) -> str:
@@ -102,22 +120,8 @@ def zero_pad(q, k, v, width: int):
                  else F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
 
 
-def flash_attention(
-    q, k, v, *, scale: float, causal: bool = True, window: int = 0, chunk: int = 1024
-):
-    """Forward attention, f32 online softmax.
-
-    q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, vh) with
-    H = KH·g; contiguous, one dtype (float32 or bfloat16), one device;
-    max(hd, vh) a multiple of 8 up to 256.  Causal and ``window`` > 0
-    masks; query i sits at position i + Sk − Sq.  Returns (B, Sq, H, vh)
-    in q's dtype.  On the card the kernel is :func:`kernel_for`'s at
-    width max(hd, vh): where vh ≠ hd, the narrower of (q, k) and v gets
-    zero columns up to that width, which add exact zeros to q·k and to
-    p·v, and the output is cut back to vh.  ``chunk`` is the plain
-    version's KV chunk (its summation order); the kernels' tiles are
-    their own.
-    """
+def _check_inputs(q, k, v):
+    """(B, Sq, Sk, H, KH, hd, vh, the kernel's name) of valid q, k, v."""
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
@@ -131,8 +135,7 @@ def flash_attention(
     if KH < 1 or H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
     vh = v.shape[-1]
-    width = max(hd, vh)
-    name = kernel_for(q.dtype, width)
+    name = kernel_for(q.dtype, max(hd, vh))
     for t_name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{t_name} is {t.dtype}: q, k and v must all be "
@@ -141,19 +144,55 @@ def flash_attention(
             raise ValueError(f"{t_name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{t_name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return B, Sq, Sk, H, KH, hd, vh, name
+
+
+def flash_attention(
+    q,
+    k,
+    v,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+    return_lse: bool = False,
+):
+    """Forward attention, f32 online softmax.
+
+    q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, vh) with
+    H = KH·g; contiguous, one dtype (float32 or bfloat16), one device;
+    max(hd, vh) a multiple of 8 up to 256.  Causal and ``window`` > 0
+    masks; query i sits at position i + Sk − Sq.  Returns (B, Sq, H, vh)
+    in q's dtype.  On the card the kernel is :func:`kernel_for`'s at
+    width max(hd, vh): where vh ≠ hd, the narrower of (q, k) and v gets
+    zero columns up to that width, which add exact zeros to q·k and to
+    p·v, and the output is cut back to vh.  ``chunk`` is the plain
+    version's KV chunk (its summation order); the kernels' tiles are
+    their own.  ``return_lse``: also return each row's natural log-sum-exp
+    of the scaled logits, f32 (B, H, Sq), which the backward reads; the
+    output's bits are the same either way.
+    """
+    B, Sq, Sk, H, KH, hd, vh, name = _check_inputs(q, k, v)
+    dev = q.device
+    width = max(hd, vh)
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
-                                       window=window, chunk=chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+                                       window=window, chunk=chunk,
+                                       return_lse=return_lse)
     if vh != hd:
         q, k, v = zero_pad(q, k, v, width)
     for t_name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:  # both kernels read rows in 16-byte pieces
             raise ValueError(f"{t_name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, KH, width, float(scale), int(causal), int(window))
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KH, width,
+            float(scale), int(causal), int(window))
     with torch.cuda.device(dev):  # the libraries launch on the current one
         stream = torch.cuda.current_stream(dev).cuda_stream
         if name == "flash_attention_wgmma":
@@ -164,4 +203,64 @@ def flash_attention(
             err = library.load().flash_attention_tf32_launch(*args, stream)
     library.check(err, name)
     LAUNCHES[name] += 1
-    return out if vh == width else out[..., :vh].contiguous()
+    out = out if vh == width else out[..., :vh].contiguous()
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(
+    q,
+    k,
+    v,
+    o,
+    lse,
+    do,
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v,
+    from its output ``o`` (B, Sq, H, vh), its ``lse`` (B, H, Sq) f32 and
+    the output's gradient ``do`` (B, Sq, H, vh); the same masks, layouts
+    and dtypes as the forward, all contiguous.  On the card the kernel of
+    ``csrc/flash_attention_bwd.cu`` (counted as ``flash_attention_bwd``),
+    at width max(hd, vh) on zero columns where vh ≠ hd; on the CPU
+    ``ref.flash_attention_bwd_ref``.  Gradients come in the inputs'
+    dtype."""
+    B, Sq, Sk, H, KH, hd, vh, _ = _check_inputs(q, k, v)
+    dev = q.device
+    for t_name, t, shape in (("o", o, (B, Sq, H, vh)), ("do", do, (B, Sq, H, vh))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"{t_name} must be {q.dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{t_name} must be contiguous")
+    if (tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != dev or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 ({B}, {H}, {Sq}) "
+                         f"on {dev}")
+    if dev.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                           causal=causal, window=window,
+                                           chunk=chunk)
+    width = max(hd, vh)
+    if vh != hd:
+        q, k, v = zero_pad(q, k, v, width)
+        o, do = (F.pad(t, (0, width - vh)) for t in (o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = BWD_LIBRARY.load().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, width,
+            float(scale), int(causal), int(window),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    BWD_LIBRARY.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    if vh != hd:
+        dq, dk, dv = (dq[..., :hd].contiguous(), dk[..., :hd].contiguous(),
+                      dv[..., :vh].contiguous())
+    return dq, dk, dv

@@ -1,8 +1,10 @@
-"""Mamba2 SSD chunked scan (K7) for Hopper, with its plain PyTorch version
-(``ref``)."""
-from .kernel import KERNELS, LAUNCHES, LIBRARY, Q_MAX, smem_bytes, ssd_scan
-from .ops import ssd_op
-from .ref import ssd_ref
+"""Mamba2 SSD chunked scan (K7) for Hopper, forward and backward, with
+their plain PyTorch versions (``ref``)."""
+from .kernel import (BWD_KERNELS, BWD_LIBRARY, KERNELS, LAUNCHES, LIBRARY,
+                     Q_MAX, smem_bytes, ssd_bwd, ssd_scan, ssd_scan_saved)
+from .ops import SsdFn, ssd_op
+from .ref import ssd_bwd_ref, ssd_ref
 
-__all__ = ["KERNELS", "LAUNCHES", "LIBRARY", "Q_MAX", "smem_bytes",
-           "ssd_scan", "ssd_op", "ssd_ref"]
+__all__ = ["BWD_KERNELS", "BWD_LIBRARY", "KERNELS", "LAUNCHES", "LIBRARY",
+           "Q_MAX", "SsdFn", "smem_bytes", "ssd_bwd", "ssd_bwd_ref",
+           "ssd_scan", "ssd_scan_saved", "ssd_op", "ssd_ref"]

@@ -6,6 +6,12 @@ states, state passing, outputs) and counts as one ``ssd_scan`` launch.
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 CUDA tensor launches the kernels or raises — there is no fallback.  The
 wrapper counts its launches in ``LAUNCHES``.
+
+For training, :func:`ssd_scan_saved` also returns the forward's scratch
+(each chunk's starting state and cum as (hi, lo) pairs), and
+:func:`ssd_bwd` launches the backward (``csrc/ssd_bwd.cu``, one C entry
+point ``ssd_bwd_launch``, six kernels, counted as one ``ssd_bwd``
+launch) from it; ``ops.SsdFn`` puts the two under autograd.
 """
 from __future__ import annotations
 
@@ -17,13 +23,16 @@ import torch
 from . import ref
 from ..nvcc import SMEM_LIMIT_BYTES, CudaLibrary
 
-__all__ = ["LAUNCHES", "LIBRARY", "KERNELS", "Q_MAX", "smem_bytes",
-           "ssd_scan"]
+__all__ = ["LAUNCHES", "LIBRARY", "BWD_LIBRARY", "KERNELS", "BWD_KERNELS",
+           "Q_MAX", "smem_bytes", "ssd_scan", "ssd_scan_saved", "ssd_bwd"]
 
 # calls of the CUDA entry point (plain-version calls are not counted)
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_bwd": 0}
 # the kernels one call launches, in order
 KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel")
+BWD_KERNELS = ("ssd_bwd_adj_kernel", "ssd_bwd_pass_kernel",
+               "ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel",
+               "ssd_bwd_reduce_a_kernel")
 # the longest chunk: a warp holds its tiles of C·Bᵀ in registers
 Q_MAX = 128
 
@@ -36,9 +45,21 @@ def _declare(lib) -> None:
     lib.ssd_scan_launch.restype = i
 
 
-LIBRARY = CudaLibrary(
-    pathlib.Path(__file__).resolve().parent / "csrc" / "ssd.cu", _declare,
-    "ssd_error_string")
+def _declare_bwd(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_bwd_launch.argtypes = ([p, ll, ll, ll, p, ll, ll, ll, p, p, ll,
+                                    ll, p, ll, ll] + [p] * 13 + [i] * 6
+                                   + [p])
+    lib.ssd_bwd_launch.restype = i
+
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+LIBRARY = CudaLibrary(_CSRC / "ssd.cu", _declare, "ssd_error_string")
+BWD_LIBRARY = CudaLibrary(_CSRC / "ssd_bwd.cu", _declare_bwd,
+                          "ssdb_error_string")
+# the backward's widest state head and state: one 64-column slab of P, two
+# of N (csrc/ssd_bwd.cu)
+BWD_MAX_P, BWD_MAX_N = 64, 128
 
 
 def smem_bytes(P: int, N: int, Q: int) -> int:
@@ -66,6 +87,12 @@ def _check(name, t, ndim, dev):
 
 
 def ssd_scan(x, dt, A, B_, C_, chunk: int):
+    """The SSD chunked scan over the model's layouts: (y, final_state), as
+    :func:`ssd_scan_saved` without its scratch."""
+    return ssd_scan_saved(x, dt, A, B_, C_, chunk)[:2]
+
+
+def ssd_scan_saved(x, dt, A, B_, C_, chunk: int):
     """The SSD chunked scan over the model's layouts.
 
     x: (B, S, H, P); dt: (B, S, H) post-softplus; A: (H,); B_, C_:
@@ -73,8 +100,11 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
     their strides (innermost stride 1; A contiguous); P and N multiples of
     4.  Chunks of Q = min(chunk, S) ≤ ``Q_MAX`` steps; a ragged last chunk
     is masked, not padded.  Returns (y (B, S, H, P), final_state
-    (B, H, N, P)), f32, contiguous.  Raises ``ValueError`` for a chunk
-    over ``Q_MAX`` steps, or one whose blocks do not fit one block's
+    (B, H, N, P), states, cum), f32, contiguous: on the card ``states``
+    (B, H, chunks, N, P) holds the state each chunk starts from and ``cum``
+    (B, H, chunks, Qp, 2) the chunks' cumsums as (hi, lo) pairs, which the
+    backward reads; on the CPU both are None.  Raises ``ValueError`` for a
+    chunk over ``Q_MAX`` steps, or one whose blocks do not fit one block's
     shared memory.
     """
     dev = x.device
@@ -108,7 +138,7 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
             f"shared memory, over the {SMEM_LIMIT_BYTES}-byte limit of one "
             "block")
     if dev.type == "cpu":
-        return ref.ssd_ref(x, dt, A, B_, C_, chunk)
+        return (*ref.ssd_ref(x, dt, A, B_, C_, chunk), None, None)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if (x.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1
@@ -133,4 +163,67 @@ def ssd_scan(x, dt, A, B_, C_, chunk: int):
             torch.cuda.current_stream(dev).cuda_stream)
     LIBRARY.check(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
-    return y, state
+    return y, state, states, cum
+
+
+def ssd_bwd(x, dt, A, B_, C_, chunk: int, dy, dstate=None, states=None, cum=None):
+    """The gradients (dx, ddt, dA, dB_, dC_) of :func:`ssd_scan` at x, dt,
+    A, B_, C_ (the forward's inputs and layouts) from dy (B, S, H, P) and
+    the final state's gradient ``dstate`` (B, H, N, P), or None for zero.
+    On the card ``states`` and ``cum`` are the forward's scratch from
+    :func:`ssd_scan_saved` on the same inputs, and the kernels of
+    ``csrc/ssd_bwd.cu`` run (one ``ssd_bwd`` launch); on the CPU the
+    plain version ``ref.ssd_bwd_ref`` runs.  All f32; gradients
+    contiguous.  Raises ``ValueError`` where P > 64 or N > 128."""
+    dev = x.device
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    for name, t, shape in (("dy", dy, (Bb, S, H, P)),
+                           ("dstate", dstate, (Bb, H, N, P))):
+        if t is None:
+            continue
+        _check(name, t, len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if dev.type == "cpu":
+        return ref.ssd_bwd_ref(x, dt, A, B_, C_, chunk, dy, dstate)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if P > BWD_MAX_P or N > BWD_MAX_N:
+        raise ValueError(f"the SSD backward takes P <= {BWD_MAX_P} and N <= "
+                         f"{BWD_MAX_N}, got P={P}, N={N}")
+    Q = min(chunk, S)
+    n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
+    if (states is None or cum is None
+            or tuple(states.shape) != (Bb, H, n_chunks, N, P)
+            or tuple(cum.shape) != (Bb, H, n_chunks, Qp, 2)):
+        raise ValueError("states and cum must be the forward's scratch "
+                         "(ssd_scan_saved) on the same inputs")
+    dy = dy.contiguous()
+    if dstate is not None:
+        dstate = dstate.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bb, S, H, P), **f32)
+    ddt = torch.empty((Bb, S, H), **f32)
+    dA = torch.empty((H,), **f32)
+    dB = torch.empty((Bb, S, N), **f32)
+    dC = torch.empty((Bb, S, N), **f32)
+    # scratch: the state gradients, the heads' shares of dB, dC and dA
+    gbuf = torch.empty_like(states)
+    dBpart = torch.empty((H, Bb, S, N), **f32)
+    dCpart = torch.empty((H, Bb, S, N), **f32)
+    dApart = torch.empty((Bb, H, n_chunks), **f32)
+    with torch.cuda.device(dev):
+        err = BWD_LIBRARY.load().ssd_bwd_launch(
+            x.data_ptr(), *x.stride()[:3], dt.data_ptr(), *dt.stride(),
+            A.data_ptr(), B_.data_ptr(), *B_.stride()[:2], C_.data_ptr(),
+            *C_.stride()[:2], dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), states.data_ptr(),
+            cum.data_ptr(), gbuf.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dBpart.data_ptr(),
+            dCpart.data_ptr(), dApart.data_ptr(), Bb, S, H, P, N, Q,
+            torch.cuda.current_stream(dev).cuda_stream)
+    BWD_LIBRARY.check(err, "ssd_bwd")
+    LAUNCHES["ssd_bwd"] += 1
+    return dx, ddt, dA, dB, dC

@@ -5,8 +5,9 @@ A model's parameters are declared as a nested spec — dicts of ``Leaf``
 declarations, with lists for runs of layers — and materialized as a
 ``ParamTree``: an ``nn.Module`` whose children mirror the spec, indexed
 ``p["wz"]`` as the JAX package's dicts are, with state-dict names such as
-``groups.0.mamba.1.mixer.wz``.  Parameters do not require gradients: this
-slice serves.
+``groups.0.mamba.1.mixer.wz``.  Parameters require gradients only in a
+trainable tree (``trainable=True``, as ``runtime.init_train_state`` makes
+it); serving runs under ``torch.no_grad`` and builds no graph either way.
 """
 from __future__ import annotations
 
@@ -38,18 +39,20 @@ class Leaf(NamedTuple):
 class ParamTree(nn.Module):
     """Parameters in the shape of a spec: a dict node is a module with one
     attribute per key, a list node an ``nn.ModuleList``, a leaf an
-    ``nn.Parameter`` without gradient.  ``tree[key]`` reads a child."""
+    ``nn.Parameter`` that requires a gradient when ``trainable``.
+    ``tree[key]`` reads a child."""
 
-    def __init__(self, values: dict):
+    def __init__(self, values: dict, trainable: bool = False):
         super().__init__()
         for k, v in values.items():
             if isinstance(v, torch.Tensor):
                 self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                    k, nn.Parameter(v, requires_grad=trainable))
             elif isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
             else:
-                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+                self.add_module(k, nn.ModuleList(ParamTree(x, trainable)
+                                                 for x in v))
 
     def __getitem__(self, key):
         return getattr(self, key)
@@ -72,9 +75,11 @@ def _draw(leaf: Leaf, dtype, generator, device) -> torch.Tensor:
     return x.mul_(std).to(dtype)
 
 
-def init_params(spec, dtype, generator: torch.Generator) -> ParamTree:
+def init_params(
+    spec, dtype, generator: torch.Generator, trainable: bool = False
+) -> ParamTree:
     """Materialize ``spec`` in ``dtype`` on the generator's device, leaves
-    drawn in declaration order."""
+    drawn in declaration order; ``trainable`` leaves require gradients."""
     device = generator.device
 
     def build(node):
@@ -84,7 +89,7 @@ def init_params(spec, dtype, generator: torch.Generator) -> ParamTree:
             return {k: build(v) for k, v in node.items()}
         return [build(v) for v in node]
 
-    return ParamTree(build(spec))
+    return ParamTree(build(spec), trainable)
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,18 @@ The serving caches keep the JAX layouts, in the compute dtype —
   encdec  k, v   (L, B, S_max, KV, hd)  ck, cv (L, B, enc_len, H, hd)
 
 — ``Model.alloc_cache`` allocates one; prefill and decode write it in
-place (prefill's k/v go to positions [0, S)) and return it.  The JAX
-package's sharding hook ``rules`` is dropped (one card), and ``loss``
-(with the moe aux term and the mtp head) waits for the training slice.
+place (prefill's k/v go to positions [0, S)) and return it, under
+``torch.no_grad``.  The JAX package's sharding hook ``rules`` is dropped
+(one card).
+
+``Model.loss(params, batch, remat=...)`` is each family's training loss,
+as the JAX package's: the mean next-token cross-entropy from seq-chunked
+logits (``_ce_from_hidden``, each chunk under ``torch.utils.checkpoint``),
+plus 0.01 × the moe aux term and 0.3 × deepseek's multi-token-prediction
+loss.  ``remat`` ("full" | "dots" | "none", ``_maybe_remat``) checkpoints
+each layer as the JAX package's ``jax.checkpoint`` of its scan body does:
+"full" keeps nothing, "dots" keeps the 2-D matrix products' outputs, "none"
+keeps everything.  The loss never touches a serving cache.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .attention import (attn_decode, attn_encode, attn_specs, attn_train,
                         cross_attn, cross_attn_specs, cross_kv, mla_decode,
@@ -93,6 +103,85 @@ def _logits(params, cfg, h):
     return (h @ head).float()
 
 
+# ---------------------------------------------------------------------------
+# training: rematerialization and the cross-entropy
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "dots", "none")
+# the 2-D matrix products whose outputs "dots" keeps: the JAX package's
+# dots_with_no_batch_dims_saveable (a batched product, bmm, is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint``: "full" saves nothing and
+    recomputes the layer in the backward, "dots" saves the outputs of its
+    2-D matrix products, "none" is ``fn`` itself."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_POLICIES}")
+    if remat == "none":
+        return fn
+    kw = dict(use_reentrant=False)
+    if remat == "dots":
+        kw["context_fn"] = _dots_context
+
+    def wrapped(*args):
+        return _ckpt.checkpoint(fn, *args, **kw)
+    return wrapped
+
+
+def _xent(logits, labels):
+    """Mean token cross-entropy in f32 and the token count; labels
+    (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    return nll.mean(), nll.numel()
+
+
+def _ce_from_hidden(params, cfg, h, labels):
+    """Cross-entropy from the final hidden states h (B, S, d) with
+    seq-chunked logits (``transformer.py:220-251`` of the JAX package): S
+    is padded to a multiple of ``cfg.xent_chunk``, each chunk's logits
+    are formed under ``torch.utils.checkpoint`` (recomputed in the
+    backward, never all held), the pad is masked, and the sum is divided
+    by B·S.  A sequence no longer than one chunk takes :func:`_xent`."""
+    B, S, _ = h.shape
+    chunk = cfg.xent_chunk
+    if chunk <= 0 or S <= chunk:
+        return _xent(_logits(params, cfg, h), labels)
+    pad = (-S) % chunk
+    labels = labels.long()
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+    valid = torch.arange(S + pad, device=h.device) < S
+
+    def body(hs, ls, vs):
+        logits = _logits(params, cfg, hs)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls[..., None])[..., 0]
+        return torch.where(vs[None, :], lse - gold, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S + pad, chunk):
+        total = total + _ckpt.checkpoint(
+            body, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+            valid[c0:c0 + chunk], use_reentrant=False)
+    n = float(B * S)
+    return total / n, n
+
+
 def _dense_block_specs(cfg, moe: bool = False) -> dict:
     spec = {"ln1": norm_specs(cfg.d_model, cfg.norm_plus_one),
             "attn": mla_specs(cfg) if cfg.mla else attn_specs(cfg),
@@ -105,12 +194,15 @@ def _dense_block_specs(cfg, moe: bool = False) -> dict:
 
 
 def _ffn(p, cfg, x, moe: bool):
+    """The block's MLP or MoE and its aux loss (an f32 0 for an MLP)."""
     if moe:
-        return moe_apply(p["moe"], cfg, x)[0]  # the aux loss: training's
-    return mlp_apply(p["mlp"], x, cfg.activation)
+        return moe_apply(p["moe"], cfg, x)
+    return (mlp_apply(p["mlp"], x, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _dense_block_train(p, cfg, h, positions, window, theta, moe=False):
+    """Full-sequence block: (h, the layer's k/v, the moe aux term)."""
     x = _norm(p["ln1"], cfg, h)
     if cfg.mla:
         a, kv = mla_train(p["attn"], cfg, x, positions, chunk=cfg.attn_chunk)
@@ -118,7 +210,8 @@ def _dense_block_train(p, cfg, h, positions, window, theta, moe=False):
         a, kv = attn_train(p["attn"], cfg, x, positions, window=window,
                            theta=theta, chunk=cfg.attn_chunk)
     h = h + a
-    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), kv
+    f, aux = _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe)
+    return h + f, kv, aux
 
 
 def _dense_block_decode(
@@ -131,7 +224,7 @@ def _dense_block_decode(
         a, cache = attn_decode(p["attn"], cfg, x, pos, cache, window=window,
                                theta=theta, rope_positions=rope_positions)
     h = h + a
-    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe), cache
+    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe)[0], cache
 
 
 def _ssm_block_specs(cfg) -> dict:
@@ -151,12 +244,31 @@ class Model:
     decode: Callable  # (params, batch) -> (logits, cache)
     alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
     encode: Callable | None = None  # encdec: (params, enc_embeds) -> h
+    loss: Callable | None = None  # (params, batch, remat=) -> (loss, metrics)
 
-    def init(self, generator: torch.Generator) -> ParamTree:
+    def init(self, generator: torch.Generator, trainable: bool = False) -> ParamTree:
         """Random parameters on the generator's device, in the config's
-        parameter dtype."""
+        parameter dtype; ``trainable`` ones require gradients."""
         return init_params(self.spec, DTYPES[self.config.param_dtype],
-                           generator)
+                           generator, trainable)
+
+
+def _serving(fn):
+    """A prefill, decode or encode that builds no autograd graph, whatever
+    the parameters require."""
+    if fn is None:
+        return None
+
+    def run(*args, **kwargs):
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+    run.__doc__ = fn.__doc__
+    return run
+
+
+def _model(cfg, spec, prefill, decode, alloc_cache, encode=None, loss=None):
+    return Model(cfg, spec, _serving(prefill), _serving(decode), alloc_cache,
+                 _serving(encode), loss)
 
 
 def build_model(cfg) -> Model:
@@ -265,8 +377,8 @@ def _build_decoder_lm(cfg):
         for name, key, moe, wins, ths in stacks:
             a_cache, b_cache = cache[key]
             for i, lp in enumerate(params[name]):
-                h, (a, b) = _dense_block_train(lp, cfg, h, positions, wins[i],
-                                               ths[i], moe)
+                h, (a, b), _ = _dense_block_train(lp, cfg, h, positions,
+                                                  wins[i], ths[i], moe)
                 a_cache[i, :, :S].copy_(a)
                 b_cache[i, :, :S].copy_(b)
         h = _norm(params["final_norm"], cfg, h[:, -1:])
@@ -288,7 +400,56 @@ def _build_decoder_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    return Model(cfg, spec, prefill, decode, alloc_cache)
+    def run_stack(params, h, positions, remat):
+        """Every block, each under ``remat``; the final norm's output and
+        the stacks' summed aux terms (each stack's layers summed first, as
+        the JAX scans' outputs are)."""
+        aux_total = 0
+        for name, _, moe, wins, ths in stacks:
+            auxes = []
+            for i, lp in enumerate(params[name]):
+                def block(h, lp=lp, w=wins[i], th=ths[i], moe=moe):
+                    h, _, aux = _dense_block_train(lp, cfg, h, positions, w,
+                                                   th, moe)
+                    return h, aux
+                h, aux = _maybe_remat(block, remat)(h)
+                auxes.append(aux)
+            aux_total = aux_total + torch.stack(auxes).sum()
+        return _norm(params["final_norm"], cfg, h), aux_total
+
+    def mtp_loss(params, h, tokens):
+        """deepseek's one-depth multi-token prediction: h at position i
+        with the embedding of token i+1 predicts token i+2."""
+        cdt = DTYPES[cfg.compute_dtype]
+        mp = params["mtp"]
+        emb_next = params["embed"][tokens[:, 1:-1]].to(cdt)
+        hh = _norm(mp["norm_h"], cfg, h[:, :-1])
+        ee = _norm(mp["norm_e"], cfg, emb_next)
+        hm = torch.cat([hh, ee], dim=-1) @ mp["proj"]
+        B, S, _ = hm.shape
+        positions = torch.arange(S, device=hm.device)[None].expand(B, S)
+        hm = _dense_block_train(mp["block"], cfg, hm, positions, None, None)[0]
+        return _ce_from_hidden(params, cfg, hm, tokens[:, 2:])[0]
+
+    def loss(params, batch, remat="full"):
+        """batch["tokens"] (B, S + 1): inputs [:, :-1], labels [:, 1:];
+        for vlm also "patch_embeds" and (3, B, n_vision + S) "positions".
+        Returns (ce + 0.01 aux [+ 0.3 mtp], metrics)."""
+        tokens = batch["tokens"]
+        labels = tokens[:, 1:]
+        h, positions = embed_input(params, {**batch, "tokens": tokens[:, :-1]})
+        h, aux = run_stack(params, h, positions, remat)
+        n_vis = h.shape[1] - labels.shape[1]
+        ce, ntok = _ce_from_hidden(params, cfg, h[:, n_vis:], labels)
+        total = ce + 0.01 * aux
+        metrics = {"ce": ce, "aux": aux, "ntok": ntok}
+        if cfg.mtp:
+            mtp = mtp_loss(params, h[:, n_vis:], tokens)
+            total = total + 0.3 * mtp
+            metrics["mtp"] = mtp
+        return total, metrics
+
+    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +504,23 @@ def _build_ssm_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    return Model(cfg, spec, prefill, decode, alloc_cache)
+    def loss(params, batch, remat="full"):
+        """batch["tokens"] (B, S + 1).  Returns (ce, metrics)."""
+        tokens = batch["tokens"]
+        h = params["embed"][tokens[:, :-1]].to(DTYPES[cfg.compute_dtype])
+        for lp in params["blocks"]:
+            h = _maybe_remat(lambda h, lp=lp: _mamba_residual(lp, cfg, h),
+                             remat)(h)
+        h = _norm(params["final_norm"], cfg, h)
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        return ce, {"ce": ce, "ntok": ntok}
+
+    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
+
+
+def _mamba_residual(lp, cfg, h):
+    """h + one Mamba2 block of the training path (no state kept)."""
+    return h + mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -413,8 +590,8 @@ def _build_hybrid_lm(cfg):
             for m in range(mamba_per):
                 h = mamba_prefill(params["groups"][g]["mamba"][m], h,
                                   cache["g_ssm"][g, m], cache["g_conv"][g, m])
-            h, (k, v) = _dense_block_train(params["shared_attn"], cfg, h,
-                                           positions, None, None)
+            h, (k, v), _ = _dense_block_train(params["shared_attn"], cfg, h,
+                                              positions, None, None)
             cache["k"][g, :, :S].copy_(k)
             cache["v"][g, :, :S].copy_(v)
         for t in range(tail):
@@ -441,7 +618,31 @@ def _build_hybrid_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    return Model(cfg, spec, prefill, decode, alloc_cache)
+    def loss(params, batch, remat="full"):
+        """batch["tokens"] (B, S + 1).  Each Mamba2 block under ``remat``;
+        the shared attention block, applied once a group, is not (as in
+        the JAX package) and gathers its gradient from every group.
+        Returns (ce, metrics)."""
+        tokens = batch["tokens"]
+        h = params["embed"][tokens[:, :-1]].to(DTYPES[cfg.compute_dtype])
+        B, S, _ = h.shape
+        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+
+        def mamba(lp, h):
+            return _maybe_remat(lambda h: _mamba_residual(lp, cfg, h),
+                                remat)(h)
+        for g in range(n_groups):
+            for lp in params["groups"][g]["mamba"]:
+                h = mamba(lp, h)
+            h = _dense_block_train(params["shared_attn"], cfg, h, positions,
+                                   None, None)[0]
+        for t in range(tail):
+            h = mamba(params["tail"][t], h)
+        h = _norm(params["final_norm"], cfg, h)
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        return ce, {"ce": ce, "ntok": ntok}
+
+    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
 
 
 # ---------------------------------------------------------------------------
@@ -493,16 +694,20 @@ def _build_encdec(cfg):
                 for k, shape in (("k", kv), ("v", kv), ("ck", ckv),
                                  ("cv", ckv))}
 
-    def encode(params, enc_embeds):
+    def encode(params, enc_embeds, remat="none"):
         """The encoder over frame embeddings (B, Se, d): the embeddings
         plus the sinusoid, both in the compute dtype, then bidirectional
-        blocks; returns the final LayerNorm's output."""
+        blocks, each under ``remat``; returns the final LayerNorm's
+        output."""
         h = enc_embeds.to(cdt) + _sinusoid(enc_embeds.shape[1], d,
                                            enc_embeds.device).to(cdt)
-        for lp in params["enc"]:
+
+        def block(lp, h):
             h = h + attn_encode(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
                                 chunk=cfg.attn_chunk)
-            h = h + mlp_apply(lp["mlp"], _ln(lp["ln2"], cfg, h), "gelu")
+            return h + mlp_apply(lp["mlp"], _ln(lp["ln2"], cfg, h), "gelu")
+        for lp in params["enc"]:
+            h = _maybe_remat(lambda h, lp=lp: block(lp, h), remat)(h)
         return _ln(params["enc_final_ln"], cfg, h)
 
     def logits(params, h):
@@ -556,4 +761,29 @@ def _build_encdec(cfg):
             h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
         return logits(params, h[:, 0]), cache
 
-    return Model(cfg, spec, prefill, decode, alloc_cache, encode)
+    def loss(params, batch, remat="full"):
+        """batch: "tokens" (B, S + 1), "enc_embeds" (B, enc_len, d).  The
+        encoder runs inside the loss; each encoder and decoder block under
+        ``remat``.  Returns (ce, metrics)."""
+        tokens = batch["tokens"]
+        enc_out = encode(params, batch["enc_embeds"], remat)
+        inp = tokens[:, :-1]
+        B, S = inp.shape
+        h = (params["embed"][inp] + params["pos_embed"][:S]).to(cdt)
+        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+
+        def block(lp, h):
+            a, _ = attn_train(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
+                              positions, chunk=cfg.attn_chunk)
+            h = h + a
+            h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
+                               cross_kv(lp["xattn"], cfg, enc_out),
+                               chunk=cfg.attn_chunk)
+            return h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+        for lp in params["dec"]:
+            h = _maybe_remat(lambda h, lp=lp: block(lp, h), remat)(h)
+        h = _ln(params["dec_final_ln"], cfg, h)
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        return ce, {"ce": ce, "ntok": ntok}
+
+    return _model(cfg, spec, prefill, decode, alloc_cache, encode, loss)

@@ -1175,3 +1175,193 @@ def test_cuda_fluctuating_simulate_equals_cpu():
                              "arr_u", "val_n", "pol_u"))))
     np.testing.assert_array_equal(card.x, cpu.x)
     np.testing.assert_allclose(card.sw, cpu.sw, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# training: the attention and SSD backward kernels and their autograd
+# Functions.  The f32 backward kernels are held to the plain backward run in
+# f64 on the same inputs: no farther than twice the f32 plain version plus
+# 1e-5; the bf16 attention backward no farther than 1.5 times the bf16
+# plain version plus 2e-3 (the gradients are rounded to bf16 once, ~4e-3
+# relative).  Two runs of either backward give the same bits.
+# ---------------------------------------------------------------------------
+
+def _flash_case(B, Sq, Sk, H, KH, hd, vh, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev, dtype)
+                   for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                                 (B, Sk, KH, vh), (B, Sq, H, vh)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,vh,causal,window", [
+    (2, 200, 200, 8, 2, 128, 128, True, 0),  # GQA, ragged tiles
+    (1, 130, 130, 4, 4, 256, 256, True, 0),  # gemma's D 256
+    (1, 300, 300, 4, 2, 64, 64, True, 100),  # a window
+    (2, 77, 300, 4, 4, 64, 64, False, 0),  # cross: Sq < Sk, bidirectional
+    (1, 150, 150, 4, 4, 192, 128, True, 0),  # MLA: q/k 192, v 128
+    (1, 96, 96, 4, 2, 112, 112, True, 0),  # zamba2's D 112
+])
+def test_cuda_flash_bwd_held_to_the_f64_plain_version(
+    dtype, B, Sq, Sk, H, KH, hd, vh, causal, window
+):
+    dev = _card()
+    q, k, v, do = _flash_case(B, Sq, Sk, H, KH, hd, vh, dtype, dev,
+                              Sq + hd + vh)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    # the log-sum-exp leaves the output's bits alone
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, flash_attention_bwd=before[
+        "flash_attention_bwd"] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    d64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = fa.flash_attention_ref(*d64[:3], return_lse=True, **kw)
+    exact = fa.flash_attention_bwd_ref(*d64[:3], o64, lse64, d64[3], **kw)
+    # both kernels form the logits in f32 from the inputs' exact products
+    torch.testing.assert_close(lse.double(), lse64, rtol=1e-5, atol=1e-4)
+    po, plse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+    for a, p, e in zip(got, plain, exact):
+        assert a.dtype == dtype and a.shape == e.shape
+        err_k, err_p = _rel(a, e), _rel(p, e)
+        if dtype == torch.float32:
+            assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
+        else:
+            assert err_k <= 1.5 * err_p + 2e-3, (err_k, err_p)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (2, 256, 3, 64, 128, 128),  # Mamba2-2.7B's P, N and chunk
+    (1, 300, 4, 64, 64, 128),  # Zamba2's N, a ragged last chunk
+    (2, 90, 2, 32, 16, 32),  # small, ragged
+    (1, 20, 3, 16, 8, 64),  # S < chunk
+])
+def test_cuda_ssd_bwd_held_to_the_f64_plain_version(B, S, H, P, N, Q):
+    _check_ssd_bwd(B, S, H, P, N, Q, with_dstate=True)
+
+
+def test_cuda_ssd_bwd_without_a_final_state_gradient():
+    """The Mamba2 training path's call: whole chunks and no final-state
+    gradient (the kernel's null-pointer branch), held as above."""
+    _check_ssd_bwd(2, 512, 3, 64, 128, 128, with_dstate=False)
+
+
+def _check_ssd_bwd(B, S, H, P, N, Q, with_dstate):
+    dev = _card()
+    g = torch.Generator().manual_seed(S + N)
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    xbc = torch.randn((B, S, 2 * N), generator=g)
+    dy = torch.randn((B, S, H, P), generator=g)
+    dstate = torch.randn((B, H, N, P), generator=g)
+    args = [t.to(dev) for t in (x, dt, A)] + list(
+        xbc.to(dev).split([N, N], dim=-1))
+    dy, dstate = dy.to(dev), dstate.to(dev) if with_dstate else None
+    y, st, states, cum = ssd.ssd_scan_saved(*args, Q)
+    before = ssd.LAUNCHES["ssd_bwd"]
+    got = ssd.ssd_bwd(*args, Q, dy, dstate, states, cum)
+    again = ssd.ssd_bwd(*args, Q, dy, dstate, states, cum)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_bwd"] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    exact = ssd.ssd_bwd_ref(*(t.double() for t in args), Q, dy.double(),
+                            dstate.double() if with_dstate else None)
+    plain = ssd.ssd_bwd_ref(*args, Q, dy, dstate)
+    for name, a, p, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                             exact):
+        assert a.shape == e.shape, name
+        scale = float(e.abs().max())  # dA sums thousands of terms
+        err_k = _rel(a / scale, e / scale)
+        err_p = _rel(p / scale, e / scale)
+        assert err_k <= 2 * err_p + 1e-5, (name, err_k, err_p)
+
+
+def test_cuda_autograd_functions_held_to_the_f64_cpu_graph():
+    """FlashAttentionFn and SsdFn under autograd on the card (x, B and C as
+    strided views of one tensor, as the model splits them) against the
+    same graph run in f64 on the CPU (the plain versions): each gradient
+    no farther from it than twice the f32 CPU graph's, plus 1e-5, over
+    the gradient scaled to max |f64| = 1 (dC sums products over heads and
+    steps that cancel, so an elementwise f32 tolerance does not hold)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    B, S, H, KH, hd, P, N = 2, 96, 4, 2, 64, 32, 16
+    base = [torch.randn(s, generator=g) for s in
+            ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd),
+             (B, S, H * P + 2 * N), (B, S, H), (H,))]
+    outs = {}
+    for name, d, dtype in (("card", dev, torch.float32),
+                           ("cpu", "cpu", torch.float32),
+                           ("f64", "cpu", torch.float64)):
+        leaves = [t.to(d, dtype).requires_grad_() for t in base]
+        q, k, v, xbc, dtr, Alog = leaves
+        a = fa.flash_attention_op(q, k, v, scale=hd ** -0.5, causal=True,
+                                  chunk=32) if dtype == torch.float32 else \
+            fa.flash_attention_ref(q, k, v, scale=hd ** -0.5, causal=True,
+                                   chunk=32)
+        xs, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+        args = (xs.reshape(B, S, H, P), torch.nn.functional.softplus(dtr),
+                -torch.exp(Alog), Bm, Cm)
+        y = (ssd.ssd_op(*args, 32) if dtype == torch.float32
+             else ssd.ssd_ref(*args, 32))[0]
+        loss = (a * a).sum() + (y * y).sum()
+        outs[name] = [t.detach().cpu().double() for t in
+                      torch.autograd.grad(loss, leaves)]
+    for c, p, e in zip(outs["card"], outs["cpu"], outs["f64"]):
+        scale = float(e.abs().max())
+        err_c, err_p = _rel(c / scale, e / scale), _rel(p / scale, e / scale)
+        assert err_c <= 2 * err_p + 1e-5, (err_c, err_p)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-2.7b", "zamba2-7b"])
+def test_cuda_reduced_train_step_matches_the_cpu(arch):
+    """One train step of the reduced config in f32 on the card (through
+    the forward and backward kernels) against the same step on the CPU.
+    AdamW's eps is 1e-4 and the parameters' floor 2e-6 (2e-3 of lr):
+    where a gradient entry is near its own rounding noise, m/(√v + eps)
+    turns the card's and the CPU's different summation orders into
+    different steps (2e-5 seen at eps 1e-8; see
+    ``tests/test_torch_train_step.py``)."""
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainState, make_train_step
+    from repro_torch.data import SyntheticLM
+    dev = _card()
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=2,
+                        seed=0).batch(0)
+    results = {}
+    for d in ("cpu", dev):
+        opt = AdamW(lr=1e-3, eps=1e-4)
+        # the same draws on both: made on the CPU, then moved
+        params = model.init(torch.Generator().manual_seed(0),
+                            trainable=True).to(d)
+        state = TrainState(params=params, opt=opt.init(params), err=None)
+        step = make_train_step(model, opt, remat="full")
+        tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+        before = (dict(fa.LAUNCHES), dict(ssd.LAUNCHES))
+        state, metrics = step(state, tb)
+        results[str(d)] = (float(metrics["loss"]),
+                           float(metrics["grad_norm"]),
+                           {n: p.detach().cpu() for n, p in
+                            state.params.named_parameters()})
+        if d != "cpu":
+            torch.cuda.synchronize()
+            bwd = (fa.LAUNCHES["flash_attention_bwd"]
+                   - before[0]["flash_attention_bwd"]
+                   + ssd.LAUNCHES["ssd_bwd"] - before[1]["ssd_bwd"])
+            assert bwd > 0
+    (lc, gc, pc), (lg, gg, pg) = results["cpu"], results["cuda"]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    assert abs(gc - gg) <= 1e-3 * abs(gc)
+    for n in pc:
+        torch.testing.assert_close(pg[n], pc[n], rtol=1e-4, atol=2e-6)

@@ -291,7 +291,9 @@ def _c_params(source, fn):
     ("flash_attention", ["flash_attention_launch"]),
     ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
     ("flash_attention_tf32", ["flash_attention_tf32_launch"]),
+    ("flash_attention_bwd", ["flash_attention_bwd_launch"]),
     ("ssd", ["ssd_scan_launch"]),
+    ("ssd_bwd", ["ssd_bwd_launch"]),
     ("budgeted_dp", ["dp_forward_launch", "dp_forward_sweep_launch",
                      "dp_edge_launch", "dp_edge_chain_launch",
                      "dp_chunk_launch", "dp_epilogue_launch",
@@ -303,7 +305,9 @@ def test_ctypes_declarations_match_the_c_entry_points(lib, fns):
     on the card."""
     library = {"flash_attention": fa.LIBRARY,
                "flash_attention_wgmma": fa.WGMMA_LIBRARY,
-               "flash_attention_tf32": fa.TF32_LIBRARY, "ssd": ssd.LIBRARY,
+               "flash_attention_tf32": fa.TF32_LIBRARY,
+               "flash_attention_bwd": fa.BWD_LIBRARY, "ssd": ssd.LIBRARY,
+               "ssd_bwd": ssd.BWD_LIBRARY,
                "budgeted_dp": build.LIBRARY}[lib]
     fake = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in fns})
     library._declare(fake)
