@@ -175,8 +175,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    1 backward a layer), the first step's loss and gradient norm within
    1e-3 (relative) of the same step through the plain versions, and the
    planted fault's gradient norm outside it, the step ms and the peak
-   memory; ``launch.train`` on the reduced qwen2.5-32b with a failure at
-   step 12, one restart from its checkpoint, and its launches counted;
+   memory; one more step of each under ``torch.profiler``, its ten device
+   operations with the most total time printed; ``launch.train`` on the
+   reduced qwen2.5-32b with a failure at step 12, one restart from its
+   checkpoint, and its launches counted;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -519,8 +521,12 @@ def main():
           f"from {FA_SOURCE}; ssd_scan (K7 _ssd_kernel: "
           f"{', '.join(ssd.KERNELS)}) from {SSD_SOURCE}; for training "
           f"flash_attention_bwd (new, no TPU kernel: the gradient of K6's "
-          f"function) from {FAB_SOURCE} and ssd_bwd (new: the gradient of "
-          f"K7's, {', '.join(ssd.BWD_KERNELS)}) from {SSB_SOURCE}",
+          f"function; bf16: {', '.join(fa.bwd_route(torch.bfloat16)[1])} "
+          f"on the tensor cores, f32: "
+          f"{', '.join(fa.bwd_route(torch.float32)[1])} on the CUDA cores) "
+          f"from {FAB_SOURCE} and ssd_bwd (new: the gradient of K7's, "
+          f"{', '.join(ssd.BWD_KERNELS)}, split TF32 on the tensor cores) "
+          f"from {SSB_SOURCE}",
           flush=True)
     # a reference states both: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -540,8 +546,8 @@ def main():
                   flush=True)
         # the redesigned kernels must not spill: every DP, SSD (forward
         # and backward) and TF32 attention kernel, and the wgmma attention
-        # at D = 192 and 256; the referee and the attention backward (a
-        # first, CUDA-core design) are reported only
+        # at D = 192 and 256; the referee and the attention backward (whose
+        # f32 route is still a first, CUDA-core design) are reported only
         gated = {fa.LIBRARY: [], fa.BWD_LIBRARY: [], fa.WGMMA_LIBRARY: [
             k for k in kernels if k[0].endswith(("<192>", "<256>"))]}.get(
                 lib, kernels)
@@ -2932,6 +2938,27 @@ def main():
             fail(f"{arch}: the first step's loss {losses[0]} / gradient norm "
                  f"{gnorm_k} differ from the plain versions' {loss_p} / "
                  f"{gnorm_p}")
+        # one more step under torch.profiler: where a step's device time
+        # goes, by operation
+        from torch.profiler import ProfilerActivity, profile
+        with warnings.catch_warnings():  # its note on clearing events
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                state_t, _ = step_t(state_t, batch_t)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - w0) * 1e3
+        evts = [e for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) > 0]
+        dev_ms = sum(e.device_time_total for e in evts) / 1e3
+        top = sorted(evts, key=lambda e: e.device_time_total, reverse=True)
+        print(f"   one step under torch.profiler: {host_ms:.1f} ms on the "
+              f"host clock, {dev_ms:.1f} ms of device time in "
+              f"{sum(e.count for e in evts)} launches; the ten device "
+              "operations with the most total time:", flush=True)
+        for e in top[:10]:
+            print(f"      {e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+                  f"{e.key[:110]}", flush=True)
         train_counts[arch] = counts
         train_ms[arch] = (sorted(step_ms[1:])[len(step_ms[1:]) // 2], peak)
         del model_t, params_t, state_t, step_t, opt_t, batch_t, m
@@ -3643,15 +3670,14 @@ def main():
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((2, 40, 2048), device=dev)
     keep.append((o, lse, dq, dk, dv, delta, do))
-    raw = checked(fa.BWD_LIBRARY.load().flash_attention_bwd_launch, (
+    bwd_entry, bwd_kernels = fa.bwd_route(torch.bfloat16)
+    raw = checked(getattr(fa.BWD_LIBRARY.load(), bwd_entry), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), 2, 2048, 2048, 40, 8, 128,
-        kw["scale"], 1, 0, 1, stream))
+        kw["scale"], 1, 0, stream))
     t_k = timed(raw, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                    **kw),
-                ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
-                 "fa_bwd_dq_kernel"), 5)
+                                                    **kw), bwd_kernels, 5)
     p_k = per_call_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                          **kw), 1, reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -3678,8 +3704,9 @@ def main():
         library_ms=lib_ms)
     print(f"   flash_attention_bwd: SDPA's backward (torch autograd of "
           f"scaled_dot_product_attention, enable_gqa) {lib_ms:.4f} ms; "
-          f"f32-FMA bound {b_ops / F32_OPS_PER_S * 1e3:.4f} ms (the kernel "
-          "runs its products on the CUDA cores)", flush=True)
+          f"f32-FMA bound {b_ops / F32_OPS_PER_S * 1e3:.4f} ms (the bf16 "
+          "route runs its products on the tensor cores, mma.sync; the f32 "
+          "route on the CUDA cores)", flush=True)
     del q, k, v, do, o, lse, qt, kt, vt, out, dot
     B, S, H, P, N, Q = 2, 2048, m2.n_ssm_heads, m2.ssm_head_dim, \
         m2.ssm_state, m2.ssm_chunk
@@ -3691,7 +3718,8 @@ def main():
     outs = (torch.empty((B, S, H, P), **f32), torch.empty((B, S, H), **f32),
             torch.empty((H,), **f32), torch.empty((B, S, N), **f32),
             torch.empty((B, S, N), **f32), torch.empty_like(states),
-            torch.empty((H, B, S, N), **f32), torch.empty((H, B, S, N), **f32),
+            torch.empty((ssd.bwd_shares(H), B, S, N), **f32),
+            torch.empty((ssd.bwd_shares(H), B, S, N), **f32),
             torch.empty((B, H, n_chunks), **f32))
     keep.append((dy, states, cum, outs))
     dx_, ddt_, dA_, dB_, dC_, gbuf, dBp, dCp, dAp = outs
@@ -3704,9 +3732,7 @@ def main():
         dCp.data_ptr(), dAp.data_ptr(), B, S, H, P, N, Q, stream))
     t_k = timed(raw, lambda: ssd.ssd_bwd(xs, dts, As, Bs, Cs, Q, dy, None,
                                          states, cum),
-                ssd.BWD_KERNELS, 10,
-                {name: 1 + (name == "ssd_bwd_reduce_kernel")
-                 for name in ssd.BWD_KERNELS})
+                ssd.BWD_KERNELS, 10, ssd.BWD_LAUNCHES_PER_CALL)
     p_k = per_call_ms(lambda: ssd.ssd_bwd_ref(xs, dts, As, Bs, Cs, Q, dy),
                       1, reps=3)
     # what these inputs need: C·Bᵀ on the lower triangle once per (b,
@@ -3731,7 +3757,9 @@ def main():
         (sb_bytes, 3 * sb_ops), source=SSB_SOURCE, ops_per_s=TF32_OPS_PER_S,
         ops_kind="TF32 tensor-core (3 per f32 product)")
     print(f"   ssd_bwd: f32-FMA bound {sb_ops / F32_OPS_PER_S * 1e3:.4f} ms "
-          "(the kernel runs its products on the CUDA cores)", flush=True)
+          "(the kernels run their products on the tensor cores in split "
+          f"TF32, C·Bᵀ once a group of {ssd.BWD_HEAD_GROUP} heads)",
+          flush=True)
     del xs, dts, As, Bs, Cs, dy, states, cum, outs
     print("   training (k): " + "; ".join(
         f"{a} {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), peak "

@@ -9,20 +9,24 @@
 // training on the card needs this backward, behind the autograd Function
 // ops.FlashAttentionFn.
 //
-// Three kernels behind the one entry point flash_attention_bwd_launch, on
-// the caller's stream (the FlashAttention-2 backward):
+// Two routes, one per input dtype, each behind its own C entry point; the
+// wrapper (kernel.py::bwd_kernels_for) picks the route from the dtype
+// alone.  Both are three kernels on the caller's stream (the
+// FlashAttention-2 backward):
 // 1. fa_bwd_pre_kernel, one warp a row: delta_i = rowsum(dO_i * O_i), f32.
-// 2. fa_bwd_dkdv_kernel, one block per (key tile of BK keys, kv head kh,
-//    b): K and V of the tile in shared memory once, then for each of the g
-//    query heads of kh's group (GQA) and each query tile of BQ rows that
-//    can see the tile: S = scale Q K^T and dP = dO V^T, P = exp(S - lse)
-//    where the mask lets the key through, dS = P (dP - delta); then
-//    dV += P^T dO and dK += dS^T Q into registers.  The group's heads sum
-//    in the block, in a fixed order: no atomics.
-// 3. fa_bwd_dq_kernel, one block per (query tile, head h, b): the same S
-//    and dP over the key tiles the rows can see, dQ += dS K.
+// 2. a dK/dV kernel, one block per (key tile, kv head kh, b): K and V of
+//    the tile in shared memory once, then for each of the g query heads of
+//    kh's group (GQA) and each query tile that can see the tile, in a fixed
+//    order: S = scale Q K^T and dP = dO V^T, P = exp(S - lse) where the
+//    mask lets the key through, dS = P (dP - delta); then dV += P^T dO and
+//    dK += dS^T Q.  The group's heads sum in the block: no atomics.
+// 3. a dQ kernel, one block per (query tile, head h, b): the same S and dP
+//    over the key tiles the rows can see, dQ += dS K.
 // dQ and dK take the scale once at the end.  Every output element is a sum
 // that one thread forms in a fixed order, so two runs give the same bits.
+// The dQ kernel recomputes S and dP: the call runs seven products where
+// the function needs five, which costs less than a per-key-tile dQ buffer
+// would move (B H Sk/BM Sq D f32 words, ~2.7 GB at qwen2.5-32b's shape).
 //
 // The masks are the forward's: causal (key j <= query position), a window
 // (position - j < window when window > 0), query i at position
@@ -34,19 +38,47 @@
 // o and dO with zero columns to the wider width and cuts the gradients
 // back.
 //
-// Products are f32 FMAs on the CUDA cores from tiles converted to f32 in
-// shared memory (bf16 inputs are exact in f32), accumulated in f32, and
-// the gradients are rounded to the input type once.  A thread holds a 2 x
-// 2 block of S and dP and D / 8 columns of one row of dK and dV (or dQ).
+// bf16 route (flash_attention_bwd_bf16_launch: fa_bwd_dkdv_mma_kernel,
+// fa_bwd_dq_mma_kernel), on the tensor cores: every product is
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators, fed by
+// ldmatrix (.trans for the operands stored k-major) from bf16 tiles that
+// cp.async copies in two stages, the next tile in flight while this one is
+// used.  Each warp owns 16 rows of the block's fixed
+// tile (keys in the dK/dV kernel, queries in the dQ kernel) and sweeps the
+// streamed tile's rows, so the probabilities stay in registers: in the
+// dK/dV kernel the warp forms S^T = K Q^T and dP^T = V dO^T (keys as rows),
+// and the accumulator fragments of P^T = exp(scale S^T - lse) and dS^T =
+// P^T (dP^T - delta), rounded to bf16, are the A operands of dV += P^T dO
+// and dK += dS^T Q as they stand (an m16n8k16 accumulator pair has the A
+// fragment's layout); in the dQ kernel dS feeds dQ += dS K the same way.
+// The logits and the softmax stay in f32; only P and dS are rounded to
+// bf16 before their products, where the bf16 plain version rounds q k and
+// p.  Tiles (MmaCfg): at D 64 and 128 blocks of 4 warps (64 fixed rows),
+// 64 streamed query rows (dK/dV) or 32 keys (dQ), two blocks an SM; at D
+// 192 and 256 blocks of 8 warps (128 fixed rows) and 32 streamed rows, and
+// dK and dV held half the columns a block (the grid's y covers both
+// halves, each block forming S and dP over all of D), so their
+// accumulators fit in registers.  The loops run over the padded width:
+// the tiles hold zeros past hd.
+// Rows are padded by 8 bf16 so ldmatrix's eight 16-byte rows hit distinct
+// banks.  A warp skips a streamed tile wholly outside its mask and
+// evaluates the mask only where a tile crosses it.
+//
+// f32 route (flash_attention_bwd_f32_launch: fa_bwd_dkdv_kernel,
+// fa_bwd_dq_kernel), on the CUDA cores: f32 FMAs from tiles in shared
+// memory, a thread a 2 x 2 block of S and dP and D / 8 columns of one row
+// of dK and dV (or dQ), 32 x 32 tiles.  A split-TF32 mma.sync design (as
+// flash_attention_tf32.cu's forward) is later work.
 //
 // What bounds it: the five products (S recomputed, dP, dV, dK, dQ) are
 // 10 B H Sq Sk D operations (halved when causal): at qwen2.5-32b's
 // training shape (B 2, S 2048, 40 heads, D 128, causal) 215 GFLOP, 0.22
-// ms at the tensor cores' 989 TFLOP/s in bf16.  This kernel runs seven
-// products (dq's block recomputes S and dP) on the CUDA cores (67 TFLOP/s
-// at most), reading two shared-memory words per FMA pair: it is bound by
-// shared memory, tens of times its bound.  A tensor-core design (mma.sync
-// or wgmma fed by TMA) is later work.
+// ms at the tensor cores' 989 TFLOP/s in bf16.  The bf16 route runs seven
+// products on mma.sync, whose warps each read their B operands from
+// shared memory (an ldmatrix.x4 feeds two mma), so shared memory, not the
+// tensor cores, sets its pace; wgmma with TMA-fed tiles is the next step.
+// The f32 route runs seven products on the CUDA cores (67 TFLOP/s at
+// most), reading two shared-memory words per FMA pair.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,10 +106,6 @@ __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // shared memory of the dk/dv and dq kernels at padded width DM: four
@@ -326,6 +354,445 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq_kernel(
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// Fragments of m16n8k16 (g = lane / 4, t = lane % 4), two bf16 a register,
+// the lower column in the low half: A a0 (row g, k 2t..), a1 (g + 8, 2t),
+// a2 (g, 2t + 8), a3 (g + 8, 2t + 8); B b0 (k 2t.., n g), b1 (k 2t + 8, n
+// g); C c0, c1 (row g, columns 2t, 2t + 1), c2, c3 (row g + 8).  So the
+// accumulators of two neighbouring n-tiles, packed to bf16 pairs, are the
+// A fragment of the 16 k-columns they cover.
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D_, int DC_, int BQ_, int BT_, int WARPS_>
+struct MmaCfg {
+  static constexpr int D = D_;    // padded head dim
+  static constexpr int DC = DC_;  // dK/dV columns a block holds
+  static constexpr int BQ = BQ_;  // query rows of a dK/dV kernel's stage
+  static constexpr int BT = BT_;  // keys of a dQ kernel's stage
+  static constexpr int NSPLIT = D / DC;
+  static constexpr int WARPS = WARPS_;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BM = 16 * WARPS;  // the block's fixed rows
+  static constexpr int LD = D + 8;       // bf16 a row: 16 bytes of padding
+  static constexpr int DKDV_SMEM =
+      2 * (2 * BM * LD + 2 * 2 * BQ * LD) + 4 * 2 * 2 * BQ;
+  static constexpr int DQ_SMEM = 2 * (2 * BM * LD + 2 * 2 * BT * LD);
+};
+
+using Mma64 = MmaCfg<64, 64, 64, 32, 4>;
+using Mma128 = MmaCfg<128, 128, 64, 32, 4>;
+using Mma192 = MmaCfg<192, 96, 32, 32, 8>;
+using Mma256 = MmaCfg<256, 128, 32, 32, 8>;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block, sm_90
+static_assert(Mma128::DKDV_SMEM <= SMEM_LIMIT && Mma128::DQ_SMEM <= SMEM_LIMIT,
+              "D = 128: shared memory");
+static_assert(Mma192::DKDV_SMEM <= SMEM_LIMIT && Mma192::DQ_SMEM <= SMEM_LIMIT,
+              "D = 192: shared memory");
+static_assert(Mma256::DKDV_SMEM <= SMEM_LIMIT && Mma256::DQ_SMEM <= SMEM_LIMIT,
+              "D = 256: shared memory");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src));
+}
+// 4 bytes where live, else a zero stored
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool live) {
+  if (live) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(src));
+  } else {
+    *dst = 0.f;
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragments of an accumulator 16 x (8 NT) (rows, k), rounded to bf16
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4],
+                                     const float (&c)[NT][4]) {
+#pragma unroll
+  for (int k = 0; k < NT / 2; ++k) {
+    a[k][0] = pack_bf16(c[2 * k][0], c[2 * k][1]);
+    a[k][1] = pack_bf16(c[2 * k][2], c[2 * k][3]);
+    a[k][2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
+    a[k][3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
+  }
+}
+
+// rows [0, n_max) of a (rows, heads, hd) bf16 tensor from src (its first
+// row, stride rs elements) into a tile of row stride LD by cp.async,
+// zeros in rows past n and columns past hd up to D
+template <class C>
+__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
+                                               size_t rs, int n_max, int n,
+                                               int hd) {
+  constexpr int CH = C::D / 8;  // 16-byte pieces a row
+  for (int e = threadIdx.x; e < n_max * CH; e += C::THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    bf16* d = dst + r * C::LD + c;
+    if (r < n && c < hd)
+      cp_async16(d, src + (size_t)r * rs + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// acc[NT] (16 x 8 NT) = A B^T over the padded width: A's 16 rows at a
+// (row stride LD), B's 8 NT rows at b, both k-contiguous (ldmatrix, no
+// transpose).  Columns past hd are zeros in the tiles, so the loops run
+// over the whole padded width, with no branch between the products.
+template <int NT, int KD, int LD>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
+                                        const bf16* b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                      kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[NC] (16 x 8 NC) += A B: A from registers (16 x 16 KS), B's 16 KS
+// rows at b (row stride LD, n-contiguous: ldmatrix.trans), columns of B
+// from b's own column 0
+template <int KS, int NC, int LD>
+__device__ __forceinline__ void mma_ab(float (&acc)[NC][4],
+                                       const uint32_t (&a)[KS][4],
+                                       const bf16* b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+#pragma unroll
+    for (int np = 0; np < NC / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, b + (k * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        np * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * np], a[k], bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], a[k], bf[2], bf[3]);
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1) fa_bwd_dkdv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+    int KH, int hd, float scale, int causal, int window) {
+  constexpr int BM = C::BM, BQ = C::BQ, LD = C::LD, DC = C::DC;
+  constexpr int NS = BQ / 8;  // n-tiles of S^T and dP^T
+  constexpr int NA = DC / 8;  // n-tiles of dK and dV
+  extern __shared__ float4 smem4[];
+  bf16* sK = reinterpret_cast<bf16*>(smem4);
+  bf16* sV = sK + BM * LD;
+  bf16* sQ = sV + BM * LD;  // stage s: Q at sQ + 2 s BQ LD, then dO
+  float* sLD = reinterpret_cast<float*>(sQ + 4 * BQ * LD);  // stage s: lse, delta
+  const int g = H / KH, kh = blockIdx.y / C::NSPLIT, b = blockIdx.z;
+  const int dc0 = (blockIdx.y % C::NSPLIT) * DC;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int j0 = blockIdx.x * BM, shift = Sk - Sq, jw = j0 + 16 * warp;
+  load_rows_bf16<C>(sK, k + (((size_t)b * Sk + j0) * KH + kh) * hd,
+                    (size_t)KH * hd, BM, Sk - j0, hd);
+  load_rows_bf16<C>(sV, v + (((size_t)b * Sk + j0) * KH + kh) * hd,
+                    (size_t)KH * hd, BM, Sk - j0, hd);
+  cp_async_commit();
+  // the query tiles whose rows can see a key of this tile
+  int i_lo = 0, i_hi = Sq;
+  if (causal) i_lo = max(0, j0 - shift);
+  if (window > 0) i_hi = min(Sq, j0 + BM - 1 + window - shift);
+  const int t_lo = i_lo / BQ;
+  const int n_t = i_hi > i_lo ? (i_hi + BQ - 1) / BQ - t_lo : 0;
+  const int steps = g * n_t;  // (head, query tile), heads outer
+  auto issue = [&](int s) {
+    const int h = kh * g + s / n_t, i0 = (t_lo + s % n_t) * BQ;
+    bf16* tQ = sQ + (s & 1) * 2 * BQ * LD;
+    const size_t off = (((size_t)b * Sq + i0) * H + h) * hd;
+    load_rows_bf16<C>(tQ, q + off, (size_t)H * hd, BQ, Sq - i0, hd);
+    load_rows_bf16<C>(tQ + BQ * LD, dout + off, (size_t)H * hd, BQ, Sq - i0,
+                      hd);
+    if (tid < BQ) {
+      const size_t row = ((size_t)b * H + h) * Sq + i0 + tid;
+      float* tl = sLD + (s & 1) * 2 * BQ;
+      cp_async4(tl + tid, lse + row, i0 + tid < Sq);
+      cp_async4(tl + BQ + tid, delta + row, i0 + tid < Sq);
+    }
+    cp_async_commit();
+  };
+  const float sl2 = scale * LOG2E;
+  float accK[NA][4], accV[NA][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accK[n][e] = accV[n][e] = 0.f;
+
+  if (steps > 0) issue(0);
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int i0 = (t_lo + s % n_t) * BQ;
+    const bf16* tQ = sQ + (s & 1) * 2 * BQ * LD;
+    const bf16* tO = tQ + BQ * LD;
+    const float* tl = sLD + (s & 1) * 2 * BQ;
+    const float* td = tl + BQ;
+    const bool dead = jw >= Sk || (causal && i0 + BQ - 1 + shift < jw) ||
+                      (window > 0 && i0 + shift - (jw + 15) >= window);
+    if (!dead) {
+      const bool full = i0 + BQ <= Sq && jw + 16 <= Sk &&
+                        (!causal || jw + 15 <= i0 + shift) &&
+                        (window <= 0 || i0 + BQ - 1 + shift - jw < window);
+      // P^T = exp(scale K Q^T - lse), keys as rows
+      float p[NS][4];
+      mma_abt<NS, C::D / 16, LD>(p, sK + 16 * warp * LD, tQ);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = n * 8 + 2 * tq + (e & 1);
+          const int j = jw + gr + (e >> 1) * 8;
+          float x = exp2f(fmaf(p[n][e], sl2, -tl[ql] * LOG2E));
+          if (!full && !(i0 + ql < Sq &&
+                         visible(i0 + ql + shift, j, Sk, causal, window)))
+            x = 0.f;
+          p[n][e] = x;
+        }
+      }
+      uint32_t pa[NS / 2][4];
+      to_a<NS>(pa, p);
+      mma_ab<NS / 2, NA, LD>(accV, pa, tO + dc0);  // dV += P^T dO
+      // dS^T = P^T (V dO^T - delta)
+      float ds[NS][4];
+      mma_abt<NS, C::D / 16, LD>(ds, sV + 16 * warp * LD, tO);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[n][e] = p[n][e] * (ds[n][e] - td[n * 8 + 2 * tq + (e & 1)]);
+      to_a<NS>(pa, ds);
+      mma_ab<NS / 2, NA, LD>(accK, pa, tQ + dc0);  // dK += dS^T Q
+    }
+    __syncthreads();  // the stage is refilled two steps on
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NA; ++n) {
+    const int c = dc0 + n * 8 + 2 * tq;
+    if (c >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = jw + gr + 8 * half;
+      if (j >= Sk) continue;
+      const size_t at = (((size_t)b * Sk + j) * KH + kh) * hd + c;
+      *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(
+          accK[n][2 * half] * scale, accK[n][2 * half + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack_bf16(accV[n][2 * half], accV[n][2 * half + 1]);
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1) fa_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Sq, int Sk, int H, int KH, int hd, float scale,
+    int causal, int window) {
+  constexpr int BM = C::BM, BT = C::BT, LD = C::LD;
+  constexpr int NS = BT / 8;      // n-tiles of S and dP
+  constexpr int NQ = C::D / 8;    // n-tiles of dQ
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);
+  bf16* sO = sQ + BM * LD;        // dO
+  bf16* sKV = sO + BM * LD;       // stage s: K at sKV + 2 s BT LD, then V
+  const int g = H / KH, h = blockIdx.y, kh = h / g, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  // query tiles last to first: under the causal mask the last see the most
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BM, shift = Sk - Sq;
+  const int nq = min(BM, Sq - i0), iw = i0 + 16 * warp;
+  const size_t qoff = (((size_t)b * Sq + i0) * H + h) * hd;
+  load_rows_bf16<C>(sQ, q + qoff, (size_t)H * hd, BM, nq, hd);
+  load_rows_bf16<C>(sO, dout + qoff, (size_t)H * hd, BM, nq, hd);
+  cp_async_commit();
+  float lrow[2], drow[2];  // rows iw + gr and iw + gr + 8
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = iw + gr + 8 * e;
+    const size_t row = ((size_t)b * H + h) * Sq + i;
+    lrow[e] = i < Sq ? lse[row] * LOG2E : 0.f;
+    drow[e] = i < Sq ? delta[row] : 0.f;
+  }
+  // the key tiles these rows can see
+  int j_lo = 0, j_hi = Sk;
+  if (causal) j_hi = min(Sk, max(0, i0 + nq + shift));
+  if (window > 0) j_lo = max(0, i0 + shift - window + 1);
+  const int t_lo = j_lo / BT;
+  const int n_t = j_hi > j_lo ? (j_hi + BT - 1) / BT - t_lo : 0;
+  auto issue = [&](int s) {
+    const int j0 = (t_lo + s) * BT;
+    bf16* tK = sKV + (s & 1) * 2 * BT * LD;
+    const size_t off = (((size_t)b * Sk + j0) * KH + kh) * hd;
+    load_rows_bf16<C>(tK, k + off, (size_t)KH * hd, BT, Sk - j0, hd);
+    load_rows_bf16<C>(tK + BT * LD, v + off, (size_t)KH * hd, BT, Sk - j0,
+                      hd);
+    cp_async_commit();
+  };
+  const float sl2 = scale * LOG2E;
+  float acc[NQ][4];
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  if (n_t > 0) issue(0);
+  for (int s = 0; s < n_t; ++s) {
+    if (s + 1 < n_t) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = (t_lo + s) * BT;
+    const bf16* tK = sKV + (s & 1) * 2 * BT * LD;
+    const bf16* tV = tK + BT * LD;
+    const bool dead = iw >= Sq || (causal && j0 > iw + 15 + shift) ||
+                      (window > 0 && iw + shift - (j0 + BT - 1) >= window);
+    if (!dead) {
+      const bool full = iw + 16 <= Sq && j0 + BT <= Sk &&
+                        (!causal || j0 + BT - 1 <= iw + shift) &&
+                        (window <= 0 || iw + 15 + shift - j0 < window);
+      float p[NS][4];
+      mma_abt<NS, C::D / 16, LD>(p, sQ + 16 * warp * LD, tK);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + n * 8 + 2 * tq + (e & 1);
+          const int i = iw + gr + (e >> 1) * 8;
+          float x = exp2f(fmaf(p[n][e], sl2, -lrow[e >> 1]));
+          if (!full && !(i < Sq && visible(i + shift, j, Sk, causal, window)))
+            x = 0.f;
+          p[n][e] = x;
+        }
+      }
+      float ds[NS][4];
+      mma_abt<NS, C::D / 16, LD>(ds, sO + 16 * warp * LD, tV);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[n][e] = p[n][e] * (ds[n][e] - drow[e >> 1]);
+      uint32_t da[NS / 2][4];
+      to_a<NS>(da, ds);
+      mma_ab<NS / 2, NQ, LD>(acc, da, tK);  // dQ += dS K
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+    const int c = n * 8 + 2 * tq;
+    if (c >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = iw + gr + 8 * half;
+      if (i >= Sq) continue;
+      *reinterpret_cast<uint32_t*>(dq + (((size_t)b * Sq + i) * H + h) * hd +
+                                   c) =
+          pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    }
+  }
+}
+
+template <class C>
+int launch_mma(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
+               int hd, float scale, int causal, int window, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dkdv_mma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::DKDV_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_bwd_dq_mma_kernel<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = B * Sq * H;
+  fa_bwd_pre_kernel<bf16><<<(rows + THREADS / 32 - 1) / (THREADS / 32),
+                            THREADS, 0, st>>>((const bf16*)o,
+                                              (const bf16*)dout, delta, rows,
+                                              Sq, H, hd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fa_bwd_dkdv_mma_kernel<C><<<dim3((Sk + C::BM - 1) / C::BM, KH * C::NSPLIT,
+                                   B),
+                              C::THREADS, C::DKDV_SMEM, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H, KH, hd, scale, causal, window);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fa_bwd_dq_mma_kernel<C><<<dim3((Sq + C::BM - 1) / C::BM, H, B), C::THREADS,
+                            C::DQ_SMEM, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      delta, (bf16*)dq, Sq, Sk, H, KH, hd, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DM>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
@@ -381,31 +848,66 @@ int launch_width(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+int launch_mma_width(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int B,
+                     int Sq, int Sk, int H, int KH, int hd, float scale,
+                     int causal, int window, cudaStream_t st) {
+  switch ((hd + 63) / 64) {  // padded to 64, 128, 192 or 256 columns
+    case 1:
+      return launch_mma<Mma64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               Sq, Sk, H, KH, hd, scale, causal, window, st);
+    case 2:
+      return launch_mma<Mma128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Sq, Sk, H, KH, hd, scale, causal, window, st);
+    case 3:
+      return launch_mma<Mma192>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Sq, Sk, H, KH, hd, scale, causal, window, st);
+    default:
+      return launch_mma<Mma256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Sq, Sk, H, KH, hd, scale, causal, window, st);
+  }
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int KH, int hd) {
+  return hd % 8 != 0 || hd < 8 || hd > 256 || KH < 1 || H % KH != 0 ||
+         B < 1 || Sq < 1 || Sk < 1;
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, o, dout, dq (B,Sq,H,hd) and k, v, dk, dv (B,Sk,KH,hd), contiguous,
-// all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); lse (B,H,Sq) f32 from
-// the forward; delta (B,H,Sq) f32 scratch.  hd a multiple of 8 up to 256,
-// H % KH == 0.  Three launches on the stream; returns the first
-// cudaError_t (0 on success).
-int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                               const void* o, const void* dout,
-                               const float* lse, float* delta, void* dq,
-                               void* dk, void* dv, int B, int Sq, int Sk,
-                               int H, int KH, int hd, float scale, int causal,
-                               int window, int is_bf16, void* stream) {
-  if (hd % 8 != 0 || hd < 8 || hd > 256 || KH < 1 || H % KH != 0 || Sq < 1 ||
-      Sk < 1)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_width<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, Sq, Sk, H, KH, hd, scale,
-                                       causal, window, st);
+// q, o, dout, dq (B,Sq,H,hd) and k, v, dk, dv (B,Sk,KH,hd), contiguous;
+// lse (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32 scratch.  hd a
+// multiple of 8 up to 256, H % KH == 0.  Three launches on the stream;
+// each returns the first cudaError_t (0 on success).
+// bf16 tensors, on the tensor cores; every tensor 16-byte aligned
+int flash_attention_bwd_bf16_launch(const void* q, const void* k,
+                                    const void* v, const void* o,
+                                    const void* dout, const float* lse,
+                                    float* delta, void* dq, void* dk,
+                                    void* dv, int B, int Sq, int Sk, int H,
+                                    int KH, int hd, float scale, int causal,
+                                    int window, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KH, hd)) return (int)cudaErrorInvalidValue;
+  return launch_mma_width(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
+                          Sk, H, KH, hd, scale, causal, window,
+                          (cudaStream_t)stream);
+}
+
+// f32 tensors, on the CUDA cores
+int flash_attention_bwd_f32_launch(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk, void* dv,
+                                   int B, int Sq, int Sk, int H, int KH,
+                                   int hd, float scale, int causal,
+                                   int window, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KH, hd)) return (int)cudaErrorInvalidValue;
   return launch_width<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                             Sk, H, KH, hd, scale, causal, window, st);
+                             Sk, H, KH, hd, scale, causal, window,
+                             (cudaStream_t)stream);
 }
 
 const char* fab_error_string(int err) {

@@ -25,9 +25,10 @@ other than q/k's runs the kernel at the wider of the two, on zero columns
 For training, both tensor-core kernels also write each row's log-sum-exp
 when asked (``return_lse``), and :func:`flash_attention_bwd` launches the
 backward (``csrc/flash_attention_bwd.cu``: a preprocess, a dK/dV kernel
-and a dQ kernel, f32 or bf16, CUDA-core FMAs), counted as
-``flash_attention_bwd``; ``ops.FlashAttentionFn`` puts the two under
-autograd.
+and a dQ kernel), counted as ``flash_attention_bwd`` whatever the route.
+:func:`bwd_route` picks the route from the dtype alone: bf16 runs on the
+tensor cores (``mma.sync`` m16n8k16), f32 on the CUDA cores (f32 FMAs).
+``ops.FlashAttentionFn`` puts the forward and the backward under autograd.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ from . import ref
 from ..nvcc import CudaLibrary
 
 __all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "TF32_LIBRARY",
-           "BWD_LIBRARY", "MAX_HEAD_DIM", "kernel_for", "zero_pad",
-           "flash_attention", "flash_attention_bwd"]
+           "BWD_LIBRARY", "BWD_ROUTES", "MAX_HEAD_DIM", "kernel_for",
+           "bwd_route", "zero_pad", "flash_attention",
+           "flash_attention_bwd"]
 
 # launches of each CUDA kernel by the wrapper (plain-version calls are not
 # counted; "flash_attention", the referee, is never launched by it)
@@ -76,11 +78,22 @@ def _declare_tensor_core(fn: str):
 
 def _declare_bwd(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd_launch.argtypes = ([p] * 10 + [i] * 6
-                                               + [ctypes.c_float] + [i] * 3
-                                               + [p])
-    lib.flash_attention_bwd_launch.restype = i
+    for entry, _ in BWD_ROUTES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p]
+        fn.restype = i
 
+
+# the backward's route by the inputs' dtype: its C entry point in
+# csrc/flash_attention_bwd.cu and the kernels one call launches, in order
+BWD_ROUTES = {
+    torch.bfloat16: ("flash_attention_bwd_bf16_launch",
+                     ("fa_bwd_pre_kernel", "fa_bwd_dkdv_mma_kernel",
+                      "fa_bwd_dq_mma_kernel")),
+    torch.float32: ("flash_attention_bwd_f32_launch",
+                    ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
+                     "fa_bwd_dq_kernel")),
+}
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu", _declare,
@@ -110,6 +123,18 @@ def kernel_for(dtype, hd: int) -> str:
     if dtype == torch.bfloat16:
         return "flash_attention_wgmma"
     return "flash_attention_tf32"
+
+
+def bwd_route(dtype):
+    """(C entry point, kernel names) of the backward for q, k, v of
+    ``dtype`` on the card: bfloat16 → the tensor-core kernels
+    (``mma.sync`` m16n8k16, bf16 operands, f32 accumulators), float32 →
+    the CUDA-core kernels (f32 FMAs).  Raises ``TypeError`` for another
+    dtype."""
+    if dtype not in BWD_ROUTES:
+        raise TypeError(f"{dtype}: q, k and v must all be float32 or all "
+                        "bfloat16")
+    return BWD_ROUTES[dtype]
 
 
 def zero_pad(q, k, v, width: int):
@@ -225,9 +250,11 @@ def flash_attention_bwd(
     the output's gradient ``do`` (B, Sq, H, vh); the same masks, layouts
     and dtypes as the forward, all contiguous.  On the card the kernel of
     ``csrc/flash_attention_bwd.cu`` (counted as ``flash_attention_bwd``),
-    at width max(hd, vh) on zero columns where vh ≠ hd; on the CPU
+    at width max(hd, vh) on zero columns where vh ≠ hd, by
+    :func:`bwd_route`'s route for the dtype; on the CPU
     ``ref.flash_attention_bwd_ref``.  Gradients come in the inputs'
-    dtype."""
+    dtype.  The bf16 route reads rows in 16-byte pieces and raises for a
+    tensor that does not start on a 16-byte boundary."""
     B, Sq, Sk, H, KH, hd, vh, _ = _check_inputs(q, k, v)
     dev = q.device
     for t_name, t, shape in (("o", o, (B, Sq, H, vh)), ("do", do, (B, Sq, H, vh))):
@@ -244,19 +271,25 @@ def flash_attention_bwd(
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
                                            causal=causal, window=window,
                                            chunk=chunk)
+    entry, _ = bwd_route(q.dtype)
     width = max(hd, vh)
     if vh != hd:
         q, k, v = zero_pad(q, k, v, width)
         o, do = (F.pad(t, (0, width - vh)) for t in (o, do))
+    if q.dtype == torch.bfloat16:
+        for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o),
+                          ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{t_name} must start on a 16-byte "
+                                 "boundary")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = BWD_LIBRARY.load().flash_attention_bwd_launch(
+        err = getattr(BWD_LIBRARY.load(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, width,
             float(scale), int(causal), int(window),
-            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     BWD_LIBRARY.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

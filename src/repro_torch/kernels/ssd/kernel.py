@@ -10,8 +10,10 @@ wrapper counts its launches in ``LAUNCHES``.
 For training, :func:`ssd_scan_saved` also returns the forward's scratch
 (each chunk's starting state and cum as (hi, lo) pairs), and
 :func:`ssd_bwd` launches the backward (``csrc/ssd_bwd.cu``, one C entry
-point ``ssd_bwd_launch``, six kernels, counted as one ``ssd_bwd``
-launch) from it; ``ops.SsdFn`` puts the two under autograd.
+point ``ssd_bwd_launch``, six launches of five kernels, counted as one
+``ssd_bwd`` launch; split-TF32 ``mma.sync`` products, blocks of
+``BWD_HEAD_GROUP`` heads) from it; ``ops.SsdFn`` puts the two under
+autograd.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from . import ref
 from ..nvcc import SMEM_LIMIT_BYTES, CudaLibrary
 
 __all__ = ["LAUNCHES", "LIBRARY", "BWD_LIBRARY", "KERNELS", "BWD_KERNELS",
-           "Q_MAX", "smem_bytes", "ssd_scan", "ssd_scan_saved", "ssd_bwd"]
+           "BWD_LAUNCHES_PER_CALL", "BWD_HEAD_GROUP", "Q_MAX", "smem_bytes",
+           "bwd_shares", "ssd_scan", "ssd_scan_saved", "ssd_bwd"]
 
 # calls of the CUDA entry point (plain-version calls are not counted)
 LAUNCHES = {"ssd_scan": 0, "ssd_bwd": 0}
@@ -33,6 +36,13 @@ KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel")
 BWD_KERNELS = ("ssd_bwd_adj_kernel", "ssd_bwd_pass_kernel",
                "ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel",
                "ssd_bwd_reduce_a_kernel")
+# the launches of each a call: the reduction runs for dB and for dC
+BWD_LAUNCHES_PER_CALL = {name: 1 + (name == "ssd_bwd_reduce_kernel")
+                         for name in BWD_KERNELS}
+# the heads of one block of the backward's adjoint and chunk kernels
+# (HEAD_GROUP in csrc/ssd_bwd.cu): C·Bᵀ is formed once for them, and dB
+# and dC are written as one share per group
+BWD_HEAD_GROUP = 4
 # the longest chunk: a warp holds its tiles of C·Bᵀ in registers
 Q_MAX = 128
 
@@ -75,6 +85,13 @@ def smem_bytes(P: int, N: int, Q: int) -> int:
     state = 4 * (Qp * (Nm + 8) + Qp * (Pw + 8) + 2 * Qp + 8)
     output = 4 * (2 * Qp * 68 + 64 * 72 + 3 * Qp)
     return max(state, output)
+
+
+def bwd_shares(H: int) -> int:
+    """The groups of ``BWD_HEAD_GROUP`` heads over H heads, the last one
+    short where the group does not divide H: the backward's dB and dC
+    shares."""
+    return -(-H // BWD_HEAD_GROUP)
 
 
 def _check(name, t, ndim, dev):
@@ -209,10 +226,11 @@ def ssd_bwd(x, dt, A, B_, C_, chunk: int, dy, dstate=None, states=None, cum=None
     dA = torch.empty((H,), **f32)
     dB = torch.empty((Bb, S, N), **f32)
     dC = torch.empty((Bb, S, N), **f32)
-    # scratch: the state gradients, the heads' shares of dB, dC and dA
+    # scratch: the state gradients, the head groups' shares of dB and dC,
+    # the heads' of dA
     gbuf = torch.empty_like(states)
-    dBpart = torch.empty((H, Bb, S, N), **f32)
-    dCpart = torch.empty((H, Bb, S, N), **f32)
+    dBpart = torch.empty((bwd_shares(H), Bb, S, N), **f32)
+    dCpart = torch.empty((bwd_shares(H), Bb, S, N), **f32)
     dApart = torch.empty((Bb, H, n_chunks), **f32)
     with torch.cuda.device(dev):
         err = BWD_LIBRARY.load().ssd_bwd_launch(

@@ -1202,6 +1202,11 @@ def _flash_case(B, Sq, Sk, H, KH, hd, vh, dtype, dev, seed):
     (2, 77, 300, 4, 4, 64, 64, False, 0),  # cross: Sq < Sk, bidirectional
     (1, 150, 150, 4, 4, 192, 128, True, 0),  # MLA: q/k 192, v 128
     (1, 96, 96, 4, 2, 112, 112, True, 0),  # zamba2's D 112
+    # several key and query tiles of the tensor-core kernels (128 fixed
+    # rows, 32 or 64 streamed), qwen2.5-32b's GQA ratio 5:1
+    (1, 1024, 1024, 10, 2, 128, 128, True, 0),
+    # S a multiple of none of those tiles, bidirectional
+    (2, 421, 421, 6, 3, 64, 64, False, 0),
 ])
 def test_cuda_flash_bwd_held_to_the_f64_plain_version(
     dtype, B, Sq, Sk, H, KH, hd, vh, causal, window
@@ -1239,6 +1244,8 @@ def test_cuda_flash_bwd_held_to_the_f64_plain_version(
 
 @pytest.mark.parametrize("B,S,H,P,N,Q", [
     (2, 256, 3, 64, 128, 128),  # Mamba2-2.7B's P, N and chunk
+    # several head groups, the last one short (H 22 over groups of 4)
+    (1, 256, 22, 64, 128, 128),
     (1, 300, 4, 64, 64, 128),  # Zamba2's N, a ragged last chunk
     (2, 90, 2, 32, 16, 32),  # small, ragged
     (1, 20, 3, 16, 8, 64),  # S < chunk

@@ -291,7 +291,8 @@ def _c_params(source, fn):
     ("flash_attention", ["flash_attention_launch"]),
     ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
     ("flash_attention_tf32", ["flash_attention_tf32_launch"]),
-    ("flash_attention_bwd", ["flash_attention_bwd_launch"]),
+    ("flash_attention_bwd", ["flash_attention_bwd_bf16_launch",
+                             "flash_attention_bwd_f32_launch"]),
     ("ssd", ["ssd_scan_launch"]),
     ("ssd_bwd", ["ssd_bwd_launch"]),
     ("budgeted_dp", ["dp_forward_launch", "dp_forward_sweep_launch",

@@ -14,6 +14,8 @@ autograd compute the same expressions.
 
 torch runs single-threaded here (see ``tests/test_torch_flash.py``).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +141,28 @@ def test_backward_counts_no_launch_on_the_cpu():
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw(case))
     fa.flash_attention_bwd(q, k, v, o, lse, do, **kw(case))
     assert fa.LAUNCHES == before
+
+
+def test_backward_route_is_chosen_by_the_dtype_alone():
+    """bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones,
+    through their own C entry points; another dtype raises before any
+    launch.  Every kernel and entry point named stands in the source."""
+    src = fa.BWD_LIBRARY.source.read_text()
+    entry, kernels = fa.bwd_route(torch.bfloat16)
+    assert entry == "flash_attention_bwd_bf16_launch"
+    assert kernels == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_mma_kernel",
+                       "fa_bwd_dq_mma_kernel")
+    entry32, kernels32 = fa.bwd_route(torch.float32)
+    assert entry32 == "flash_attention_bwd_f32_launch"
+    assert kernels32 == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
+                         "fa_bwd_dq_kernel")
+    for name in (entry, entry32):
+        assert f"int {name}(" in src
+    for name in set(kernels) | set(kernels32):
+        assert re.search(r"__global__ void (__launch_bounds__\([^)]*\) )?"
+                         + name + r"\(", src), name
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or all bfloat16"):
+            fa.bwd_route(dtype)
+    # the launch counter keeps one name for both routes
+    assert "flash_attention_bwd" in fa.LAUNCHES

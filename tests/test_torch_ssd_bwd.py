@@ -13,6 +13,8 @@ row); 1e-10 against torch autograd in f64.
 
 torch runs single-threaded here (see ``tests/test_torch_flash.py``).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +154,21 @@ def test_plain_scan_keeps_a_finite_gradient_where_exp_overflows():
         assert torch.isfinite(a).all() and torch.isfinite(p).all(), name
         close(a.numpy(), e.numpy(), name)
         close(p.numpy(), e.numpy(), name)
+
+
+def test_backward_head_groups_and_their_shares():
+    """The wrapper's scratch for dB and dC holds one share a group of
+    ``BWD_HEAD_GROUP`` heads, the last group short where the group does
+    not divide H; the constant is the source's, and the kernels the
+    timing reads are the source's, with their launches a call."""
+    src = ssd.BWD_LIBRARY.source.read_text()
+    assert f"constexpr int HEAD_GROUP = {ssd.BWD_HEAD_GROUP};" in src
+    g = ssd.BWD_HEAD_GROUP
+    for H, want in ((1, 1), (g, 1), (g + 1, 2), (22, -(-22 // g)),
+                    (80, 80 // g), (112, 112 // g)):
+        assert ssd.bwd_shares(H) == want
+    assert set(ssd.BWD_LAUNCHES_PER_CALL) == set(ssd.BWD_KERNELS)
+    assert sum(ssd.BWD_LAUNCHES_PER_CALL.values()) == 6
+    for name in ssd.BWD_KERNELS:
+        assert re.search(r"__global__ void (__launch_bounds__\([^)]*\) )?"
+                         + name + r"\(", src), name
