@@ -10,8 +10,8 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    referee —, SSD scan, and the attention and SSD backward kernels), one
    nvcc each, all started together (timed); print ptxas's registers and
    spills for every kernel, and fail if a budgeted-DP, SSD (forward or
-   backward) or TF32 attention kernel, or the wgmma attention at D = 192
-   or 256, spills;
+   backward) or TF32 attention kernel (forward or backward), or the wgmma
+   attention at D = 192 or 256, spills;
 2. each kernel against its plain PyTorch version on the card, bitwise
    (tolerance 0): the whole-plane forward and the epilogue on the paper's
    Table-2 instance at B = 1, 7 and 64 with random ``allowed`` masks, one
@@ -157,7 +157,9 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    and the plain version run in f64 at qwen2.5-32b's, gemma-7b's (D 256),
    gemma3-27b's local (window 1024), whisper's encoder and cross
    (1500 × 1500, 448 × 1500), deepseek-v3's MLA (q/k 192, v 128) shapes
-   in bf16 and Zamba2's (D 112) in f32 — bf16 no farther from the f64
+   in bf16 and Zamba2's (D 112), qwen2.5-32b's (GQA 40:8, D 128) and the
+   tiny-100m milestone's (B 16 × 256, 8:4, D 64) in f32 (the split-TF32
+   route) — bf16 no farther from the f64
    backward than 1.5 × the bf16 plain version + 2e-3, f32 than 2 × the
    f32 plain version + 1e-5 — with the forward's log-sum-exp leaving its
    output's bits alone; the SSD backward (``ssd_bwd``) the same way at
@@ -178,7 +180,17 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    memory; one more step of each under ``torch.profiler``, its ten device
    operations with the most total time printed; ``launch.train`` on the
    reduced qwen2.5-32b with a failure at step 12, one restart from its
-   checkpoint, and its launches counted;
+   checkpoint, and its launches counted; the training milestone,
+   ``examples/train_tiny_lm.py``'s "tiny-100m" config registered by name
+   at run time, its parameters counted on the meta device, then
+   ``launch.train`` with the example's flags (300 steps at batch 16 ×
+   256, a failure at step 120, a checkpoint every 50) in f32: one
+   restart, the last loss no more than 0.02 over the JAX package's own
+   ratio on those flags (0.7564 of the first: the example's 0.7 is missed
+   by JAX too, and printed), 8 split-TF32 forward
+   and 8 backward attention launches a step run, the driver's ms a step,
+   its peak memory, then its step alone (ms, and one profiled step's
+   device idle share);
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -202,8 +214,10 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    their launches from (j), with the CUDA-core referee's
    time at the f32, gemma and MLA shapes; K7 at the Zamba2-7B and the Mamba2-2.7B shapes; the
    attention backward at qwen2.5-32b's training shape beside torch
-   autograd of ``scaled_dot_product_attention`` (its backward alone) and
-   the SSD backward at Mamba2-2.7B's; and
+   autograd of ``scaled_dot_product_attention`` (its backward alone), in
+   bf16 and in f32 (the split-TF32 route, beside the CUDA-core referee it
+   replaced, launched raw, which it must beat; the bound three TF32
+   products a product), and the SSD backward at Mamba2-2.7B's; and
    the
    whole-plane forward's tiled sweep on the fig-6 c_hi = 4 and 5 planes
    at B = 1 and 64 with each cell layout forced (one capacity column a
@@ -383,18 +397,17 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled, name, end = m.group(1), m.group(1), 0
-            # the kernel's name is the one "<length><name>" ending in
-            # "_kernel" (a file's hash may run into the length's digits)
+            # the kernel's name is the shortest "<length><name>" ending in
+            # "_kernel" (a file's hash may run into the length's digits,
+            # and a longer match then takes some of the hash with it)
             for run in re.finditer(r"\d+", mangled):
                 for i in range(len(run.group())):
                     n = int(run.group()[i:])
                     cand = mangled[run.end():run.end() + n]
                     if len(cand) == n and re.fullmatch(
-                            r"[a-z][a-z0-9_]*_kernel", cand):
+                            r"[a-z][a-z0-9_]*_kernel", cand) and (
+                                not end or n < len(name)):
                         name, end = cand, run.end() + n
-                        break
-                if end:
-                    break
             args = []
             if end and mangled[end:end + 1] == "I":  # template arguments
                 targs = mangled[end:mangled.find("Ev", end)]
@@ -523,7 +536,9 @@ def main():
           f"flash_attention_bwd (new, no TPU kernel: the gradient of K6's "
           f"function; bf16: {', '.join(fa.bwd_route(torch.bfloat16)[1])} "
           f"on the tensor cores, f32: "
-          f"{', '.join(fa.bwd_route(torch.float32)[1])} on the CUDA cores) "
+          f"{', '.join(fa.bwd_route(torch.float32)[1])} in split TF32 on "
+          f"the tensor cores; the f32-FMA referee "
+          f"{', '.join(fa.BWD_REFEREE[1][1:])}, no input routed to it) "
           f"from {FAB_SOURCE} and ssd_bwd (new: the gradient of K7's, "
           f"{', '.join(ssd.BWD_KERNELS)}, split TF32 on the tensor cores) "
           f"from {SSB_SOURCE}",
@@ -545,13 +560,15 @@ def main():
             print(f"      {name}: {regs} registers, {spilled} bytes spilled",
                   flush=True)
         # the redesigned kernels must not spill: every DP, SSD (forward
-        # and backward) and TF32 attention kernel, and the wgmma attention
-        # at D = 192 and 256; the referee and the attention backward (whose
-        # f32 route is still a first, CUDA-core design) are reported only
-        gated = {fa.LIBRARY: [], fa.BWD_LIBRARY: [], fa.WGMMA_LIBRARY: [
-            k for k in kernels if k[0].endswith(("<192>", "<256>"))]}.get(
+        # and backward) and TF32 attention kernel (forward and backward),
+        # and the wgmma attention at D = 192 and 256; the referees and the
+        # bf16 attention backward are reported only
+        gated = {fa.LIBRARY: [], fa.BWD_LIBRARY: [
+            k for k in kernels if "_tf32_kernel<" in k[0]],
+            fa.WGMMA_LIBRARY: [k for k in kernels
+                               if k[0].endswith(("<192>", "<256>"))]}.get(
                 lib, kernels)
-        if (lib not in (fa.LIBRARY, fa.BWD_LIBRARY) and not gated) or any(
+        if (lib is not fa.LIBRARY and not gated) or any(
                 sp for _, _, sp in gated):
             fail(f"{lib.source.name}: ptxas reports spills (or no report): "
                  f"{gated}")
@@ -2651,7 +2668,8 @@ def main():
     from repro_torch.optim import AdamW
     from repro_torch.runtime import TrainState, make_train_step
     torch.cuda.empty_cache()
-    bwd_err = {"flash_attention_bwd": 0.0, "ssd_bwd": 0.0}
+    bwd_err = {"flash_attention_bwd": 0.0, "flash_attention_bwd f32": 0.0,
+               "ssd_bwd": 0.0}
 
     def grad_dist(got, want):
         """max |got − want| / (1 + |want|) over one gradient, in f64."""
@@ -2674,6 +2692,10 @@ def main():
             ("deepseek-v3 MLA", 1, 2048, 2048, 128, 128, 192, 128, True, 0,
              torch.bfloat16),
             ("zamba2-7b", 2, 2048, 2048, 32, 32, 112, 112, True, 0,
+             torch.float32),
+            ("qwen2.5-32b", 2, 2048, 2048, 40, 8, 128, 128, True, 0,
+             torch.float32),
+            ("tiny-100m", 16, 256, 256, 8, 4, 64, 64, True, 0,
              torch.float32)):
         g = torch.Generator(dev).manual_seed(Sq + hd + vh)
         q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
@@ -2703,11 +2725,12 @@ def main():
             q.double(), k.double(), v.double(), return_lse=True, chunk=512,
             **kw)[1]).abs().max())
         parts = []
+        err_key = "flash_attention_bwd" + (" f32" if dtype == torch.float32
+                                           else "")
         for name, a, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
             err_k, err_p = grad_dist(a, e), grad_dist(p, e)
-            bwd_err["flash_attention_bwd"] = max(
-                bwd_err["flash_attention_bwd"],
-                float((a.float() - p.float()).abs().max()))
+            bwd_err[err_key] = max(bwd_err[err_key],
+                                   float((a.float() - p.float()).abs().max()))
             limit = (2 * err_p + 1e-5 if dtype == torch.float32
                      else 1.5 * err_p + 2e-3)
             parts.append(f"{name} {err_k:.3g} (plain {err_p:.3g}, limit "
@@ -2995,6 +3018,112 @@ def main():
                   flash_attention_bwd=n_l * ran):
         fail(f"launch.train launched {counts}, expected {n_l * ran} of each "
              "attention kernel")
+    done(t0)
+
+    # the training milestone, examples/train_tiny_lm.py, through the port:
+    # its config registered by name in the registry at run time, its
+    # parameters counted without allocation, then launch.train with its
+    # flags on the card (f32, as qwen2.5-32b's REDUCED config: the split-
+    # TF32 forward and backward of K6 in each of its 8 layers a step)
+    from repro_torch import configs as configs_mod
+    from repro_torch.runtime import init_train_state
+    from repro_torch.optim import linear_warmup_cosine
+    TINY_STEPS = 300
+    # examples/train_tiny_lm.py asserts last_loss < 0.7 x first_loss, which
+    # the JAX package itself misses on these flags: the example run with
+    # JAX on the CPU ends at 7.1773 from 9.4892, 0.7564 of it.  The port is
+    # held to that reference ratio, with 0.02 for its other draw of the
+    # initial weights, and to a falling loss; the example's 0.7 is printed
+    TINY_REF_RATIO = 0.7564
+    tiny = get_config("qwen2.5-32b", reduced=True).replace(
+        n_layers=8, d_model=512, n_heads=8, n_kv_heads=4, head_dim=64,
+        d_ff=2048, vocab=8192)
+    t0 = phase(f"(k) training: the tiny-100m milestone (examples/"
+               f"train_tiny_lm.py: {tiny.n_layers} layers, d "
+               f"{tiny.d_model}, heads {tiny.n_heads}:{tiny.n_kv_heads} of "
+               f"{tiny.head_dim}, vocab {tiny.vocab}, {tiny.param_dtype}), "
+               f"launch.train {TINY_STEPS} steps at batch 16 x 256, a failure "
+               "at step 120, a checkpoint every 50")
+    n_tiny = sum(p.numel() for p in build_model(tiny).abstract().parameters())
+    print(f"   model: {n_tiny / 1e6:.1f}M params (build_model(cfg).abstract(),"
+          " meta device)", flush=True)
+    configs_mod._MODULES["tiny-100m"] = type("M", (), {"FULL": tiny,
+                                                       "REDUCED": tiny})
+    try:
+        with tempfile.TemporaryDirectory() as ckdir:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            summary = train_mod.main([
+                "--arch", "tiny-100m", "--steps", str(TINY_STEPS), "--batch",
+                "16", "--seq", "256", "--lr", "1e-3", "--fail-at", "120",
+                "--save-every", "50", "--ckpt-dir", ckdir])
+            torch.cuda.synchronize()
+            tiny_counts = read_counts()
+            tiny_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        del configs_mod._MODULES["tiny-100m"]
+    ran = summary["steps"] + summary["lost_steps"]
+    print(f"   summary {summary}; launches {tiny_counts} over {ran} steps "
+          f"run; {summary['wall_s'] * 1e3 / ran:.1f} ms a step run on the "
+          f"driver's clock (checkpoints and the restart included); peak "
+          f"memory {tiny_peak:.2f} GiB", flush=True)
+    if summary["restarts"] != 1 or summary["steps"] != TINY_STEPS:
+        fail(f"the tiny-100m milestone: {summary}")
+    ratio = summary["last_loss"] / summary["first_loss"]
+    print(f"   last loss / first loss {ratio:.4f}: the JAX package's own run "
+          f"of the example {TINY_REF_RATIO} (limit {TINY_REF_RATIO + 0.02:.4f})"
+          f"; the example's assertion, under 0.7: "
+          f"{'met' if ratio < 0.7 else 'not met'} (by JAX: not met)",
+          flush=True)
+    if not ratio <= TINY_REF_RATIO + 0.02:
+        fail(f"the tiny-100m milestone: the last loss {summary['last_loss']}"
+             f" is {ratio:.4f} of the first {summary['first_loss']}, over "
+             f"the JAX package's {TINY_REF_RATIO} + 0.02")
+    want = tiny.n_layers * ran
+    if not expect(tiny_counts, flash_attention_tf32=want,
+                  flash_attention_bwd=want):
+        fail(f"the tiny-100m milestone launched {tiny_counts}, expected "
+             f"{want} of each attention kernel")
+    # its step alone, as the driver builds it: ms a step (median of 10
+    # after 3), then one step under torch.profiler for the device's idle
+    # share
+    model_m = build_model(tiny)
+    opt_m = AdamW(lr=linear_warmup_cosine(1e-3, 10, TINY_STEPS))
+    step_m = make_train_step(model_m, opt_m, remat="none")
+    state_m = init_train_state(model_m, torch.Generator(dev).manual_seed(0),
+                               opt_m)
+    batch_m = {"tokens": torch.as_tensor(SyntheticLM(
+        vocab=tiny.vocab, seq_len=256, global_batch=16, seed=0).batch(0)[
+            "tokens"], device=dev).long()}
+    tiny_ms = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        state_m, _ = step_m(state_m, batch_m)
+        torch.cuda.synchronize()
+        if i >= 3:
+            tiny_ms.append((time.perf_counter() - w0) * 1e3)
+    tiny_ms = sorted(tiny_ms)[len(tiny_ms) // 2]
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings():  # its note on clearing events
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            state_m, _ = step_m(state_m, batch_m)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - w0) * 1e3
+    evts = [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0]
+    dev_ms = sum(e.device_time_total for e in evts) / 1e3
+    tiny_idle = max(0.0, 1.0 - dev_ms / host_ms)
+    print(f"   its step alone: {tiny_ms:.2f} ms (median of 10 after 3 warm-"
+          f"up steps); one step under torch.profiler: {host_ms:.2f} ms on "
+          f"the host clock, {dev_ms:.2f} ms of device time in "
+          f"{sum(e.count for e in evts)} launches, the device idle "
+          f"{100 * tiny_idle:.1f}% of it", flush=True)
+    del model_m, opt_m, step_m, state_m, batch_m
+    torch.cuda.empty_cache()
     done(t0)
 
     # ------------------------------------------------------------ timing
@@ -3708,6 +3837,70 @@ def main():
           "route runs its products on the tensor cores, mma.sync; the f32 "
           "route on the CUDA cores)", flush=True)
     del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    # its f32 route at the same shape in f32: split TF32 on mma.sync,
+    # beside the CUDA-core referee it replaced (launched raw), the plain
+    # version and SDPA's f32 backward; its launches those of the tiny-100m
+    # milestone's run
+    q, k, v = qkv(2, 2048, 2048, 40, 8, 128, torch.float32, 31)
+    do = torch.randn_like(q)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    keep.append((o, lse, dq, dk, dv, do))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), 2, 2048, 2048, 40, 8, 128,
+            kw["scale"], 1, 0, stream)
+    bwd_entry, bwd_kernels = fa.bwd_route(torch.float32)
+    raw = checked(getattr(fa.BWD_LIBRARY.load(), bwd_entry), args)
+    t_k = timed(raw, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw), bwd_kernels, 5)
+    raw_ref = checked(getattr(fa.BWD_LIBRARY.load(), fa.BWD_REFEREE[0]),
+                      args)
+    ref_prof, _ = profiled_ms(raw_ref, 3, fa.BWD_REFEREE[1])
+    ref_ev = per_call_ms(raw_ref, 3, reps=3)
+    ref_ms = ref_ev if ref_prof is None or not ref_prof <= 1.1 * ref_ev \
+        else ref_prof
+    p_k = per_call_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                         **kw), 1, reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, scale=kw["scale"], is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = per_call_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    # the same five products, each as three TF32 products on the tensor
+    # cores; f32 tensors
+    b_bytes = 4 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                   + q.numel()) + 4 * lse.numel()
+    row("flash_attention_bwd (the gradient of K6's function; f32 in split "
+        "TF32, qwen2.5-32b's training shape)",
+        "src/repro/kernels/flash_attention/kernel.py:24 (its gradient; JAX "
+        "differentiates the pure-JAX chunked_attention)",
+        "B=2 Sq=Sk=2048 H=40 KH=8 D=128 f32 causal, three kernels a call",
+        tiny_counts["flash_attention_bwd"], bwd_err["flash_attention_bwd f32"],
+        t_k, p_k, (b_bytes, 3 * b_ops), source=FAB_SOURCE,
+        ops_per_s=TF32_OPS_PER_S,
+        ops_kind="TF32 tensor-core (3 per f32 product)", library_ms=lib_ms)
+    k_ms = rows_out[-1]["ms"]
+    ref_txt = ("not measured" if ref_prof is None
+               else f"{ref_prof:.4f} ms")
+    print(f"   flash_attention_bwd f32: the CUDA-core referee "
+          f"({', '.join(fa.BWD_REFEREE[1][1:])}, launched raw) {ref_ms:.4f} "
+          f"ms (profiler {ref_txt}, CUDA events {ref_ev:.4f} ms), "
+          f"{ref_ms / k_ms:.2f}x the route's "
+          f"{k_ms:.4f} ms; SDPA's f32 backward (torch autograd of "
+          f"scaled_dot_product_attention, enable_gqa, TF32 off) "
+          f"{lib_ms:.4f} ms, {k_ms / lib_ms:.2f}x; bound "
+          f"{3 * b_ops / TF32_OPS_PER_S * 1e3:.4f} ms (TF32 x 3), f32-FMA "
+          f"bound {b_ops / F32_OPS_PER_S * 1e3:.4f} ms; launches: "
+          f"{tiny_counts['flash_attention_bwd']} in the tiny-100m milestone "
+          f"({tiny.n_layers} a step run), {n_l} a step of launch.train at "
+          "REDUCED", flush=True)
+    if not k_ms < ref_ms:
+        fail(f"flash_attention_bwd f32: the split-TF32 route ({k_ms:.4f} ms) "
+             f"is not faster than the CUDA-core referee ({ref_ms:.4f} ms)")
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
     B, S, H, P, N, Q = 2, 2048, m2.n_ssm_heads, m2.ssm_head_dim, \
         m2.ssm_state, m2.ssm_chunk
     xs, dts, As, Bs, Cs = ssd_inputs(B, S, H, P, N, 37)
@@ -3763,7 +3956,9 @@ def main():
     del xs, dts, As, Bs, Cs, dy, states, cum, outs
     print("   training (k): " + "; ".join(
         f"{a} {ms:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), peak "
-        f"{peak:.2f} GiB" for a, (ms, peak) in train_ms.items()),
+        f"{peak:.2f} GiB" for a, (ms, peak) in train_ms.items())
+        + f"; the tiny-100m milestone {tiny_ms:.2f} ms a step, peak "
+        f"{tiny_peak:.2f} GiB, device idle {100 * tiny_idle:.1f}%",
           flush=True)
     print(f"   serving prefill {prefill_ms:.1f} ms: "
           f"{serve_counts['flash_attention_wgmma']} flash launches and "

@@ -4,7 +4,7 @@
   * atomicity   — written to step_XXXXXXXX.tmp/, then renamed; a crash
                   mid-save never corrupts the latest checkpoint;
   * async saves — the host snapshot is taken synchronously, and a thread
-                  compresses and writes it while training goes on;
+                  writes it while training goes on;
   * retention   — the keep_n newest checkpoints are kept;
   * self-describing — metadata.json carries the step and each array's
                   shape and torch dtype.
@@ -13,7 +13,11 @@ A state is any nesting of dataclasses (``TrainState``, ``OptState``),
 ``nn.Module`` parameter trees, dicts, lists and tensors; it is flattened
 to "/"-joined keys ("params/blocks.0.attn.wq", "opt/m/embed", "opt/step").
 Arrays are stored as numpy (bf16 through f32, exact) in one npz a
-checkpoint.  ``restore`` writes into the tensors of ``like`` in place, on
+checkpoint, uncompressed: the JAX package compresses (``savez_compressed``),
+which on the card's host took ~20 s a save of the tiny-100m milestone's
+0.48 GB state, longer than the 50 steps between saves, so the loop waited
+on it (520.6 ms a step against ~80 for the step itself, ``chip_smoke.py``);
+``np.load`` reads either.  ``restore`` writes into the tensors of ``like`` in place, on
 their devices and in their dtypes, so a restart holds one copy of the
 state on the card.
 """
@@ -71,7 +75,7 @@ class CheckpointManager:
     # ---------------- save ----------------
 
     def save(self, step: int, state: Any, async_: bool = False):
-        """The host snapshot is taken now (correctness); compression and
+        """The host snapshot is taken now (correctness); the write and
         the rename run on a thread when ``async_``."""
         leaves = list(_leaves(state))
         flat = {k: _host(t) for k, t in leaves}
@@ -99,7 +103,7 @@ class CheckpointManager:
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir()
-        np.savez_compressed(tmp / "arrays.npz", **flat)
+        np.savez(tmp / "arrays.npz", **flat)
         (tmp / "metadata.json").write_text(json.dumps(meta))
         if final.exists():
             shutil.rmtree(final)

@@ -350,6 +350,10 @@ def _run(
                                             policy.g_fn, dev)
     xi_tab, g_tab, log_tab = (torch.as_tensor(a, device=dev)
                               for a in schedule)
+    if policy.name == "esdp":  # the one policy that solves the DP
+        from ..kernels.budgeted_dp.ops import check_horizon_value_bound
+        check_horizon_value_bound(tables, instance.m, schedule[0],
+                                  schedule[1])
     B = draws.arr_u.shape[0]
     E, R = instance.n_edges, instance.n_servers
     for name, shape in (("arr_u", (B, T, instance.n_ports)),

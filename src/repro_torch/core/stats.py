@@ -29,7 +29,7 @@ __all__ = [
     "g_default", "g_no_logt", "g_logt_only",
     "xi_of", "s_cap_for_horizon", "u_max_for_horizon",
     "horizon_for_s_cap", "schedule_table", "scale_statistics",
-    "DELTA_VARIANTS", "G_VARIANTS",
+    "sigma2_bound", "DELTA_VARIANTS", "G_VARIANTS",
 ]
 
 # --------------------------------------------------------------------------
@@ -188,3 +188,18 @@ def scale_statistics(vhat, n, xi_t, g_t, m: int):
     sigma2 = torch.where(n > 0, sigma2_explored, unexp)
     s_limit = xi_t * m
     return upsilon, sigma2, s_limit
+
+
+def sigma2_bound(xi, g, m: int) -> int:
+    """The largest Σ̂² :func:`scale_statistics` gives over a schedule: an
+    unexplored channel's (m+1)·⌈ξ(t)²g(t)/2⌉ at its worst slot (an
+    explored one's is at most ⌈ξ²g/2⌉).  ``xi``, ``g``: the (T,) columns
+    of :func:`schedule_table` or a caller's own, on any device — read to
+    the host once each and computed in float32, as the slot computes
+    them; the product is taken in int64, so it is exact past 2³¹."""
+    xif = torch.as_tensor(xi).to("cpu", torch.float32)
+    gf = torch.as_tensor(g).to("cpu", torch.float32)
+    if xif.numel() == 0:
+        return 0
+    explored = torch.ceil(xif * xif * gf / 2.0).to(torch.int64)
+    return (int(m) + 1) * int(explored.max())

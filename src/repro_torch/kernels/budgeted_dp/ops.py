@@ -12,10 +12,14 @@ first changed edge.
 
 VALUE_BOUND: the int32 plane with ``core.dp.NEG = -2**29`` is exact while
 every DP partial sum stays below 2²⁹ (NEG-seeded chains then stay
-negative).  This bound, and ``max Υ̂ ≤ u_max``, are checked for CPU inputs
-only, where they cost no device sync; ``tests/test_torch_budgeted_dp.py``
-and ``tests/test_torch_tiling.py`` pin the default schedules under both
-for the card.
+negative).  A solve checks this bound, and ``max Υ̂ ≤ u_max``, for CPU
+inputs only, where they cost no device sync.  For every device, the runs
+that solve the DP slot after slot (``core.env``'s ESDP runs,
+``sched.ClusterSim``, ``sched.DispatchEngine``) check the bound once for
+their whole horizon before the first slot
+(:func:`check_horizon_value_bound`), from the schedule on the host;
+``tests/test_torch_budgeted_dp.py`` and ``tests/test_torch_tiling.py`` pin
+the default schedules under ``u_max``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ...core import dp as core_dp
+from ...core import stats
 from ...core.dp import DPTables
 from ...device import resolve_device
 from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
@@ -32,7 +37,7 @@ from .kernel import (dp_epilogue, dp_forward_batched, dp_forward_blocked,
 from .tiling import check_tiling, choose_tiling
 
 __all__ = ["VALUE_BOUND", "prepare_tables", "prepare_operands",
-           "max_achievable_value",
+           "max_achievable_value", "check_horizon_value_bound",
            "validate_value_row", "solve_budgeted_dp_batched",
            "WarmCudaSolver"]
 
@@ -143,16 +148,33 @@ def max_achievable_value(sigma2, tables: DPTables) -> int:
     return int(top.sum())
 
 
-def _check_value_bound(sigma2, tables: DPTables) -> None:
-    if sigma2.device.type != "cpu":
-        return  # no device sync on the hot path; bound pinned by tests
-    sig = sigma2.numpy()
-    worst = sig.max(axis=0) if sig.ndim == 2 else sig
-    bound = max_achievable_value(worst, tables)
+def _refuse(bound: int, where: str = "") -> None:
     if bound >= VALUE_BOUND:
         raise ValueError(
-            f"budgeted-DP values can reach {bound} ≥ 2^29: the int32 plane "
-            "can no longer tell NEG-seeded chains from values. Rescale Σ̂².")
+            f"budgeted-DP values can reach {bound} ≥ 2^29{where}: the int32 "
+            "plane can no longer tell NEG-seeded chains from values. Rescale "
+            "Σ̂².")
+
+
+def _check_value_bound(sigma2, tables: DPTables) -> None:
+    if sigma2.device.type != "cpu":
+        return  # no device sync a solve: the runs check their horizon
+    sig = sigma2.numpy()
+    worst = sig.max(axis=0) if sig.ndim == 2 else sig
+    _refuse(max_achievable_value(worst, tables))
+
+
+def check_horizon_value_bound(tables: DPTables, m: int, xi, g) -> int:
+    """The bound on every DP value of a horizon: :func:`max_achievable_value`
+    with every edge at the worst Σ̂² of the (T,) schedule ``xi``, ``g``
+    (``stats.sigma2_bound``, read to the host once).  Raises the solves'
+    ``ValueError`` when it reaches ``VALUE_BOUND``, whatever the device: a
+    run calls this before its first slot."""
+    worst = stats.sigma2_bound(xi, g, m)
+    bound = max_achievable_value(np.full(tables.feasible.shape[1], worst),
+                                 tables)
+    _refuse(bound, f" over this horizon (m = {m}, T = {len(xi)})")
+    return bound
 
 
 def _check_u_max(upsilon, u_max: int) -> None:

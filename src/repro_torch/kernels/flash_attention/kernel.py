@@ -26,9 +26,12 @@ For training, both tensor-core kernels also write each row's log-sum-exp
 when asked (``return_lse``), and :func:`flash_attention_bwd` launches the
 backward (``csrc/flash_attention_bwd.cu``: a preprocess, a dK/dV kernel
 and a dQ kernel), counted as ``flash_attention_bwd`` whatever the route.
-:func:`bwd_route` picks the route from the dtype alone: bf16 runs on the
-tensor cores (``mma.sync`` m16n8k16), f32 on the CUDA cores (f32 FMAs).
-``ops.FlashAttentionFn`` puts the forward and the backward under autograd.
+:func:`bwd_route` picks the route from the dtype alone, both on the tensor
+cores: bf16 on ``mma.sync`` m16n8k16, f32 in split TF32 on ``mma.sync``
+m16n8k8.  The backward's first, CUDA-core f32 kernels (``BWD_REFEREE``)
+take no input: like ``flash_fwd_kernel`` they stay only as a referee that
+``chip_smoke.py`` launches raw.  ``ops.FlashAttentionFn`` puts the forward
+and the backward under autograd.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ from . import ref
 from ..nvcc import CudaLibrary
 
 __all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "TF32_LIBRARY",
-           "BWD_LIBRARY", "BWD_ROUTES", "MAX_HEAD_DIM", "kernel_for",
-           "bwd_route", "zero_pad", "flash_attention",
+           "BWD_LIBRARY", "BWD_ROUTES", "BWD_REFEREE", "MAX_HEAD_DIM",
+           "kernel_for", "bwd_route", "zero_pad", "flash_attention",
            "flash_attention_bwd"]
 
 # launches of each CUDA kernel by the wrapper (plain-version calls are not
@@ -78,7 +81,7 @@ def _declare_tensor_core(fn: str):
 
 def _declare_bwd(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry, _ in BWD_ROUTES.values():
+    for entry, _ in (*BWD_ROUTES.values(), BWD_REFEREE):
         fn = getattr(lib, entry)
         fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p]
         fn.restype = i
@@ -90,10 +93,14 @@ BWD_ROUTES = {
     torch.bfloat16: ("flash_attention_bwd_bf16_launch",
                      ("fa_bwd_pre_kernel", "fa_bwd_dkdv_mma_kernel",
                       "fa_bwd_dq_mma_kernel")),
-    torch.float32: ("flash_attention_bwd_f32_launch",
-                    ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
-                     "fa_bwd_dq_kernel")),
+    torch.float32: ("flash_attention_bwd_tf32_launch",
+                    ("fa_bwd_pre_kernel", "fa_bwd_dkdv_tf32_kernel",
+                     "fa_bwd_dq_tf32_kernel")),
 }
+# the f32 backward's first kernels, f32 FMAs on the CUDA cores: launched
+# raw as a referee, never by the wrapper
+BWD_REFEREE = ("flash_attention_bwd_f32_launch",
+               ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel", "fa_bwd_dq_kernel"))
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu", _declare,
@@ -127,10 +134,10 @@ def kernel_for(dtype, hd: int) -> str:
 
 def bwd_route(dtype):
     """(C entry point, kernel names) of the backward for q, k, v of
-    ``dtype`` on the card: bfloat16 → the tensor-core kernels
-    (``mma.sync`` m16n8k16, bf16 operands, f32 accumulators), float32 →
-    the CUDA-core kernels (f32 FMAs).  Raises ``TypeError`` for another
-    dtype."""
+    ``dtype`` on the card, both on the tensor cores: bfloat16 →
+    ``mma.sync`` m16n8k16 (bf16 operands, f32 accumulators), float32 →
+    ``mma.sync`` m16n8k8 in split TF32 (three TF32 products an f32
+    product).  Raises ``TypeError`` for another dtype."""
     if dtype not in BWD_ROUTES:
         raise TypeError(f"{dtype}: q, k and v must all be float32 or all "
                         "bfloat16")
@@ -253,7 +260,7 @@ def flash_attention_bwd(
     at width max(hd, vh) on zero columns where vh ≠ hd, by
     :func:`bwd_route`'s route for the dtype; on the CPU
     ``ref.flash_attention_bwd_ref``.  Gradients come in the inputs'
-    dtype.  The bf16 route reads rows in 16-byte pieces and raises for a
+    dtype.  Both routes read rows in 16-byte pieces and raise for a
     tensor that does not start on a 16-byte boundary."""
     B, Sq, Sk, H, KH, hd, vh, _ = _check_inputs(q, k, v)
     dev = q.device
@@ -276,12 +283,9 @@ def flash_attention_bwd(
     if vh != hd:
         q, k, v = zero_pad(q, k, v, width)
         o, do = (F.pad(t, (0, width - vh)) for t in (o, do))
-    if q.dtype == torch.bfloat16:
-        for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o),
-                          ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{t_name} must start on a 16-byte "
-                                 "boundary")
+    for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{t_name} must start on a 16-byte boundary")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

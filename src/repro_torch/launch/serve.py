@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCHS, get_config
+from ..configs import get_config
 from ..device import resolve_device
 from ..models import build_model
 from ..runtime import greedy_generate
@@ -32,7 +32,8 @@ from ..runtime import greedy_generate
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-7b", choices=ARCHS)
+    ap.add_argument("--arch", default="zamba2-7b",
+                    help="a registered arch (configs.get_config)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

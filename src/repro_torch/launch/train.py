@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
-from ..configs import ARCHS, get_config
+from ..configs import get_config
 from ..data import SyntheticLM, make_batch_iterator
 from ..device import resolve_device
 from ..models import build_model
@@ -47,7 +47,8 @@ def _on_device(it, dev):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-32b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen2.5-32b",
+                    help="a registered arch (configs.get_config)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

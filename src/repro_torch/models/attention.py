@@ -47,11 +47,14 @@ def chunked_attention(
 
 def attn_specs(cfg) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    spec = {"wq": Leaf((d, H * hd)), "wk": Leaf((d, KV * hd)),
-            "wv": Leaf((d, KV * hd)), "wo": Leaf((H * hd, d))}
+    spec = {"wq": Leaf((d, H * hd), axes=("embed", "heads")),
+            "wk": Leaf((d, KV * hd), axes=("embed", "heads")),
+            "wv": Leaf((d, KV * hd), axes=("embed", "heads")),
+            "wo": Leaf((H * hd, d), axes=("heads", "embed"))}
     if cfg.qkv_bias:
-        spec.update(bq=Leaf((H * hd,), "zeros"), bk=Leaf((KV * hd,), "zeros"),
-                    bv=Leaf((KV * hd,), "zeros"))
+        spec.update(bq=Leaf((H * hd,), "zeros", axes=("heads",)),
+                    bk=Leaf((KV * hd,), "zeros", axes=("heads",)),
+                    bv=Leaf((KV * hd,), "zeros", axes=("heads",)))
     return spec
 
 
@@ -140,8 +143,10 @@ def attn_decode(
 
 def cross_attn_specs(cfg) -> dict:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-    return {"wq": Leaf((d, H * hd)), "wk": Leaf((d, H * hd)),
-            "wv": Leaf((d, H * hd)), "wo": Leaf((H * hd, d))}
+    return {"wq": Leaf((d, H * hd), axes=("embed", "heads")),
+            "wk": Leaf((d, H * hd), axes=("embed", "heads")),
+            "wv": Leaf((d, H * hd), axes=("embed", "heads")),
+            "wo": Leaf((H * hd, d), axes=("heads", "embed"))}
 
 
 def cross_kv(p, cfg, enc_out):
@@ -173,12 +178,15 @@ def mla_specs(cfg) -> dict:
     d, H = cfg.d_model, cfg.n_heads
     nh, rh, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     R = cfg.kv_lora_rank
-    return {"wq_a": Leaf((d, cfg.q_lora_rank)),
-            "q_norm": Leaf((cfg.q_lora_rank,), "ones"),
-            "wq_b": Leaf((cfg.q_lora_rank, H * (nh + rh))),
-            "wkv_a": Leaf((d, R + rh)), "kv_norm": Leaf((R,), "ones"),
-            "wk_b": Leaf((R, H * nh)), "wv_b": Leaf((R, H * vh)),
-            "wo": Leaf((H * vh, d))}
+    return {"wq_a": Leaf((d, cfg.q_lora_rank), axes=("embed", None)),
+            "q_norm": Leaf((cfg.q_lora_rank,), "ones", axes=(None,)),
+            "wq_b": Leaf((cfg.q_lora_rank, H * (nh + rh)),
+                         axes=(None, "heads")),
+            "wkv_a": Leaf((d, R + rh), axes=("embed", None)),
+            "kv_norm": Leaf((R,), "ones", axes=(None,)),
+            "wk_b": Leaf((R, H * nh), axes=(None, "heads")),
+            "wv_b": Leaf((R, H * vh), axes=(None, "heads")),
+            "wo": Leaf((H * vh, d), axes=("heads", "embed"))}
 
 
 def _mla_q(p, cfg, x, positions):

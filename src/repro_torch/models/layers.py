@@ -5,9 +5,13 @@ A model's parameters are declared as a nested spec — dicts of ``Leaf``
 declarations, with lists for runs of layers — and materialized as a
 ``ParamTree``: an ``nn.Module`` whose children mirror the spec, indexed
 ``p["wz"]`` as the JAX package's dicts are, with state-dict names such as
-``groups.0.mamba.1.mixer.wz``.  Parameters require gradients only in a
-trainable tree (``trainable=True``, as ``runtime.init_train_state`` makes
-it); serving runs under ``torch.no_grad`` and builds no graph either way.
+``groups.0.mamba.1.mixer.wz``.  Three things derive from the one spec, as
+in the JAX package: ``init_params`` (random values), ``abstract_params``
+(the same tree on the meta device: shapes and dtypes, no allocation) and
+``param_axes`` (each leaf's logical axis names).  Parameters require
+gradients only in a trainable tree (``trainable=True``, as
+``runtime.init_train_state`` makes it); serving runs under
+``torch.no_grad`` and builds no graph either way.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "DTYPES", "Leaf", "ParamTree", "init_params", "rms_norm", "layer_norm",
+    "DTYPES", "Leaf", "ParamTree", "init_params", "abstract_params",
+    "param_axes", "rms_norm", "layer_norm",
     "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "norm_specs",
 ]
 
@@ -29,11 +34,14 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class Leaf(NamedTuple):
     """One parameter: its shape and init kind (fan_in | zeros | ones |
-    normal) with an optional scale, as ``repro/models/layers.py`` declares
-    them."""
+    normal) with an optional scale, and one logical axis name (or None) a
+    dim, as ``repro/models/layers.py`` declares them (the JAX package
+    puts a "layers" axis in front of a stacked run's leaves; the port
+    keeps one leaf a layer, so its own axes start at the leaf's dims)."""
     shape: tuple
     init: str = "fan_in"
     scale: float | None = None
+    axes: tuple | None = None
 
 
 class ParamTree(nn.Module):
@@ -92,12 +100,41 @@ def init_params(
     return ParamTree(build(spec), trainable)
 
 
+def _map_spec(spec, fn):
+    """``spec`` with each ``Leaf`` replaced by ``fn(leaf)``."""
+    if isinstance(spec, Leaf):
+        return fn(spec)
+    if isinstance(spec, dict):
+        return {k: _map_spec(v, fn) for k, v in spec.items()}
+    return [_map_spec(v, fn) for v in spec]
+
+
+def abstract_params(spec, dtype) -> ParamTree:
+    """``spec`` as a ``ParamTree`` of meta-device tensors in ``dtype``:
+    every leaf's shape and dtype, nothing allocated (the JAX package's
+    ``ShapeDtypeStruct`` tree)."""
+    return ParamTree(_map_spec(spec, lambda leaf: torch.empty(
+        leaf.shape, dtype=dtype, device="meta")))
+
+
+def param_axes(spec):
+    """The logical axis names of each leaf of ``spec``, in its shape:
+    dicts and lists as the spec nests them, a tuple (one name or None a
+    dim) for a leaf."""
+    def axes(leaf):
+        if leaf.axes is None or len(leaf.axes) != len(leaf.shape):
+            raise ValueError(f"leaf {leaf} declares no axis name for each "
+                             "of its dims")
+        return tuple(leaf.axes)
+    return _map_spec(spec, axes)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def norm_specs(d: int, plus_one: bool) -> dict:
-    return {"w": Leaf((d,), "zeros" if plus_one else "ones")}
+    return {"w": Leaf((d,), "zeros" if plus_one else "ones", axes=(None,))}
 
 
 def rms_norm(x, w, eps: float, plus_one: bool):
@@ -172,9 +209,9 @@ def apply_rope(x, positions, theta, mrope_sections=None):
 def mlp_specs(d: int, d_ff: int, activation: str) -> dict:
     spec = {}
     if activation in ("swiglu", "geglu"):
-        spec["w_gate"] = Leaf((d, d_ff))
-    spec["w_up"] = Leaf((d, d_ff))
-    spec["w_down"] = Leaf((d_ff, d))
+        spec["w_gate"] = Leaf((d, d_ff), axes=("embed", "mlp"))
+    spec["w_up"] = Leaf((d, d_ff), axes=("embed", "mlp"))
+    spec["w_down"] = Leaf((d_ff, d), axes=("mlp", "embed"))
     return spec
 
 

@@ -32,8 +32,10 @@ __all__ = ["moe_specs", "moe_apply", "stable_top_k"]
 
 def moe_specs(cfg) -> dict:
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    spec = {"router": Leaf((d, E)), "w_gate": Leaf((E, d, f)),
-            "w_up": Leaf((E, d, f)), "w_down": Leaf((E, f, d))}
+    spec = {"router": Leaf((d, E), axes=("embed", "expert")),
+            "w_gate": Leaf((E, d, f), axes=("expert", "embed", "mlp")),
+            "w_up": Leaf((E, d, f), axes=("expert", "embed", "mlp")),
+            "w_down": Leaf((E, f, d), axes=("expert", "mlp", "embed"))}
     if cfg.n_shared_experts > 0:
         spec["shared"] = mlp_specs(d, cfg.n_shared_experts * f, "swiglu")
     return spec

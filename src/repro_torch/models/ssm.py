@@ -27,16 +27,17 @@ def conv_dim(cfg) -> int:
 def ssm_specs(cfg) -> dict:
     d, di, H = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
     return {
-        "wz": Leaf((d, di)),
-        "wxbc": Leaf((d, conv_dim(cfg))),
-        "wdt": Leaf((d, H)),
-        "dt_bias": Leaf((H,), "zeros"),
-        "A_log": Leaf((H,), "zeros"),
-        "D": Leaf((H,), "ones"),
-        "conv_w": Leaf((cfg.conv_width, conv_dim(cfg)), "normal", 0.1),
-        "conv_b": Leaf((conv_dim(cfg),), "zeros"),
-        "gate_norm": Leaf((di,), "ones"),
-        "wo": Leaf((di, d)),
+        "wz": Leaf((d, di), axes=("embed", "heads")),
+        "wxbc": Leaf((d, conv_dim(cfg)), axes=("embed", "heads")),
+        "wdt": Leaf((d, H), axes=("embed", None)),
+        "dt_bias": Leaf((H,), "zeros", axes=(None,)),
+        "A_log": Leaf((H,), "zeros", axes=(None,)),
+        "D": Leaf((H,), "ones", axes=(None,)),
+        "conv_w": Leaf((cfg.conv_width, conv_dim(cfg)), "normal", 0.1,
+                       axes=(None, "heads")),
+        "conv_b": Leaf((conv_dim(cfg),), "zeros", axes=("heads",)),
+        "gate_norm": Leaf((di,), "ones", axes=("heads",)),
+        "wo": Leaf((di, d), axes=("heads", "embed")),
     }
 
 

@@ -61,8 +61,9 @@ from torch.utils import checkpoint as _ckpt
 from .attention import (attn_decode, attn_encode, attn_specs, attn_train,
                         cross_attn, cross_attn_specs, cross_kv, mla_decode,
                         mla_specs, mla_train)
-from .layers import (DTYPES, Leaf, ParamTree, init_params, layer_norm,
-                     mlp_apply, mlp_specs, norm_specs, rms_norm)
+from .layers import (DTYPES, Leaf, ParamTree, abstract_params, init_params,
+                     layer_norm, mlp_apply, mlp_specs, norm_specs,
+                     param_axes, rms_norm)
 from .moe import moe_apply, moe_specs
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
@@ -78,10 +79,11 @@ def _norm(p, cfg, x):
 
 
 def _lm_head_specs(cfg) -> dict:
-    spec = {"embed": Leaf((cfg.vocab, cfg.d_model), "normal"),
+    spec = {"embed": Leaf((cfg.vocab, cfg.d_model), "normal",
+                          axes=("vocab", "embed")),
             "final_norm": norm_specs(cfg.d_model, cfg.norm_plus_one)}
     if not cfg.tie_embeddings:
-        spec["head"] = Leaf((cfg.d_model, cfg.vocab))
+        spec["head"] = Leaf((cfg.d_model, cfg.vocab), axes=("embed", "vocab"))
     return spec
 
 
@@ -252,6 +254,15 @@ class Model:
         return init_params(self.spec, DTYPES[self.config.param_dtype],
                            generator, trainable)
 
+    def abstract(self) -> ParamTree:
+        """The parameters' shapes and dtypes as meta-device tensors:
+        nothing allocated (count them with ``.parameters()``)."""
+        return abstract_params(self.spec, DTYPES[self.config.param_dtype])
+
+    def axes(self):
+        """Each parameter's logical axis names, nested as the spec."""
+        return param_axes(self.spec)
+
 
 def _serving(fn):
     """A prefill, decode or encode that builds no autograd graph, whatever
@@ -317,7 +328,8 @@ def _build_decoder_lm(cfg):
         spec["moe_blocks"] = [_dense_block_specs(cfg, moe=True)
                               for _ in range(n_moe)]
     if cfg.mtp:
-        spec["mtp"] = {"proj": Leaf((2 * cfg.d_model, cfg.d_model)),
+        spec["mtp"] = {"proj": Leaf((2 * cfg.d_model, cfg.d_model),
+                                    axes=("embed", "embed2")),
                        "norm_h": norm_specs(cfg.d_model, cfg.norm_plus_one),
                        "norm_e": norm_specs(cfg.d_model, cfg.norm_plus_one),
                        "block": _dense_block_specs(cfg)}
@@ -666,14 +678,16 @@ def _ln(p, cfg, x):
 
 
 def _ln_specs(d: int) -> dict:
-    return {"w": Leaf((d,), "ones"), "b": Leaf((d,), "zeros")}
+    return {"w": Leaf((d,), "ones", axes=(None,)),
+            "b": Leaf((d,), "zeros", axes=(None,))}
 
 
 def _build_encdec(cfg):
     L, d = cfg.n_layers, cfg.d_model
     cdt = DTYPES[cfg.compute_dtype]
-    spec = {"embed": Leaf((cfg.vocab, d), "normal"),
-            "pos_embed": Leaf((cfg.max_positions, d), "normal"),
+    spec = {"embed": Leaf((cfg.vocab, d), "normal", axes=("vocab", "embed")),
+            "pos_embed": Leaf((cfg.max_positions, d), "normal",
+                              axes=(None, "embed")),
             "enc_final_ln": _ln_specs(d), "dec_final_ln": _ln_specs(d),
             "enc": [{"ln1": _ln_specs(d), "attn": attn_specs(cfg),
                      "ln2": _ln_specs(d),

@@ -718,11 +718,22 @@ class ClusterSim:
         speed = self.speed_fn(t)[inst.edges[:, 1]]
         return np.clip(inst.mu * speed - inst.cost, 0.0, 1.0).astype(np.float32)
 
+    def _check_horizon(self, policy: str) -> None:
+        """ESDP solves the DP every slot: before the first, raise the
+        solves' ``ValueError`` if the horizon's schedule lets a DP value
+        reach ``VALUE_BOUND`` on any device (``ops.
+        check_horizon_value_bound``); the baselines solve none."""
+        if policy == "esdp":
+            from ..kernels.budgeted_dp.ops import check_horizon_value_bound
+            check_horizon_value_bound(self.tables, self.m, self.xi_tab,
+                                      self.g_tab)
+
     # ------------------------------------------------------------------
     def run(self, policy: str = "esdp", tiebreak: float = 1e-4) -> SimOutput:
         """The lockstep loop (``sched.engine.lockstep_run``)."""
         from .engine import lockstep_run
 
+        self._check_horizon(policy)
         return lockstep_run(self, policy, tiebreak)
 
     def engine(self, config=None):
@@ -770,4 +781,5 @@ class ClusterSim:
                 "loop run() over seeds for a malleable fleet")
         from .engine import lockstep_run_batch
 
+        self._check_horizon(policy)
         return lockstep_run_batch(self, seeds, policy, tiebreak)

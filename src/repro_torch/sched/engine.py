@@ -292,6 +292,12 @@ class DispatchEngine:
                 T, self.m, stats_mod.delta_default, g_fn, self.device)
         self.xi_tab, self.g_tab = (torch.as_tensor(a, device=self.device)
                                    for a in tuple(schedule)[:2])
+        if any(v.kind == "esdp" for v in self.config.variants):
+            # a variant solves the DP every slot: refuse, before any, a
+            # horizon whose DP values could reach the int32 plane's bound
+            from ..kernels.budgeted_dp.ops import check_horizon_value_bound
+            check_horizon_value_bound(self.tables, self.m, self.xi_tab,
+                                      self.g_tab)
 
         cfg = self.config
         self.Q = int(cfg.queue_capacity)

@@ -1207,6 +1207,8 @@ def _flash_case(B, Sq, Sk, H, KH, hd, vh, dtype, dev, seed):
     (1, 1024, 1024, 10, 2, 128, 128, True, 0),
     # S a multiple of none of those tiles, bidirectional
     (2, 421, 421, 6, 3, 64, 64, False, 0),
+    (2, 256, 256, 8, 4, 64, 64, True, 0),  # tiny-100m's heads 8:4 of 64
+    (1, 300, 300, 8, 2, 112, 112, True, 64),  # D 112, GQA and a window
 ])
 def test_cuda_flash_bwd_held_to_the_f64_plain_version(
     dtype, B, Sq, Sk, H, KH, hd, vh, causal, window
@@ -1240,6 +1242,71 @@ def test_cuda_flash_bwd_held_to_the_f64_plain_version(
             assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
         else:
             assert err_k <= 1.5 * err_p + 2e-3, (err_k, err_p)
+
+
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_cuda_flash_bwd_tf32_streamed_row_order_on_distinct_rows(hd):
+    """The f32 backward's fragment remap (k-position t of the split-TF32
+    products is streamed row 2t and t + 4 is row 2t + 1, in P's and dS's
+    A fragments as in dO's, Q's and K's B fragments): every row of dO
+    (streamed in the dK/dV kernel, with Q) and of K (streamed in the dQ
+    kernel) holds its own values, 1/S apart from its neighbour's, and
+    neighbouring queries' probabilities differ, so a row taken for its
+    neighbour moves dq, dk and dv by ~1e-3, far past the gate: no farther
+    from the f64 plain backward than twice the f32 plain version + 1e-5,
+    and two runs bitwise equal."""
+    dev = _card()
+    B, S, H, KH = 1, 192, 4, 2
+    g = torch.Generator().manual_seed(hd)
+    q, v = (torch.randn(shape, generator=g).to(dev)
+            for shape in ((B, S, H, hd), (B, S, KH, hd)))
+    i = torch.arange(S, dtype=torch.float32)[:, None, None]
+    d = torch.arange(hd, dtype=torch.float32)
+    k = ((i * hd + d + 0.5 * torch.arange(KH)[:, None]) / (S * hd) * 4.0
+         - 2.0)[None].to(dev).contiguous()
+    do = ((i * hd + d + 0.5 * torch.arange(H)[:, None]) / (S * hd)
+          )[None].to(dev).contiguous()
+    assert torch.unique(k[0, :, 0, 0]).numel() == S
+    assert torch.unique(do[0, :, 0, 0]).numel() == S
+    kw = dict(scale=hd ** -0.5, causal=True, window=0)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    d64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = fa.flash_attention_ref(*d64[:3], return_lse=True, **kw)
+    exact = fa.flash_attention_bwd_ref(*d64[:3], o64, lse64, d64[3], **kw)
+    po, plse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+    for a, p, e in zip(got, plain, exact):
+        err_k, err_p = _rel(a, e), _rel(p, e)
+        assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
+
+
+def test_cuda_esdp_runs_refuse_a_horizon_over_the_value_bound():
+    """An m-37 instance at T 4515 whose capacities let 11 edges be
+    selected: DP values can reach 11 x 93,101,292 ≥ 2^29.  ``simulate``,
+    ``ClusterSim.run`` and ``DispatchEngine`` on the card raise the
+    solves' ValueError before the first slot, reading the schedule once
+    and launching no kernel; HSWF on the same instance solves no DP and
+    runs."""
+    from repro_torch.sched import ClusterSim
+    dev = _card()
+    inst = generate_instance(seed=2, edge_prob=0.22, c_lo=3, c_hi=4)
+    assert inst.m == 37
+    T = 4515
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="2\\^29 over this horizon"):
+        simulate(inst, esdp.make_esdp_policy(inst, T), T, device=dev)
+    sim = ClusterSim(inst, T, g_fn=stats.g_default, device=dev)
+    with pytest.raises(ValueError, match="2\\^29 over this horizon"):
+        sim.run()
+    with pytest.raises(ValueError, match="2\\^29 over this horizon"):
+        sim.engine()
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    out = ClusterSim(inst, 40, g_fn=stats.g_default, device=dev).run("hswf")
+    assert out.x.shape == (40, inst.n_edges)
 
 
 @pytest.mark.parametrize("B,S,H,P,N,Q", [

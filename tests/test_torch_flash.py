@@ -292,6 +292,7 @@ def _c_params(source, fn):
     ("flash_attention_wgmma", ["flash_attention_wgmma_launch"]),
     ("flash_attention_tf32", ["flash_attention_tf32_launch"]),
     ("flash_attention_bwd", ["flash_attention_bwd_bf16_launch",
+                             "flash_attention_bwd_tf32_launch",
                              "flash_attention_bwd_f32_launch"]),
     ("ssd", ["ssd_scan_launch"]),
     ("ssd_bwd", ["ssd_bwd_launch"]),

@@ -144,21 +144,28 @@ def test_backward_counts_no_launch_on_the_cpu():
 
 
 def test_backward_route_is_chosen_by_the_dtype_alone():
-    """bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones,
-    through their own C entry points; another dtype raises before any
-    launch.  Every kernel and entry point named stands in the source."""
+    """bf16 goes to the bf16 tensor-core kernels, f32 to the split-TF32
+    tensor-core ones, through their own C entry points; the CUDA-core f32
+    kernels are only the referee's, which no dtype routes to; another
+    dtype raises before any launch.  Every kernel and entry point named
+    stands in the source."""
     src = fa.BWD_LIBRARY.source.read_text()
     entry, kernels = fa.bwd_route(torch.bfloat16)
     assert entry == "flash_attention_bwd_bf16_launch"
     assert kernels == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_mma_kernel",
                        "fa_bwd_dq_mma_kernel")
     entry32, kernels32 = fa.bwd_route(torch.float32)
-    assert entry32 == "flash_attention_bwd_f32_launch"
-    assert kernels32 == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
-                         "fa_bwd_dq_kernel")
-    for name in (entry, entry32):
+    assert entry32 == "flash_attention_bwd_tf32_launch"
+    assert kernels32 == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_tf32_kernel",
+                         "fa_bwd_dq_tf32_kernel")
+    referee, referee_kernels = fa.BWD_REFEREE
+    assert referee == "flash_attention_bwd_f32_launch"
+    assert referee_kernels == ("fa_bwd_pre_kernel", "fa_bwd_dkdv_kernel",
+                               "fa_bwd_dq_kernel")
+    assert referee not in (e for e, _ in fa.BWD_ROUTES.values())
+    for name in (entry, entry32, referee):
         assert f"int {name}(" in src
-    for name in set(kernels) | set(kernels32):
+    for name in set(kernels) | set(kernels32) | set(referee_kernels):
         assert re.search(r"__global__ void (__launch_bounds__\([^)]*\) )?"
                          + name + r"\(", src), name
     for dtype in (torch.float16, torch.float64):
