@@ -297,6 +297,146 @@ def done(t0):
     print(f"   ({time.perf_counter() - t0:.2f} s)", flush=True)
 
 
+# phase (l): the dry run's predicted peak against the measured one
+# (relative), and its FLOPs against FlopCounterMode's on the real step
+PLAN_PEAK_LIMIT, PLAN_FLOP_LIMIT = 0.10, 1e-6
+
+
+def plan_against_card(cells, shape):
+    """Phase (l): plan each training cell with the dry run's per-cell
+    function on a one-device mesh and hold the plan against phase (k)'s
+    measurements.  ``cells``: (arch, config, the state's bytes, the step's
+    own peak bytes, the step's FlopCounterMode FLOPs, its median ms,
+    whether remat "none" must predict over the peak) each.  Gates: the
+    state's bytes exact; the FLOPs within ``PLAN_FLOP_LIMIT``; the peak
+    within ``PLAN_PEAK_LIMIT``; a plan whose optimizer holds no AdamW
+    moments below it by more than the limit; the remat-"none" plan above
+    it by more than the limit where asked.  Alongside, the FULL
+    multi-pod train_4k cell of qwen2.5-32b through the dry run's CLI in a
+    process of its own (512 ranks of the fake process group), which must
+    record no error."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.optim import AdamW, OptState
+
+    class NoMoments(AdamW):
+        """The planted fault: AdamW with its moments left out, a step of
+        plain gradient descent whose state is the step count alone."""
+
+        def init(self, params):
+            return OptState(step=super().init(params).step, m={}, v={})
+
+        def update(self, grads, state, params):
+            named = dict(params.named_parameters())
+            with torch.no_grad():
+                for name, g in grads.items():
+                    p = named[name]
+                    p.copy_((p.float() - 3e-4 * g.float()).to(p.dtype))
+            step = state.step + 1
+            return params, OptState(step=step, m={}, v={}), \
+                torch.zeros((), device=step.device)
+
+    out = HERE / "results" / "dryrun_torch" / "qwen2.5-32b_train_4k_multi.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    multi = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2.5-32b", "--shape", "train_4k", "--mesh", "multi"],
+        env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    w_multi = time.perf_counter()
+    one = make_mesh_shape((1, 1), ("data", "model"))
+    gib = 2 ** 30
+    try:
+        for arch, cfg, state_bytes, own_peak, flops, step_ms, gate_none in cells:
+            w0 = time.perf_counter()
+            rec = dryrun.plan_cell(cfg, shape, one, remat="full")
+            none = dryrun.plan_cell(cfg, shape, one, remat="none")
+            with mock.patch.object(dryrun, "AdamW", NoMoments):
+                bare = dryrun.plan_cell(cfg, shape, one, remat="full")
+            plan_s = time.perf_counter() - w0
+            mem, roof = rec["memory"], rec["roofline"]
+            state = mem["params_bytes"] + mem["opt_state_bytes"]
+            flop_gap = abs(rec["cost_global"]["flops"] - flops) / flops
+            pred = mem["peak_est_bytes"]
+            gap = (pred - own_peak) / own_peak
+            bare_pred = bare["memory"]["peak_est_bytes"]
+            planted = (bare_pred - own_peak) / own_peak
+            none_gap = (none["memory"]["peak_est_bytes"] - own_peak) / own_peak
+            bound_s = max(roof["compute_s"], roof["memory_s"])
+            print(f"   {arch} ({cfg.n_layers} layers), {shape.global_batch} x "
+                  f"{shape.seq_len + 1} tokens, remat full, one-device mesh "
+                  f"(planned in {plan_s:.1f} s, all three plans; traces "
+                  f"{rec['trace_s']} s + {rec['cost_traces_s']} s):",
+                  flush=True)
+            print(f"      state: planned {state} bytes, on the card "
+                  f"{state_bytes}; FLOPs: planned {rec['cost_global']['flops']}, "
+                  f"FlopCounterMode on the real step {flops} ({flop_gap:.3g} "
+                  f"relative, limit {PLAN_FLOP_LIMIT:g})", flush=True)
+            print(f"      peak: planned {pred / gib:.3f} GiB (argument "
+                  f"{mem['argument_bytes'] / gib:.3f} + temp "
+                  f"{mem['temp_bytes'] / gib:.3f}), measured {own_peak / gib:.3f}"
+                  f" GiB ({100 * gap:+.2f}%, limit {100 * PLAN_PEAK_LIMIT:g}%); "
+                  f"planted faults: no AdamW moments {bare_pred / gib:.3f} GiB "
+                  f"({100 * planted:+.2f}%; state "
+                  f"{bare['memory']['opt_state_bytes']} bytes), "
+                  f"remat none {none['memory']['peak_est_bytes'] / gib:.3f} GiB "
+                  f"({100 * none_gap:+.2f}%"
+                  + ("" if gate_none else ", no gate") + ")", flush=True)
+            print(f"      roofline on the H100 data sheet's figures: compute "
+                  f"{roof['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{roof['memory_s'] * 1e3:.3f} ms -> {roof['bottleneck']}; "
+                  f"measured step {step_ms:.1f} ms, {step_ms / 1e3 / bound_s:.2f}"
+                  " x max(compute, memory)", flush=True)
+            if state != state_bytes:
+                fail(f"{arch}: the dry run plans {state} bytes of parameters and "
+                     f"AdamW state, the card holds {state_bytes}")
+            if not flop_gap <= PLAN_FLOP_LIMIT:
+                fail(f"{arch}: the dry run counts {rec['cost_global']['flops']} "
+                     f"FLOPs, FlopCounterMode on the real step {flops}")
+            if not abs(gap) <= PLAN_PEAK_LIMIT:
+                fail(f"{arch}: the planned peak {pred} bytes is {100 * gap:+.2f}% "
+                     f"from the measured {own_peak}")
+            if not planted < -PLAN_PEAK_LIMIT:
+                fail(f"{arch}: the plan without the AdamW moments is only "
+                     f"{100 * planted:+.2f}% from the measured peak: the peak "
+                     "gate cannot see it")
+            if gate_none and not none_gap > PLAN_PEAK_LIMIT:
+                fail(f"{arch}: the remat-none plan is only {100 * none_gap:+.2f}%"
+                     " from the measured peak: the peak gate cannot see it")
+    except BaseException:  # a failed gate: stop the planning process too
+        multi.kill()
+        multi.communicate()
+        raise
+
+    try:
+        stdout, stderr = multi.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        multi.kill()
+        multi.communicate()
+        fail("the multi-pod dry run of qwen2.5-32b train_4k ran over 600 s")
+    wall = time.perf_counter() - w_multi
+    rec = json.loads(out.read_text()) if out.exists() else {}
+    if multi.returncode or rec.get("error") or "memory" not in rec:
+        fail(f"the multi-pod dry run of qwen2.5-32b train_4k: exit "
+             f"{multi.returncode}, {rec.get('error')}; "
+             f"{stdout[-500:]} {stderr[-1500:]}")
+    roof = rec["roofline"]
+    print(f"   qwen2.5-32b FULL train_4k on the multi-pod mesh ({rec['n_devices']}"
+          f" ranks, fake process group): traces {rec['trace_s']} s + "
+          f"{rec['cost_traces_s']} s, {wall:.1f} s with the process (run "
+          "beside the plans above); "
+          f"per-device peak {rec['memory']['peak_est_bytes'] / gib:.2f} GiB "
+          f"(argument {rec['memory']['argument_bytes'] / gib:.2f}); compute "
+          f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, "
+          f"collective {roof['collective_s']:.4f} s -> {roof['bottleneck']}",
+          flush=True)
+
+
 def per_call_ms(fn, calls, reps=5):
     """Milliseconds per call of ``fn``: ``calls`` back-to-back calls between
     one pair of CUDA events, divided by ``calls``; the median of ``reps``
@@ -2890,6 +3030,10 @@ def main():
         done(t0)
 
     train_counts, train_ms = {}, {}
+    # what phase (l) holds the dry run's plan against: each cell's config,
+    # its state's bytes, the step's own peak (the process's peak less what
+    # was allocated before the cell's model was built) and FLOPs
+    train_cfg, train_state_bytes, train_own_peak, train_flops = {}, {}, {}, {}
     TRAIN_STEPS, TRAIN_LR = 5, 1e-4
     STEP_LIMIT = 1e-3  # relative, for the first step's loss and norm
 
@@ -2900,6 +3044,7 @@ def main():
         cfg_t = get_config(arch)
         if n_layers:
             cfg_t = dataclasses.replace(cfg_t, n_layers=n_layers)
+        base_t = torch.cuda.memory_allocated()
         t0 = phase(f"(k) training: {arch} ({cfg_t.n_layers} layers, full "
                    f"width), bf16, {TRAIN_STEPS} AdamW steps on a 2 x 2049-"
                    "token SyntheticLM batch, remat full")
@@ -2936,6 +3081,11 @@ def main():
                 gnorm_k = float(m["grad_norm"])
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_own_peak[arch] = torch.cuda.max_memory_allocated() - base_t
+        train_state_bytes[arch] = sum(
+            t.nbytes for t in (*params_t.parameters(), state_t.opt.step,
+                               *state_t.opt.m.values(),
+                               *state_t.opt.v.values()))
         want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
         print(f"   {n_par} parameters; launches over {TRAIN_STEPS} steps "
               f"{counts}; losses {[round(x, 4) for x in losses]}; step ms "
@@ -2982,6 +3132,19 @@ def main():
         for e in top[:10]:
             print(f"      {e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
                   f"{e.key[:110]}", flush=True)
+        # one more step under FlopCounterMode: the aten products and the
+        # kernels' own work (kernels.work), which phase (l) holds the dry
+        # run's count against
+        from torch.utils.flop_counter import FlopCounterMode
+        with FlopCounterMode(display=False) as flop_mode:
+            state_t, _ = step_t(state_t, batch_t)
+        train_flops[arch] = flop_mode.get_total_flops()
+        train_cfg[arch] = cfg_t
+        print(f"   one more step under FlopCounterMode: {train_flops[arch]} "
+              f"FLOPs; the state {train_state_bytes[arch]} bytes; the step's "
+              f"own peak {train_own_peak[arch]} bytes (the process's "
+              f"{peak:.2f} GiB less {base_t} bytes held before the model "
+              "was built)", flush=True)
         train_counts[arch] = counts
         train_ms[arch] = (sorted(step_ms[1:])[len(step_ms[1:]) // 2], peak)
         del model_t, params_t, state_t, step_t, opt_t, batch_t, m
@@ -3124,6 +3287,22 @@ def main():
           f"{100 * tiny_idle:.1f}% of it", flush=True)
     del model_m, opt_m, step_m, state_m, batch_m
     torch.cuda.empty_cache()
+    done(t0)
+
+    # ------------------------------------------- the dry run against the card
+    # (l) the ported dry run plans phase (k)'s two training cells on a
+    # one-device mesh of the card and is held against their measurements
+    # (plan_against_card); then the FULL multi-pod cell plans
+    from repro_torch.configs import Shape
+    t0 = phase("(l) the dry run against the card: qwen2.5-32b (4 layers) and "
+               "FULL mamba2-2.7b planned at 2 x 2049 tokens, remat full, "
+               "beside phase (k)'s measured state, FLOPs and peak; the FULL "
+               "multi-pod qwen2.5-32b train_4k cell planned")
+    plan_against_card(
+        [(arch, train_cfg[arch], train_state_bytes[arch],
+          train_own_peak[arch], train_flops[arch], train_ms[arch][0],
+          arch == "mamba2-2.7b") for arch in ("qwen2.5-32b", "mamba2-2.7b")],
+        Shape("train_2k", 2048, 2, "train"))
     done(t0)
 
     # ------------------------------------------------------------ timing
@@ -3640,16 +3819,6 @@ def main():
         prof_ms, _ = profiled_ms(raw, 5, "flash_fwd_kernel")
         return per_call_ms(raw, 3, reps=3) if prof_ms is None else prof_ms
 
-    def pairs(Sq, Sk, causal, window):
-        """(query, key) pairs an attention of Sq queries over Sk keys
-        scores: all of them bidirectional; causally, query i (at position
-        i + Sk - Sq) the keys up to its own, within ``window`` (0:
-        none)."""
-        if not causal:
-            return Sq * Sk
-        w = window or Sk
-        return sum(min(i + 1 + Sk - Sq, w) for i in range(Sq))
-
     wgmma = "flash_attention_wgmma"
     nv = get_config("qwen2-vl-72b").n_vision_tokens
     wm = get_config("whisper-medium")
@@ -3716,11 +3885,11 @@ def main():
                           2, reps=3)
         lib_ms, backend = sdpa(q, k, v, scale, window, causal)
         # q·k and p·v over the pairs scored (the function's own widths,
-        # not the padded one); q, k, v read and o written once.  f32 runs
-        # each product as three TF32 products on the tensor cores
-        f_ops = 2 * (hd + vh) * Bf * H * pairs(Sq, Sk, causal, window)
-        f_bytes = (q.numel() + k.numel() + v.numel()
-                   + Bf * Sq * H * vh) * q.element_size()
+        # not the padded one); q, k, v read and o written once
+        # (fa.fwd_work, which the dry run counts too).  f32 runs each
+        # product as three TF32 products on the tensor cores
+        f_ops, f_bytes = fa.fwd_work(Bf, Sq, Sk, H, KH, hd, vh, causal,
+                                     window, q.element_size())
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         if dt == "f32":
             ops, rate, kind = (3 * f_ops, TF32_OPS_PER_S,
@@ -3775,11 +3944,7 @@ def main():
         # products (split form) on the tensor cores.  x, dt, A, B, C read
         # and y and the state written once; the chunk states are the
         # design's own traffic
-        tri = Q * (Q + 1) // 2
-        ssd_ops = 2 * (B * n_chunks * tri * N
-                       + B * H * n_chunks * (tri * P + 2 * Q * N * P))
-        ssd_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                         + B * H * N * P)
+        ssd_ops, ssd_bytes = ssd.scan_work(B, S, H, P, N, Q)
         row(f"ssd_scan (K7 _ssd_kernel, {label})",
             "src/repro/kernels/ssd/kernel.py:28",
             f"B={B} S={S} H={H} P={P} N={N} Q={Q} f32, "
@@ -3818,10 +3983,8 @@ def main():
         out, (qt, kt, vt), dot, retain_graph=True), 10)
     # the five products (S recomputed, dV, dP, dQ, dK) over the causal
     # pairs; q, k, v, o, dO and lse read, dq, dk, dv written once
-    b_pairs = 2 * 40 * pairs(2048, 2048, True, 0)
-    b_ops = 2 * (3 * 128 + 2 * 128) * b_pairs
-    b_bytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                   + q.numel()) + 4 * lse.numel()
+    b_ops, b_bytes = fa.bwd_work(2, 2048, 2048, 40, 8, 128, 128, True, 0,
+                                 q.element_size())
     row("flash_attention_bwd (the gradient of K6's function; bf16, "
         "qwen2.5-32b training)", "src/repro/kernels/flash_attention/"
         "kernel.py:24 (its gradient; JAX differentiates the pure-JAX "
@@ -3871,8 +4034,8 @@ def main():
         out, (qt, kt, vt), dot, retain_graph=True), 10)
     # the same five products, each as three TF32 products on the tensor
     # cores; f32 tensors
-    b_bytes = 4 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                   + q.numel()) + 4 * lse.numel()
+    b_bytes = fa.bwd_work(2, 2048, 2048, 40, 8, 128, 128, True, 0,
+                          q.element_size())[1]
     row("flash_attention_bwd (the gradient of K6's function; f32 in split "
         "TF32, qwen2.5-32b's training shape)",
         "src/repro/kernels/flash_attention/kernel.py:24 (its gradient; JAX "
@@ -3936,11 +4099,7 @@ def main():
     # products a f32 product on the tensor cores, which the port's own
     # forward shows the card reaches; x, dt, A, B, C, dy read and dx, ddt,
     # dA, dB, dC written once
-    tri = Q * (Q + 1) // 2
-    sb_ops = 2 * (B * n_chunks * tri * N
-                  + B * H * n_chunks * (2 * tri * P + 2 * tri * N
-                                        + 4 * Q * N * P))
-    sb_bytes = 4 * (2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N))
+    sb_ops, sb_bytes = ssd.bwd_work(B, S, H, P, N, Q)
     row("ssd_bwd (the gradient of K7's function; mamba2-2.7b training)",
         "src/repro/kernels/ssd/kernel.py:28 (its gradient; JAX "
         "differentiates the pure-JAX ssd_chunked)",

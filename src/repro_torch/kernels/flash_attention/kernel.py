@@ -32,22 +32,34 @@ m16n8k8.  The backward's first, CUDA-core f32 kernels (``BWD_REFEREE``)
 take no input: like ``flash_fwd_kernel`` they stay only as a referee that
 ``chip_smoke.py`` launches raw.  ``ops.FlashAttentionFn`` puts the forward
 and the backward under autograd.
+
+Each wrapper allocates its outputs and scratch itself and hands them to a
+``torch.library`` operator (``kernels.work.kernel_op``),
+``repro_torch::flash_attention_fwd`` or ``::flash_attention_bwd``, that
+fills them: on the card it launches the kernel, on the CPU it runs the
+plain version, and on the meta device (or under ``FakeTensorMode``) it
+does nothing.  So a dry run on meta tensors sees every byte the card
+would allocate and launches nothing; and the operators' work
+(:func:`fwd_work`, :func:`bwd_work`) is what ``FlopCounterMode`` counts
+for them on any device.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import ref
 from ..nvcc import CudaLibrary
+from ..work import kernel_op
 
 __all__ = ["LAUNCHES", "LIBRARY", "WGMMA_LIBRARY", "TF32_LIBRARY",
            "BWD_LIBRARY", "BWD_ROUTES", "BWD_REFEREE", "MAX_HEAD_DIM",
-           "kernel_for", "bwd_route", "zero_pad", "flash_attention",
-           "flash_attention_bwd"]
+           "kernel_for", "bwd_route", "zero_pad", "pairs", "fwd_work",
+           "bwd_work", "flash_attention", "flash_attention_bwd"]
 
 # launches of each CUDA kernel by the wrapper (plain-version calls are not
 # counted; "flash_attention", the referee, is never launched by it)
@@ -176,9 +188,125 @@ def _check_inputs(q, k, v):
             raise ValueError(f"{t_name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{t_name} must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return B, Sq, Sk, H, KH, hd, vh, name
+
+
+def pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs an attention of Sq queries over Sk keys scores:
+    all of them bidirectionally; causally, query i (at position
+    i + Sk − Sq) the keys up to its own, the last ``window`` of them
+    (0: no window) — the sum of min(i + 1 + Sk − Sq, window) over i."""
+    if not causal:
+        return Sq * Sk
+    w = window or Sk
+    first = 1 + Sk - Sq  # the keys query 0 sees before the window
+    below = min(max(w - first, 0), Sq)  # the queries the window leaves whole
+    return below * first + below * (below - 1) // 2 + (Sq - below) * w
+
+
+def fwd_work(
+    B: int,
+    Sq: int,
+    Sk: int,
+    H: int,
+    KH: int,
+    hd: int,
+    vh: int,
+    causal: bool,
+    window: int,
+    itemsize: int,
+    lse: bool = False,
+) -> tuple[int, int]:
+    """(operations, bytes) of the forward: q·k and p·v over the scored
+    pairs at the function's own widths (not a padded one), 2 a
+    multiply-add; q, k, v read and o (and the log-sum-exp, f32, with
+    ``lse``) written once."""
+    ops = 2 * (hd + vh) * B * H * pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * (B * Sq * H * hd + B * Sk * KH * (hd + vh)
+                         + B * Sq * H * vh)
+    return ops, nbytes + (4 * B * H * Sq if lse else 0)
+
+
+def bwd_work(
+    B: int,
+    Sq: int,
+    Sk: int,
+    H: int,
+    KH: int,
+    hd: int,
+    vh: int,
+    causal: bool,
+    window: int,
+    itemsize: int,
+) -> tuple[int, int]:
+    """(operations, bytes) of the backward: the five products over the
+    scored pairs (S recomputed and dQ and dK at hd, dP and dV at vh), 2
+    a multiply-add; q, k, v, o, dO and the log-sum-exp read and dq, dk,
+    dv written once."""
+    ops = 2 * (3 * hd + 2 * vh) * B * H * pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * 2 * (B * Sq * H * (hd + vh) + B * Sk * KH * (hd + vh))
+    return ops, nbytes + 4 * B * H * Sq
+
+
+def _fwd_impl(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: Optional[torch.Tensor],
+    hd: int,
+    vh: int,
+    scale: float,
+    causal: bool,
+    window: int,
+    chunk: int,
+) -> None:
+    """Fills ``out`` (and ``lse``): the plain version on the CPU; on the
+    card the kernel on q, k, v already padded to the kernel's width."""
+    if q.device.type == "cpu":
+        got = ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                      window=window, chunk=chunk,
+                                      return_lse=lse is not None)
+        if lse is None:
+            out.copy_(got)
+        else:
+            out.copy_(got[0])
+            lse.copy_(got[1])
+        return
+    dev = q.device
+    B, Sq, H, width = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    name = kernel_for(q.dtype, width)
+    for t_name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:  # both kernels read rows in 16-byte pieces
+            raise ValueError(f"{t_name} must start on a 16-byte boundary")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KH, width,
+            float(scale), int(causal), int(window))
+    with torch.cuda.device(dev):  # the libraries launch on the current one
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if name == "flash_attention_wgmma":
+            library = WGMMA_LIBRARY
+            err = library.load().flash_attention_wgmma_launch(*args, stream)
+        else:
+            library = TF32_LIBRARY
+            err = library.load().flash_attention_tf32_launch(*args, stream)
+    library.check(err, name)
+    LAUNCHES[name] += 1
+
+
+def _fwd_op_work(q, k, v, out, lse, hd, vh, scale, causal, window, chunk):
+    B, Sq, H, _ = q.shape
+    return fwd_work(B, Sq, k.shape[1], H, k.shape[2], hd, vh, causal, window,
+                    q.element_size(), lse is not None)
+
+
+_fwd_op = kernel_op(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
+    "Tensor(b!)? lse, int hd, int vh, float scale, bool causal, int window, "
+    "int chunk) -> ()", _fwd_impl, _fwd_op_work)
 
 
 def flash_attention(
@@ -205,38 +333,81 @@ def flash_attention(
     version's KV chunk (its summation order); the kernels' tiles are
     their own.  ``return_lse``: also return each row's natural log-sum-exp
     of the scaled logits, f32 (B, H, Sq), which the backward reads; the
-    output's bits are the same either way.
+    output's bits are the same either way.  On the meta device the same
+    tensors are allocated and nothing is computed.
     """
-    B, Sq, Sk, H, KH, hd, vh, name = _check_inputs(q, k, v)
+    B, Sq, Sk, H, KH, hd, vh, _ = _check_inputs(q, k, v)
     dev = q.device
-    width = max(hd, vh)
-    if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
-                                       window=window, chunk=chunk,
-                                       return_lse=return_lse)
-    if vh != hd:
-        q, k, v = zero_pad(q, k, v, width)
-    for t_name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:  # both kernels read rows in 16-byte pieces
-            raise ValueError(f"{t_name} must start on a 16-byte boundary")
-    out = torch.empty_like(q)
+    if dev.type != "cpu" and vh != hd:
+        q, k, v = zero_pad(q, k, v, max(hd, vh))
+    out = torch.empty((B, Sq, H, v.shape[-1]), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KH, width,
-            float(scale), int(causal), int(window))
-    with torch.cuda.device(dev):  # the libraries launch on the current one
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if name == "flash_attention_wgmma":
-            library = WGMMA_LIBRARY
-            err = library.load().flash_attention_wgmma_launch(*args, stream)
-        else:
-            library = TF32_LIBRARY
-            err = library.load().flash_attention_tf32_launch(*args, stream)
-    library.check(err, name)
-    LAUNCHES[name] += 1
-    out = out if vh == width else out[..., :vh].contiguous()
+    _fwd_op(q.detach(), k.detach(), v.detach(), out, lse, hd, vh,
+            float(scale), bool(causal), int(window), int(chunk))
+    if out.shape[-1] != vh:
+        out = out[..., :vh].contiguous()
     return (out, lse) if return_lse else out
+
+
+def _bwd_impl(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    dq: torch.Tensor,
+    dk: torch.Tensor,
+    dv: torch.Tensor,
+    delta: Optional[torch.Tensor],
+    hd: int,
+    vh: int,
+    scale: float,
+    causal: bool,
+    window: int,
+    chunk: int,
+) -> None:
+    """Fills dq, dk, dv: the plain version on the CPU; on the card the
+    backward kernels of :func:`bwd_route` on tensors already padded to
+    the kernel's width, with ``delta`` their scratch."""
+    if q.device.type == "cpu":
+        for dst, got in zip((dq, dk, dv), ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, scale=scale, causal=causal,
+                window=window, chunk=chunk)):
+            dst.copy_(got)
+        return
+    dev = q.device
+    B, Sq, H, width = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    entry, _ = bwd_route(q.dtype)
+    for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{t_name} must start on a 16-byte boundary")
+    with torch.cuda.device(dev):
+        err = getattr(BWD_LIBRARY.load(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, width,
+            float(scale), int(causal), int(window),
+            torch.cuda.current_stream(dev).cuda_stream)
+    BWD_LIBRARY.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+
+
+def _bwd_op_work(
+    q, k, v, o, lse, do, dq, dk, dv, delta, hd, vh, scale, causal, window, chunk
+):
+    B, Sq, H, _ = q.shape
+    return bwd_work(B, Sq, k.shape[1], H, k.shape[2], hd, vh, causal, window,
+                    q.element_size())
+
+
+_bwd_op = kernel_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+    "Tensor do, Tensor(a!) dq, Tensor(b!) dk, Tensor(c!) dv, "
+    "Tensor(d!)? delta, int hd, int vh, float scale, bool causal, "
+    "int window, int chunk) -> ()", _bwd_impl, _bwd_op_work)
 
 
 def flash_attention_bwd(
@@ -259,9 +430,10 @@ def flash_attention_bwd(
     ``csrc/flash_attention_bwd.cu`` (counted as ``flash_attention_bwd``),
     at width max(hd, vh) on zero columns where vh ≠ hd, by
     :func:`bwd_route`'s route for the dtype; on the CPU
-    ``ref.flash_attention_bwd_ref``.  Gradients come in the inputs'
-    dtype.  Both routes read rows in 16-byte pieces and raise for a
-    tensor that does not start on a 16-byte boundary."""
+    ``ref.flash_attention_bwd_ref``; on the meta device the same tensors
+    allocated, nothing computed.  Gradients come in the inputs' dtype.
+    Both routes read rows in 16-byte pieces and raise for a tensor that
+    does not start on a 16-byte boundary."""
     B, Sq, Sk, H, KH, hd, vh, _ = _check_inputs(q, k, v)
     dev = q.device
     for t_name, t, shape in (("o", o, (B, Sq, H, vh)), ("do", do, (B, Sq, H, vh))):
@@ -274,30 +446,17 @@ def flash_attention_bwd(
             or lse.device != dev or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous float32 ({B}, {H}, {Sq}) "
                          f"on {dev}")
-    if dev.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
-                                           causal=causal, window=window,
-                                           chunk=chunk)
-    entry, _ = bwd_route(q.dtype)
-    width = max(hd, vh)
-    if vh != hd:
-        q, k, v = zero_pad(q, k, v, width)
-        o, do = (F.pad(t, (0, width - vh)) for t in (o, do))
-    for t_name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{t_name} must start on a 16-byte boundary")
+    width, delta = max(hd, vh), None
+    if dev.type != "cpu":
+        if vh != hd:
+            q, k, v = zero_pad(q, k, v, width)
+            o, do = (F.pad(t, (0, width - vh)) for t in (o, do))
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(BWD_LIBRARY.load(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, width,
-            float(scale), int(causal), int(window),
-            torch.cuda.current_stream(dev).cuda_stream)
-    BWD_LIBRARY.check(err, "flash_attention_bwd")
-    LAUNCHES["flash_attention_bwd"] += 1
-    if vh != hd:
+    _bwd_op(q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(),
+            do.detach(), dq, dk, dv, delta, hd, vh, float(scale),
+            bool(causal), int(window), int(chunk))
+    if dq.shape[-1] != hd or dv.shape[-1] != vh:
         dq, dk, dv = (dq[..., :hd].contiguous(), dk[..., :hd].contiguous(),
                       dv[..., :vh].contiguous())
     return dq, dk, dv

@@ -14,20 +14,33 @@ point ``ssd_bwd_launch``, six launches of five kernels, counted as one
 ``ssd_bwd`` launch; split-TF32 ``mma.sync`` products, blocks of
 ``BWD_HEAD_GROUP`` heads) from it; ``ops.SsdFn`` puts the two under
 autograd.
+
+Each wrapper allocates its outputs and scratch itself and hands them to a
+``torch.library`` operator (``kernels.work.kernel_op``),
+``repro_torch::ssd_scan`` or ``::ssd_bwd``, that fills them: on the card
+it launches the kernels, on the CPU it runs the plain version, and on the
+meta device (or under ``FakeTensorMode``) it does nothing.  So a dry run
+on meta tensors sees every byte the card would allocate and launches
+nothing, and the kernels' shape limits hold there too; the operators'
+work (:func:`scan_work`, :func:`bwd_work`) is what ``FlopCounterMode``
+counts for them on any device.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import Optional
 
 import torch
 
 from . import ref
 from ..nvcc import SMEM_LIMIT_BYTES, CudaLibrary
+from ..work import kernel_op
 
 __all__ = ["LAUNCHES", "LIBRARY", "BWD_LIBRARY", "KERNELS", "BWD_KERNELS",
            "BWD_LAUNCHES_PER_CALL", "BWD_HEAD_GROUP", "Q_MAX", "smem_bytes",
-           "bwd_shares", "ssd_scan", "ssd_scan_saved", "ssd_bwd"]
+           "bwd_shares", "scan_work", "bwd_work", "ssd_scan",
+           "ssd_scan_saved", "ssd_bwd"]
 
 # calls of the CUDA entry point (plain-version calls are not counted)
 LAUNCHES = {"ssd_scan": 0, "ssd_bwd": 0}
@@ -103,6 +116,80 @@ def _check(name, t, ndim, dev):
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
 
 
+def scan_work(B: int, S: int, H: int, P: int, N: int, Q: int) -> tuple[int, int]:
+    """(operations, bytes) of the scan: C·Bᵀ on each chunk's lower
+    triangle once per (b, chunk) (B and C are per batch row), and per
+    (b, h, chunk) the masked product with x, C·state and the chunk
+    state, 2 a multiply-add; x, dt, A, B, C read and y and the final
+    state written once (the chunk states are the design's own
+    traffic)."""
+    n_chunks, tri = -(-S // Q), Q * (Q + 1) // 2
+    ops = 2 * (B * n_chunks * tri * N
+               + B * H * n_chunks * (tri * P + 2 * Q * N * P))
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                  + B * H * N * P)
+    return ops, nbytes
+
+
+def bwd_work(B: int, S: int, H: int, P: int, N: int, Q: int) -> tuple[int, int]:
+    """(operations, bytes) of the backward: C·Bᵀ on the lower triangle
+    once per (b, chunk); per (b, h, chunk) dy·xᵀ and Mᵀ·dy on the
+    triangle, R·C and R·B (dB, dC), and four Q·N·P products with the
+    chunk-boundary states, 2 a multiply-add; x, dt, A, B, C, dy read and
+    dx, ddt, dA, dB, dC written once."""
+    n_chunks, tri = -(-S // Q), Q * (Q + 1) // 2
+    ops = 2 * (B * n_chunks * tri * N
+               + B * H * n_chunks * (2 * tri * P + 2 * tri * N
+                                     + 4 * Q * N * P))
+    nbytes = 4 * 2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
+    return ops, nbytes
+
+
+def _scan_impl(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B_: torch.Tensor,
+    C_: torch.Tensor,
+    y: torch.Tensor,
+    state: torch.Tensor,
+    states: Optional[torch.Tensor],
+    cum: Optional[torch.Tensor],
+    chunk: int,
+) -> None:
+    """Fills y and the final state: the plain version on the CPU; on the
+    card the three kernels, which also write the scratch ``states`` and
+    ``cum``."""
+    if x.device.type == "cpu":
+        got_y, got_state = ref.ssd_ref(x, dt, A, B_, C_, chunk)
+        y.copy_(got_y)
+        state.copy_(got_state)
+        return
+    dev = x.device
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    with torch.cuda.device(dev):  # the library launches on the current one
+        err = LIBRARY.load().ssd_scan_launch(
+            x.data_ptr(), *x.stride()[:3], dt.data_ptr(), *dt.stride(),
+            A.data_ptr(), B_.data_ptr(), *B_.stride()[:2], C_.data_ptr(),
+            *C_.stride()[:2], y.data_ptr(), state.data_ptr(),
+            states.data_ptr(), cum.data_ptr(), Bb, S, H, P, N,
+            min(chunk, S), torch.cuda.current_stream(dev).cuda_stream)
+    LIBRARY.check(err, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+
+
+def _scan_op_work(x, dt, A, B_, C_, y, state, states, cum, chunk):
+    Bb, S, H, P = x.shape
+    return scan_work(Bb, S, H, P, B_.shape[-1], min(chunk, S))
+
+
+_scan_op = kernel_op(
+    "ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor B_, Tensor C_, "
+    "Tensor(a!) y, Tensor(b!) state, Tensor(c!)? states, Tensor(d!)? cum, "
+    "int chunk) -> ()", _scan_impl, _scan_op_work)
+
+
 def ssd_scan(x, dt, A, B_, C_, chunk: int):
     """The SSD chunked scan over the model's layouts: (y, final_state), as
     :func:`ssd_scan_saved` without its scratch."""
@@ -120,7 +207,8 @@ def ssd_scan_saved(x, dt, A, B_, C_, chunk: int):
     (B, H, N, P), states, cum), f32, contiguous: on the card ``states``
     (B, H, chunks, N, P) holds the state each chunk starts from and ``cum``
     (B, H, chunks, Qp, 2) the chunks' cumsums as (hi, lo) pairs, which the
-    backward reads; on the CPU both are None.  Raises ``ValueError`` for a
+    backward reads; on the CPU both are None; on the meta device all four
+    are allocated and nothing is computed.  Raises ``ValueError`` for a
     chunk over ``Q_MAX`` steps, or one whose blocks do not fit one block's
     shared memory.
     """
@@ -154,33 +242,104 @@ def ssd_scan_saved(x, dt, A, B_, C_, chunk: int):
             f"an SSD chunk of Q={Q}, P={P}, N={N} needs {need} bytes of "
             f"shared memory, over the {SMEM_LIMIT_BYTES}-byte limit of one "
             "block")
-    if dev.type == "cpu":
-        return (*ref.ssd_ref(x, dt, A, B_, C_, chunk), None, None)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    if (x.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1
-            or not A.is_contiguous()):
-        raise ValueError("x, B_ and C_ need innermost stride 1 and A must "
-                         "be contiguous")
-    n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
-    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
-    state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=dev)
-    # scratch: each chunk's state (then the state it starts from) and cum
-    # as (hi, lo) pairs
-    states = torch.empty((Bb, H, n_chunks, N, P), dtype=torch.float32,
-                         device=dev)
-    cum = torch.empty((Bb, H, n_chunks, Qp, 2), dtype=torch.float32,
-                      device=dev)
-    with torch.cuda.device(dev):  # the library launches on the current one
-        err = LIBRARY.load().ssd_scan_launch(
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((Bb, S, H, P), **f32)
+    state = torch.empty((Bb, H, N, P), **f32)
+    states = cum = None
+    if dev.type != "cpu":
+        if (x.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1
+                or not A.is_contiguous()):
+            raise ValueError("x, B_ and C_ need innermost stride 1 and A "
+                             "must be contiguous")
+        n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
+        # scratch: each chunk's state (then the state it starts from) and
+        # cum as (hi, lo) pairs
+        states = torch.empty((Bb, H, n_chunks, N, P), **f32)
+        cum = torch.empty((Bb, H, n_chunks, Qp, 2), **f32)
+    _scan_op(*(t.detach() for t in (x, dt, A, B_, C_)), y, state, states,
+             cum, int(chunk))
+    return y, state, states, cum
+
+
+def _bwd_impl(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B_: torch.Tensor,
+    C_: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: Optional[torch.Tensor],
+    states: Optional[torch.Tensor],
+    cum: Optional[torch.Tensor],
+    dx: torch.Tensor,
+    ddt: torch.Tensor,
+    dA: torch.Tensor,
+    dB: torch.Tensor,
+    dC: torch.Tensor,
+    gbuf: Optional[torch.Tensor],
+    dBpart: Optional[torch.Tensor],
+    dCpart: Optional[torch.Tensor],
+    dApart: Optional[torch.Tensor],
+    chunk: int,
+) -> None:
+    """Fills dx, ddt, dA, dB, dC: the plain version on the CPU; on the
+    card the backward kernels, with the forward's scratch and their own
+    (``gbuf`` and the head groups' shares)."""
+    if x.device.type == "cpu":
+        for dst, got in zip((dx, ddt, dA, dB, dC), ref.ssd_bwd_ref(
+                x, dt, A, B_, C_, chunk, dy, dstate)):
+            dst.copy_(got)
+        return
+    dev = x.device
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    with torch.cuda.device(dev):
+        err = BWD_LIBRARY.load().ssd_bwd_launch(
             x.data_ptr(), *x.stride()[:3], dt.data_ptr(), *dt.stride(),
             A.data_ptr(), B_.data_ptr(), *B_.stride()[:2], C_.data_ptr(),
-            *C_.stride()[:2], y.data_ptr(), state.data_ptr(),
-            states.data_ptr(), cum.data_ptr(), Bb, S, H, P, N, Q,
-            torch.cuda.current_stream(dev).cuda_stream)
-    LIBRARY.check(err, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
-    return y, state, states, cum
+            *C_.stride()[:2], dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), states.data_ptr(),
+            cum.data_ptr(), gbuf.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dBpart.data_ptr(),
+            dCpart.data_ptr(), dApart.data_ptr(), Bb, S, H, P, N,
+            min(chunk, S), torch.cuda.current_stream(dev).cuda_stream)
+    BWD_LIBRARY.check(err, "ssd_bwd")
+    LAUNCHES["ssd_bwd"] += 1
+
+
+def _bwd_op_work(
+    x,
+    dt,
+    A,
+    B_,
+    C_,
+    dy,
+    dstate,
+    states,
+    cum,
+    dx,
+    ddt,
+    dA,
+    dB,
+    dC,
+    gbuf,
+    dBpart,
+    dCpart,
+    dApart,
+    chunk,
+):
+    Bb, S, H, P = x.shape
+    return bwd_work(Bb, S, H, P, B_.shape[-1], min(chunk, S))
+
+
+_bwd_op = kernel_op(
+    "ssd_bwd(Tensor x, Tensor dt, Tensor A, Tensor B_, Tensor C_, Tensor dy, "
+    "Tensor? dstate, Tensor? states, Tensor? cum, Tensor(a!) dx, "
+    "Tensor(b!) ddt, Tensor(c!) dA, Tensor(d!) dB, Tensor(e!) dC, "
+    "Tensor(f!)? gbuf, Tensor(g!)? dBpart, Tensor(h!)? dCpart, "
+    "Tensor(i!)? dApart, int chunk) -> ()", _bwd_impl, _bwd_op_work)
 
 
 def ssd_bwd(x, dt, A, B_, C_, chunk: int, dy, dstate=None, states=None, cum=None):
@@ -190,8 +349,10 @@ def ssd_bwd(x, dt, A, B_, C_, chunk: int, dy, dstate=None, states=None, cum=None
     On the card ``states`` and ``cum`` are the forward's scratch from
     :func:`ssd_scan_saved` on the same inputs, and the kernels of
     ``csrc/ssd_bwd.cu`` run (one ``ssd_bwd`` launch); on the CPU the
-    plain version ``ref.ssd_bwd_ref`` runs.  All f32; gradients
-    contiguous.  Raises ``ValueError`` where P > 64 or N > 128."""
+    plain version ``ref.ssd_bwd_ref`` runs; on the meta device the same
+    tensors are allocated and nothing is computed.  All f32; gradients
+    contiguous.  Raises ``ValueError`` where P > 64 or N > 128, except on
+    the CPU."""
     dev = x.device
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
@@ -203,45 +364,34 @@ def ssd_bwd(x, dt, A, B_, C_, chunk: int, dy, dstate=None, states=None, cum=None
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-    if dev.type == "cpu":
-        return ref.ssd_bwd_ref(x, dt, A, B_, C_, chunk, dy, dstate)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    if P > BWD_MAX_P or N > BWD_MAX_N:
-        raise ValueError(f"the SSD backward takes P <= {BWD_MAX_P} and N <= "
-                         f"{BWD_MAX_N}, got P={P}, N={N}")
-    Q = min(chunk, S)
-    n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
-    if (states is None or cum is None
-            or tuple(states.shape) != (Bb, H, n_chunks, N, P)
-            or tuple(cum.shape) != (Bb, H, n_chunks, Qp, 2)):
-        raise ValueError("states and cum must be the forward's scratch "
-                         "(ssd_scan_saved) on the same inputs")
-    dy = dy.contiguous()
-    if dstate is not None:
-        dstate = dstate.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((Bb, S, H, P), **f32)
-    ddt = torch.empty((Bb, S, H), **f32)
-    dA = torch.empty((H,), **f32)
-    dB = torch.empty((Bb, S, N), **f32)
-    dC = torch.empty((Bb, S, N), **f32)
-    # scratch: the state gradients, the head groups' shares of dB and dC,
-    # the heads' of dA
-    gbuf = torch.empty_like(states)
-    dBpart = torch.empty((bwd_shares(H), Bb, S, N), **f32)
-    dCpart = torch.empty((bwd_shares(H), Bb, S, N), **f32)
-    dApart = torch.empty((Bb, H, n_chunks), **f32)
-    with torch.cuda.device(dev):
-        err = BWD_LIBRARY.load().ssd_bwd_launch(
-            x.data_ptr(), *x.stride()[:3], dt.data_ptr(), *dt.stride(),
-            A.data_ptr(), B_.data_ptr(), *B_.stride()[:2], C_.data_ptr(),
-            *C_.stride()[:2], dy.data_ptr(),
-            None if dstate is None else dstate.data_ptr(), states.data_ptr(),
-            cum.data_ptr(), gbuf.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dBpart.data_ptr(),
-            dCpart.data_ptr(), dApart.data_ptr(), Bb, S, H, P, N, Q,
-            torch.cuda.current_stream(dev).cuda_stream)
-    BWD_LIBRARY.check(err, "ssd_bwd")
-    LAUNCHES["ssd_bwd"] += 1
-    return dx, ddt, dA, dB, dC
+    scratch = (None,) * 4
+    if dev.type != "cpu":
+        if P > BWD_MAX_P or N > BWD_MAX_N:
+            raise ValueError(f"the SSD backward takes P <= {BWD_MAX_P} and "
+                             f"N <= {BWD_MAX_N}, got P={P}, N={N}")
+        Q = min(chunk, S)
+        n_chunks, Qp = -(-S // Q), -(-Q // 16) * 16
+        if (states is None or cum is None
+                or tuple(states.shape) != (Bb, H, n_chunks, N, P)
+                or tuple(cum.shape) != (Bb, H, n_chunks, Qp, 2)):
+            raise ValueError("states and cum must be the forward's scratch "
+                             "(ssd_scan_saved) on the same inputs")
+        dy = dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        # scratch: the state gradients, the head groups' shares of dB and
+        # dC, the heads' of dA
+        scratch = (torch.empty_like(states),
+                   torch.empty((bwd_shares(H), Bb, S, N), **f32),
+                   torch.empty((bwd_shares(H), Bb, S, N), **f32),
+                   torch.empty((Bb, H, n_chunks), **f32))
+    grads = (torch.empty((Bb, S, H, P), **f32), torch.empty((Bb, S, H), **f32),
+             torch.empty((H,), **f32), torch.empty((Bb, S, N), **f32),
+             torch.empty((Bb, S, N), **f32))
+    _bwd_op(*(None if t is None else t.detach()
+              for t in (x, dt, A, B_, C_, dy, dstate, states, cum)),
+            *grads, *scratch, int(chunk))
+    return grads

@@ -24,7 +24,7 @@ from torch import nn
 
 __all__ = [
     "DTYPES", "Leaf", "ParamTree", "init_params", "abstract_params",
-    "param_axes", "rms_norm", "layer_norm",
+    "param_axes", "spec_leaves", "rms_norm", "layer_norm",
     "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "norm_specs",
 ]
 
@@ -127,6 +127,20 @@ def param_axes(spec):
                              "of its dims")
         return tuple(leaf.axes)
     return _map_spec(spec, axes)
+
+
+def spec_leaves(spec, prefix=()):
+    """(dotted name, Leaf) of each leaf of ``spec``, named as
+    ``ParamTree.named_parameters`` names its parameter (e.g.
+    "blocks.3.attn.wq"), in declaration order."""
+    if isinstance(spec, Leaf):
+        yield ".".join(prefix), spec
+    elif isinstance(spec, dict):
+        for k, v in spec.items():
+            yield from spec_leaves(v, prefix + (k,))
+    else:
+        for i, v in enumerate(spec):
+            yield from spec_leaves(v, prefix + (str(i),))
 
 
 # ---------------------------------------------------------------------------

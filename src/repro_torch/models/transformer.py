@@ -36,7 +36,9 @@ The serving caches keep the JAX layouts, in the compute dtype —
 
 — ``Model.alloc_cache`` allocates one; prefill and decode write it in
 place (prefill's k/v go to positions [0, S)) and return it, under
-``torch.no_grad``.  The JAX package's sharding hook ``rules`` is dropped
+``torch.no_grad``.  ``Model.cache_spec`` gives the same tree on the meta
+device with each leaf's logical axes (JAX's ``cache_spec``), for the dry
+run.  The JAX package's sharding hook ``rules`` is dropped
 (one card).
 
 ``Model.loss(params, batch, remat=...)`` is each family's training loss,
@@ -247,6 +249,7 @@ class Model:
     alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
     encode: Callable | None = None  # encdec: (params, enc_embeds) -> h
     loss: Callable | None = None  # (params, batch, remat=) -> (loss, metrics)
+    cache_axes: Callable | None = None  # () -> the cache's axes tree
 
     def init(self, generator: torch.Generator, trainable: bool = False) -> ParamTree:
         """Random parameters on the generator's device, in the config's
@@ -263,6 +266,14 @@ class Model:
         """Each parameter's logical axis names, nested as the spec."""
         return param_axes(self.spec)
 
+    def cache_spec(self, batch_size: int, s_max: int):
+        """(the serving cache of ``alloc_cache(batch_size, s_max)`` as
+        meta-device tensors — its shapes and dtypes, nothing allocated —
+        and its axes tree, the same nesting with a tuple of logical names
+        a leaf), as the JAX package's ``cache_spec``."""
+        return (self.alloc_cache(batch_size, s_max, torch.device("meta")),
+                self.cache_axes())
+
 
 def _serving(fn):
     """A prefill, decode or encode that builds no autograd graph, whatever
@@ -277,9 +288,16 @@ def _serving(fn):
     return run
 
 
-def _model(cfg, spec, prefill, decode, alloc_cache, encode=None, loss=None):
+def _model(cfg, spec, prefill, decode, alloc_cache, cache_axes, encode=None, loss=None):
     return Model(cfg, spec, _serving(prefill), _serving(decode), alloc_cache,
-                 _serving(encode), loss)
+                 _serving(encode), loss, cache_axes)
+
+
+# a stacked k/v cache (L, B, S_max, KV, hd) and a recurrent state / conv
+# window (L, B, H, P, N) / (L, B, W-1, conv_dim): the JAX cache_spec axes
+_KV_AXES = ("layers", "batch", "cache_seq", "kv_heads", None)
+_SSM_AXES = ("layers", "batch", "heads", None, None)
+_CONV_AXES = ("layers", "batch", None, "heads")
 
 
 def build_model(cfg) -> Model:
@@ -360,6 +378,12 @@ def _build_decoder_lm(cfg):
         if n_moe:
             cache["moe"] = kv(n_moe)
         return cache
+
+    def cache_axes():
+        ax = (("layers", "batch", "cache_seq", None),) * 2 if cfg.mla \
+            else (_KV_AXES, _KV_AXES)
+        return {key: ax for key, n in (("dense", n_dense), ("moe", n_moe))
+                if n}
 
     def embed_input(params, batch):
         """Token embeddings, after the patch embeddings (vlm) when the
@@ -461,7 +485,8 @@ def _build_decoder_lm(cfg):
             metrics["mtp"] = mtp
         return total, metrics
 
-    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
+    return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes,
+                  loss=loss)
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +552,11 @@ def _build_ssm_lm(cfg):
         ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
         return ce, {"ce": ce, "ntok": ntok}
 
-    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
+    def cache_axes():
+        return {"ssm": _SSM_AXES, "conv": _CONV_AXES}
+
+    return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes,
+                  loss=loss)
 
 
 def _mamba_residual(lp, cfg, h):
@@ -573,6 +602,14 @@ def _build_hybrid_lm(cfg):
             cache["t_ssm"] = z(tail, B, H, P, N)
             cache["t_conv"] = z(tail, B, W1, Ch)
         return cache
+
+    def cache_axes():
+        axes = {"g_ssm": ("layers", None, "batch", "heads", None, None),
+                "g_conv": ("layers", None, "batch", None, "heads"),
+                "k": _KV_AXES, "v": _KV_AXES}
+        if tail:
+            axes.update(t_ssm=_SSM_AXES, t_conv=_CONV_AXES)
+        return axes
 
     def mamba_prefill(lp, h, ssm_out, conv_out):
         y, st = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
@@ -654,7 +691,8 @@ def _build_hybrid_lm(cfg):
         ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
         return ce, {"ce": ce, "ntok": ntok}
 
-    return _model(cfg, spec, prefill, decode, alloc_cache, loss=loss)
+    return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes,
+                  loss=loss)
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +745,10 @@ def _build_encdec(cfg):
         return {k: torch.zeros(shape, dtype=cdt, device=device)
                 for k, shape in (("k", kv), ("v", kv), ("ck", ckv),
                                  ("cv", ckv))}
+
+    def cache_axes():
+        cross = ("layers", "batch", None, "heads", None)
+        return {"k": _KV_AXES, "v": _KV_AXES, "ck": cross, "cv": cross}
 
     def encode(params, enc_embeds, remat="none"):
         """The encoder over frame embeddings (B, Se, d): the embeddings
@@ -800,4 +842,5 @@ def _build_encdec(cfg):
         ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
         return ce, {"ce": ce, "ntok": ntok}
 
-    return _model(cfg, spec, prefill, decode, alloc_cache, encode, loss)
+    return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes, encode,
+                  loss)

@@ -1439,3 +1439,53 @@ def test_cuda_reduced_train_step_matches_the_cpu(arch):
     assert abs(gc - gg) <= 1e-3 * abs(gc)
     for n in pc:
         torch.testing.assert_close(pg[n], pc[n], rtol=1e-4, atol=2e-6)
+
+
+def test_cuda_dry_run_plans_a_reduced_training_step():
+    """The dry run's plan of a REDUCED training cell on a one-device mesh
+    against the step on the card: the parameters' and AdamW state's
+    bytes exactly, the FLOPs as FlopCounterMode counts the real step, and
+    the peak within 10% of what the step allocates (the peak over a
+    second step, after cuBLAS's workspace exists, less what was live
+    before it, plus the state and batch it reads)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import plan_cell
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainState, make_train_step
+    dev = _card()
+
+    class One:
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 1}
+
+    cfg = get_config("qwen2.5-32b", reduced=True)
+    B, S = 8, 512
+    rec = plan_cell(cfg, Shape("t", S, B, "train"), One())
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0), trainable=True)
+    opt = AdamW()
+    state = TrainState(params, opt.init(params), None)
+    step = make_train_step(model, opt, remat="full")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S + 1), device=dev,
+                                     dtype=torch.int32)}
+    state_bytes = sum(t.nbytes for t in (*params.parameters(),
+                                         state.opt.step,
+                                         *state.opt.m.values(),
+                                         *state.opt.v.values()))
+    mem = rec["memory"]
+    assert mem["params_bytes"] + mem["opt_state_bytes"] == state_bytes
+    with FlopCounterMode(display=False) as fc:  # also cuBLAS's workspace
+        state, _ = step(state, batch)
+    assert rec["cost_global"]["flops"] == fc.get_total_flops()
+    # the peak of a step outside the counting mode, which holds tensors
+    # longer than the step does
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + state_bytes + \
+        batch["tokens"].nbytes
+    assert abs(mem["peak_est_bytes"] - peak) <= 0.1 * peak, (
+        mem["peak_est_bytes"], peak)
