@@ -191,6 +191,19 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    and 8 backward attention launches a step run, the driver's ms a step,
    its peak memory, then its step alone (ms, and one profiled step's
    device idle share);
+   (m) execution across ranks on a one-rank NCCL group and the (1, 1)
+   (data, model) mesh (one card holds one NCCL rank; several ranks run
+   on the CPU's gloo in the tests): (m1) qwen2.5-32b (4 layers) and (m2)
+   FULL Mamba2-2.7B steps through ``make_train_step(rules=make_rules(
+   mesh, "train"))`` with the parameters, moments and batch as
+   ``DTensor``s on the card, from (k)'s initial weights on (k)'s batch:
+   (k)'s launches a step, each step's loss and gradient norm within (k)'s
+   1e-3 of (k)'s same step, bitwise equality printed (the first aten op
+   whose output differs named where it fails), the ms a step beside
+   (k)'s; (m3) ``launch.train --mesh 1,1`` on (k)'s reduced run, its
+   steps, restarts, lost steps, losses and launches equal to (k)'s run
+   without the mesh; (m4) ``runtime.pp.gpipe`` with one stage on CUDA
+   tensors bitwise equal to the stage applied in turn;
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -295,6 +308,233 @@ def phase(name):
 
 def done(t0):
     print(f"   ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+M_STEPS = 3  # phase (m)'s sharded steps a model
+
+
+def first_difference(run_plain, run_sharded):
+    """The first aten operation whose output differs between two runs of
+    one computation — the plain one and the one on ``DTensor``s over a
+    one-rank mesh, whose local operations are the plain run's — as "name
+    (its k-th call)", or None.  Each run is a callable; every floating
+    output tensor of its own (a ``DTensor``'s local one; not a view, not
+    an uninitialised allocation) is summarised by its shape and f64 sum,
+    and the k-th calls of each operation are compared in the plain run's
+    order."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def local(t):  # a DTensor by its local tensor: the whole one on one rank
+        return t._local_tensor if isinstance(t, DTensor) else t
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {local(a).untyped_storage().data_ptr()
+                   for a in tree_leaves((args, kwargs))
+                   if isinstance(local(a), torch.Tensor)
+                   and not local(a).is_meta}
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                # outputs of their own: not views of an input, nor
+                # uninitialised allocations, nor the fake tensors of
+                # DTensor's sharding propagation
+                t = local(t)
+                if isinstance(t, torch.Tensor) and not isinstance(
+                        t, FakeTensor) and not t.is_meta \
+                        and t.is_floating_point() \
+                        and "empty" not in str(func) \
+                        and t.untyped_storage().data_ptr() not in ins:
+                    self.seen.append((str(func), tuple(t.shape),
+                                      float(t.detach().double().sum())))
+            return out
+
+    traces = []
+    for run in (run_plain, run_sharded):
+        with Record() as rec:
+            run()
+        by_op = {}
+        for name, shape, digest in rec.seen:
+            by_op.setdefault(name, []).append((shape, digest))
+        traces.append((rec.seen, by_op))
+    (plain_seen, plain_ops), (_, sharded_ops) = traces
+    count = {}
+    for name, shape, digest in plain_seen:
+        k = count[name] = count.get(name, -1) + 1
+        other = sharded_ops.get(name, [])
+        if k >= len(other) or other[k] != (shape, digest):
+            return f"{name} (its call {k})"
+    return None
+
+
+def execution_across_ranks(
+    dev,
+    train_steps,
+    train_ms,
+    k_launch,
+    step_limit,
+    train_batch,
+    reset,
+    read_counts,
+    expect,
+):
+    """Phase (m): the sharded path on a one-rank NCCL group; see the
+    module docstring.  ``train_steps``/``train_ms``/``k_launch``: phase
+    (k)'s losses and norms, ms a step and ``launch.train`` run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import TrainState, make_rules, make_train_step
+    from repro_torch.runtime.pp import gpipe
+    from repro_torch.runtime.train_step import shard_batch, shard_train_state
+
+    t0 = phase("(m) execution across ranks: a one-rank NCCL group, the (1, 1)"
+               " (data, model) mesh on the card")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh_shape((1, 1), ("data", "model"))
+        rules = make_rules(mesh, "train")
+        print(f"   backend {dist.get_backend()}, mesh {mesh}, device type "
+              f"{mesh.device_type}", flush=True)
+        if mesh.device_type != "cuda":
+            fail(f"the mesh over nccl has device type {mesh.device_type}")
+        done(t0)
+        for arch, n_layers, per_step in (
+                ("qwen2.5-32b", 4, {"flash_attention_wgmma": 8,
+                                    "flash_attention_bwd": 4}),
+                ("mamba2-2.7b", 0, {"ssd_scan": 128, "ssd_bwd": 64})):
+            cfg = get_config(arch)
+            if n_layers:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            t0 = phase(f"(m) execution across ranks: {arch} "
+                       f"({cfg.n_layers} layers, full width), bf16, "
+                       f"{M_STEPS} sharded AdamW steps from (k)'s weights "
+                       "on (k)'s batch, remat full")
+            model = build_model(cfg)
+            params = model.init(torch.Generator(dev).manual_seed(SEED),
+                                trainable=True)
+            opt = AdamW(lr=1e-4)  # (k)'s TRAIN_LR
+            state = shard_train_state(
+                TrainState(params=params, opt=opt.init(params), err=None),
+                model, rules)
+            del params
+            torch.cuda.empty_cache()
+            batch = shard_batch(train_batch(cfg), rules)
+            step = make_train_step(model, opt, rules=rules, remat="full")
+            losses, gnorms, step_ms = [], [], []
+            reset()
+            for _ in range(M_STEPS):
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - w0) * 1e3)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            counts = read_counts()
+            k_losses, k_gnorms = (x[:M_STEPS] for x in train_steps[arch])
+            gaps = [max(abs(a - b) / abs(b), abs(c - d) / abs(d))
+                    for a, b, c, d in zip(losses, k_losses, gnorms, k_gnorms)]
+            bitwise = losses == k_losses and gnorms == k_gnorms
+            ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+            k_ms = train_ms[arch][0]
+            print(f"   launches over {M_STEPS} steps {counts}; losses "
+                  f"{losses} ((k): {k_losses}); gradient norms {gnorms} ((k):"
+                  f" {k_gnorms}); largest relative gap {max(gaps):.3g} (limit"
+                  f" {step_limit:g}); bitwise equal to (k): {bitwise}",
+                  flush=True)
+            print(f"   ms a step {[round(x, 1) for x in step_ms]}, median of "
+                  f"steps 2-{M_STEPS} {ms:.1f} against (k)'s {k_ms:.1f}: "
+                  f"{ms - k_ms:+.1f} ms of DTensor's host work a step",
+                  flush=True)
+            if not bitwise:
+                # name the first operation whose output differs, on one
+                # forward of the loss from fresh weights of both kinds
+                params = model.init(torch.Generator(dev).manual_seed(SEED))
+                plain_batch = train_batch(cfg)
+                sh = shard_train_state(TrainState(params=model.init(
+                    torch.Generator(dev).manual_seed(SEED)), opt=None,
+                    err=None), model, rules).params
+                from repro_torch.runtime.sharding import replicating
+                with torch.no_grad():
+                    def sharded():
+                        with replicating(rules):
+                            model.loss(sh, batch, rules=rules, remat="none")
+                    where = first_difference(
+                        lambda: model.loss(params, plain_batch,
+                                           remat="none"), sharded)
+                print(f"   the first operation whose output differs: {where}",
+                      flush=True)
+                del params, sh
+            want = {k: n * M_STEPS for k, n in per_step.items()}
+            if not expect(counts, **want):
+                fail(f"(m) {arch}: the sharded steps launched {counts}, "
+                     f"expected {want}")
+            if not (max(gaps) <= step_limit and all(map(np.isfinite, losses))):
+                fail(f"(m) {arch}: the sharded steps' losses {losses} / norms "
+                     f"{gnorms} differ from (k)'s {k_losses} / {k_gnorms}")
+            del model, state, batch, step, m
+            torch.cuda.empty_cache()
+            done(t0)
+
+        t0 = phase("(m) execution across ranks: launch.train --mesh 1,1 on "
+                   "(k)'s reduced qwen2.5-32b run (30 steps, a failure at "
+                   "step 12, a checkpoint every 5)")
+        with tempfile.TemporaryDirectory() as ckdir:
+            reset()
+            summary = train_mod.main([
+                "--arch", "qwen2.5-32b", "--reduced", "--steps", "30",
+                "--batch", "2", "--seq", "64", "--fail-at", "12",
+                "--save-every", "5", "--ckpt-dir", ckdir, "--mesh", "1,1"])
+            torch.cuda.synchronize()
+            counts = read_counts()
+        k_summary, k_counts = k_launch
+        keys = ("steps", "restarts", "lost_steps", "first_loss", "last_loss")
+        same = all(summary[k] == k_summary[k] for k in keys)
+        print(f"   summary {summary}; (k)'s without the mesh {k_summary} "
+              f"(wall_s and straggler_slow_steps read the host clock); "
+              f"launches {counts}, (k)'s {k_counts}", flush=True)
+        if not same or counts != k_counts:
+            fail(f"(m) launch.train --mesh 1,1: {summary}, {counts}; without "
+                 f"the mesh {k_summary}, {k_counts}")
+        done(t0)
+
+        t0 = phase("(m) execution across ranks: gpipe with one stage on the "
+                   "card against the stage applied in turn")
+        stage_mesh = make_mesh_shape((1,), ("stage",))
+        g = torch.Generator(dev).manual_seed(SEED)
+        ws = torch.randn(1, 1024, 1024, generator=g, device=dev) * 0.03
+        xs = torch.randn(8, 16, 1024, generator=g, device=dev)
+
+        def stage(w, x):
+            return torch.tanh(x @ w)
+        got = gpipe(stage, ws, xs, mesh=stage_mesh, axis="stage")
+        want = torch.stack([stage(ws[0], xs[i]) for i in range(8)])
+        print(f"   S 1, M 8, microbatch 16 x 1024: bitwise equal "
+              f"{torch.equal(got, want)}; pipelines of several stages run "
+              "only on the CPU's gloo ranks (tests/test_torch_pp.py): one "
+              "card cannot hold two NCCL ranks", flush=True)
+        if not torch.equal(got, want):
+            fail("(m) gpipe with one stage differs from the stage applied "
+                 "in turn")
+        done(t0)
+    finally:
+        dist.destroy_process_group()
 
 
 # phase (l): the dry run's predicted peak against the measured one
@@ -3034,6 +3274,7 @@ def main():
     # its state's bytes, the step's own peak (the process's peak less what
     # was allocated before the cell's model was built) and FLOPs
     train_cfg, train_state_bytes, train_own_peak, train_flops = {}, {}, {}, {}
+    train_steps = {}
     TRAIN_STEPS, TRAIN_LR = 5, 1e-4
     STEP_LIMIT = 1e-3  # relative, for the first step's loss and norm
 
@@ -3068,7 +3309,7 @@ def main():
         state_t = TrainState(params=params_t, opt=opt_t.init(params_t),
                              err=None)
         step_t = make_train_step(model_t, opt_t, remat="full")
-        losses, step_ms = [], []
+        losses, step_ms, gnorms = [], [], []
         reset()
         for i in range(TRAIN_STEPS):
             torch.cuda.synchronize()
@@ -3077,8 +3318,8 @@ def main():
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - w0) * 1e3)
             losses.append(float(m["loss"]))
-            if i == 0:
-                gnorm_k = float(m["grad_norm"])
+            gnorms.append(float(m["grad_norm"]))
+        gnorm_k = gnorms[0]
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         train_own_peak[arch] = torch.cuda.max_memory_allocated() - base_t
@@ -3147,6 +3388,7 @@ def main():
               "was built)", flush=True)
         train_counts[arch] = counts
         train_ms[arch] = (sorted(step_ms[1:])[len(step_ms[1:]) // 2], peak)
+        train_steps[arch] = (losses, gnorms)  # what phase (m) is held to
         del model_t, params_t, state_t, step_t, opt_t, batch_t, m
         torch.cuda.empty_cache()
         done(t0)
@@ -3181,6 +3423,7 @@ def main():
                   flash_attention_bwd=n_l * ran):
         fail(f"launch.train launched {counts}, expected {n_l * ran} of each "
              "attention kernel")
+    k_launch = (summary, counts)  # what (m3) is held to
     done(t0)
 
     # the training milestone, examples/train_tiny_lm.py, through the port:
@@ -3288,6 +3531,9 @@ def main():
     del model_m, opt_m, step_m, state_m, batch_m
     torch.cuda.empty_cache()
     done(t0)
+
+    execution_across_ranks(dev, train_steps, train_ms, k_launch, STEP_LIMIT,
+                           train_batch, reset, read_counts, expect)
 
     # ------------------------------------------- the dry run against the card
     # (l) the ported dry run plans phase (k)'s two training cells on a

@@ -20,10 +20,20 @@ on it (520.6 ms a step against ~80 for the step itself, ``chip_smoke.py``);
 ``np.load`` reads either.  ``restore`` writes into the tensors of ``like`` in place, on
 their devices and in their dtypes, so a restart holds one copy of the
 state on the card.
+
+Across ranks (a manager made with ``mesh=``, every rank of the process
+group calling every method in the same order): a ``DTensor`` leaf is
+saved whole — every rank joins its gather, on the calling thread — and
+only the mesh's first rank writes (on the thread under ``async_``);
+``wait`` ends with a barrier, so every rank then sees the same newest
+checkpoint.  ``restore(like, step, shardings)`` is the elastic path of
+the JAX package's ``restore``: the full arrays go onto any mesh — each
+leaf of ``like`` keeps its own placements, or takes those ``shardings``
+gives it (a tree of ``runtime.sharding.Sharding``s nested as ``like``) —
+so a state saved on 2 × 2 ranks restores onto 4 × 1 or onto one process.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import pathlib
 import shutil
@@ -33,57 +43,51 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..dtensor import is_dtensor
+from ..runtime.sharding import (Sharding, full, local_chunk, map_state,
+                                shard_tensor, state_leaves)
+
 __all__ = ["CheckpointManager"]
 
 
-def _leaves(state, prefix=""):
-    """(key, tensor) pairs of a state, in a fixed order."""
-    if isinstance(state, torch.Tensor):
-        yield prefix, state
-    elif isinstance(state, torch.nn.Module):
-        for name, p in state.named_parameters():
-            yield f"{prefix}/{name}" if prefix else name, p
-    elif dataclasses.is_dataclass(state):
-        for f in dataclasses.fields(state):
-            yield from _leaves(getattr(state, f.name),
-                               f"{prefix}/{f.name}" if prefix else f.name)
-    elif isinstance(state, dict):
-        for k, v in state.items():
-            yield from _leaves(v, f"{prefix}/{k}" if prefix else str(k))
-    elif isinstance(state, (list, tuple)):
-        for i, v in enumerate(state):
-            yield from _leaves(v, f"{prefix}/{i}" if prefix else str(i))
-    elif state is not None:
-        raise TypeError(f"{prefix}: cannot checkpoint a {type(state)}")
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
+    t = full(t.detach())
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy().copy()
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | pathlib.Path, keep_n: int = 3):
+    def __init__(self, directory: str | pathlib.Path, keep_n: int = 3, mesh=None):
         self.dir = pathlib.Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_n = keep_n
+        self.mesh = mesh
+        # the mesh's first rank writes; without a mesh, this process
+        self.writer = True
+        if mesh is not None:
+            import torch.distributed as dist
+            self.writer = dist.get_rank() == int(mesh.mesh.flatten()[0])
+        if self.writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     # ---------------- save ----------------
 
     def save(self, step: int, state: Any, async_: bool = False):
-        """The host snapshot is taken now (correctness); the write and
-        the rename run on a thread when ``async_``."""
-        leaves = list(_leaves(state))
+        """The host snapshot is taken now (correctness; every rank joins
+        the gathers); the write and the rename run on a thread when
+        ``async_``, on the writing rank only."""
+        leaves = list(state_leaves(state))
         flat = {k: _host(t) for k, t in leaves}
         meta = {"step": int(step),
                 "manifest": {k: [list(t.shape), str(t.dtype)]
                              for k, t in leaves}}
         if async_:
             self.wait()
+        if not self.writer:
+            return
+        if async_:
             self._thread = threading.Thread(
                 target=self._write_logged, args=(step, flat, meta),
                 daemon=True)
@@ -111,13 +115,21 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
-        """Join an async save in flight; raise what it raised."""
+        """Join an async save in flight; raise what it raised.  With a
+        mesh, every rank then waits for every other (a barrier): the
+        newest checkpoint is on disk for all."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if self.mesh is not None:
+            import torch.distributed as dist
+            if self.mesh.device_type == "cuda":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -127,6 +139,8 @@ class CheckpointManager:
     # ---------------- restore ----------------
 
     def all_steps(self) -> list[int]:
+        if not self.dir.exists():
+            return []
         return sorted(int(p.name.split("_")[1]) for p in self.dir.glob(
             "step_*") if not p.name.endswith(".tmp"))
 
@@ -134,25 +148,45 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> tuple[Any, int]:
-        """Load checkpoint ``step`` (the latest when None) into the
-        tensors of ``like`` in place, each on its device in its dtype;
-        returns (like, step).  Raises ``FileNotFoundError`` when there is
-        no checkpoint, ``ValueError`` on a key or shape ``like`` lacks."""
+    def restore(
+        self, like: Any, step: Optional[int] = None, shardings: Any = None
+    ) -> tuple[Any, int]:
+        """Load checkpoint ``step`` (the latest when None) into ``like``;
+        returns (the state, step).  Each tensor of ``like`` is written in
+        place, on its device in its dtype — a ``DTensor`` its own shard —
+        unless ``shardings`` (nested as ``like``) gives its leaf another
+        mesh or placements: that leaf is then replaced by the full array
+        placed there (the elastic path).  Raises ``FileNotFoundError``
+        when there is no checkpoint, ``ValueError`` on a key or shape
+        ``like`` lacks."""
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = self.dir / f"step_{step:08d}"
+        table = {} if shardings is None else dict(
+            state_leaves(shardings, leaf_type=Sharding))
         with np.load(path / "arrays.npz") as data:
-            with torch.no_grad():
-                for key, t in _leaves(like):
-                    if key not in data.files:
-                        raise ValueError(f"checkpoint {step} has no {key}")
-                    arr = data[key]
-                    if tuple(arr.shape) != tuple(t.shape):
-                        raise ValueError(f"{key}: checkpoint shape "
-                                         f"{arr.shape}, state {tuple(t.shape)}")
-                    t.copy_(torch.from_numpy(arr).to(t.device, t.dtype))
-        return like, step
+            def load(key, t):
+                if key not in data.files:
+                    raise ValueError(f"checkpoint {step} has no {key}")
+                arr = torch.from_numpy(data[key])
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise ValueError(f"{key}: checkpoint shape "
+                                     f"{tuple(arr.shape)}, state "
+                                     f"{tuple(t.shape)}")
+                sh = table.get(key)
+                if sh is not None and sh.mesh is not None and not (
+                        is_dtensor(t) and t.device_mesh == sh.mesh
+                        and tuple(t.placements) == tuple(sh.placements)):
+                    return shard_tensor(arr, sh.mesh, sh.placements, t.dtype)
+                with torch.no_grad():
+                    if is_dtensor(t):
+                        t.to_local().copy_(local_chunk(
+                            arr, t.device_mesh, t.placements))
+                    else:
+                        t.copy_(arr.to(t.device, t.dtype))
+                return t
+            state = map_state(like, load)
+        return state, step

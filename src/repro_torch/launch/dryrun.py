@@ -43,7 +43,8 @@ not, the key is renamed or dropped:
     even split.
   - ``collectives``: a model of the collectives the ``Rules`` placements
     imply (:func:`collective_records`), not a count of collectives that
-    run — that comes when the models carry the ``rules`` hook.
+    run: the models carry the ``rules`` hook, but the plan traces the
+    unsharded step.
 """
 from __future__ import annotations
 

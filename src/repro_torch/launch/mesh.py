@@ -10,14 +10,19 @@ store=FakeStore(), ...)``), whose collectives do nothing: a dry run plans
 ``torch.testing._internal.distributed.fake_pg``, a module internal to
 torch (present in the 2.11 and 2.13 builds this port runs on).  The group
 is made once, at the first mesh's world size; a later mesh must fit in it.
-Where a real group is already initialized (several processes), the
-factories use it.
+Where a real group is already initialized (several processes, or one
+rank of ``launch/train.py --mesh``), the factories use it, and the mesh's
+device type follows the group's backend: ``nccl`` → ``cuda``, ``gloo``
+or ``fake`` → ``cpu``.  A mesh over the fake group plans and never
+executes: the train step and ``runtime.pp.gpipe`` refuse it
+(:func:`require_execution`), since every rank would compute alone.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ["make_production_mesh", "make_mesh_shape"]
+__all__ = ["make_production_mesh", "make_mesh_shape", "mesh_backend",
+           "require_execution"]
 
 
 def _ensure_world(n: int) -> None:
@@ -35,10 +40,29 @@ def _ensure_world(n: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
+def mesh_backend() -> str:
+    """The default process group's backend ("nccl", "gloo", "fake", ...)."""
+    import torch.distributed as dist
+    return str(dist.get_backend())
+
+
+def require_execution(mesh, what: str) -> None:
+    """Raise unless ``mesh``'s process group really communicates: the fake
+    backend's collectives do nothing, so a run on it would "pass" with
+    every rank computing alone."""
+    backend = mesh_backend()
+    if "fake" in backend:
+        raise RuntimeError(
+            f"{what} executes across ranks, and the mesh {mesh} lies on the "
+            f"{backend!r} process group, whose collectives do nothing: start "
+            "a real group (gloo on the CPU, nccl on the card) first")
+
+
 def make_mesh_shape(shape: tuple[int, ...], axes: tuple[str, ...]):
     """A ``DeviceMesh`` of ranks 0..n-1 laid out as ``shape`` with the axis
-    names ``axes`` (elastic re-scale paths, one-device plans).  A planning
-    mesh places no tensor, so its device type is the CPU's."""
+    names ``axes`` (elastic re-scale paths, one-device plans, execution
+    across ranks).  Its device type follows the group's backend: ``cuda``
+    over nccl, else ``cpu`` (a planning mesh places no tensor)."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
     shape = tuple(int(s) for s in shape)
@@ -47,7 +71,8 @@ def make_mesh_shape(shape: tuple[int, ...], axes: tuple[str, ...]):
                          "in length")
     n = math.prod(shape)
     _ensure_world(n)
-    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+    device_type = "cuda" if "nccl" in mesh_backend() else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=tuple(axes))
 
 

@@ -11,6 +11,14 @@ there too (q/k nope + rope wide, v ``v_head_dim`` wide), and so does
 cross-attention, in prefill and in decode alike (Sq queries against the
 encoder's Se keys, no mask).
 
+The training functions take the JAX package's sharding hook ``rules(x,
+axes)`` (the identity by default; see ``runtime.sharding.Rules``) at its
+sites: q, k, v and the context in ``attn_train`` and ``mla_train``.  The
+port also pins q, k and v in ``attn_encode`` and ``cross_attn``, where the
+JAX package lets GSPMD choose: on ``DTensor`` operands the kernel runs on
+each rank's shards (``models.local.attention_on_shards``), which takes
+them sharded over batch and heads only.
+
 Caches, per layer, written in place by decode:
   GQA   : k/v (B, S_max, KV, hd).
   MLA   : compressed c_kv (B, S_max, kv_lora) + k_rope (B, S_max, rope_hd);
@@ -25,9 +33,11 @@ import math
 
 import torch
 
+from ..dtensor import is_dtensor
 from ..kernels.flash_attention import flash_attention_op
 from ..kernels.flash_attention.ref import NEG
-from .layers import Leaf, apply_rope, rms_norm
+from .layers import ID_RULES, Leaf, apply_rope, rms_norm
+from .local import attention_on_shards, split_heads
 
 __all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode",
            "attn_encode", "cross_attn_specs", "cross_kv", "cross_attn",
@@ -40,9 +50,11 @@ def chunked_attention(
     """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, vh) with
     H = KH·g.  ``window`` None or ≤ 0 means no sliding window.  Returns
     (B, Sq, H, vh) in q's dtype; f32 softmax state regardless of input
-    dtype."""
-    return flash_attention_op(q, k, v, scale=scale, causal=causal,
-                              window=window, chunk=chunk)
+    dtype.  ``DTensor`` operands run on each rank's shards."""
+    kw = dict(scale=scale, causal=causal, window=window, chunk=chunk)
+    if is_dtensor(q):
+        return attention_on_shards(flash_attention_op, q, k, v, **kw)
+    return flash_attention_op(q, k, v, **kw)
 
 
 def attn_specs(cfg) -> dict:
@@ -59,18 +71,25 @@ def attn_specs(cfg) -> dict:
 
 
 def _qkv(p, cfg, x):
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    return (split_heads(q, H, hd), split_heads(k, KV, hd),
+            split_heads(v, KV, hd))
 
 
-def attn_train(p, cfg, x, positions, *, window=None, theta=None, chunk: int = 1024):
-    """Full-sequence attention (prefill). Returns (out, (k, v)) with k
-    after RoPE."""
+def _pin_qkv(rules, q, k, v, kv_axis="kv_heads"):
+    return (rules(q, ("batch", "seq", "heads", None)),
+            rules(k, ("batch", "seq", kv_axis, None)),
+            rules(v, ("batch", "seq", kv_axis, None)))
+
+
+def attn_train(
+    p, cfg, x, positions, *, window=None, theta=None, chunk: int = 1024, rules=ID_RULES
+):
+    """Full-sequence attention (training and prefill). Returns (out, (k,
+    v)) with k after RoPE."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     theta = cfg.rope_theta if theta is None else theta
@@ -78,16 +97,18 @@ def attn_train(p, cfg, x, positions, *, window=None, theta=None, chunk: int = 10
     if cfg.use_rope:
         q = apply_rope(q, positions, theta, cfg.mrope_sections)
         k = apply_rope(k, positions, theta, cfg.mrope_sections)
+    q, k, v = _pin_qkv(rules, q, k, v)
     ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(hd), causal=True,
                             window=window, chunk=chunk)
-    return ctx.reshape(B, S, H * hd) @ p["wo"], (k, v)
+    ctx = rules(ctx.reshape(B, S, H * hd), ("batch", "seq", "heads"))
+    return ctx @ p["wo"], (k, v)
 
 
-def attn_encode(p, cfg, x, chunk: int = 1024):
+def attn_encode(p, cfg, x, chunk: int = 1024, rules=ID_RULES):
     """whisper's encoder self-attention: bidirectional, no RoPE, nothing
     cached (``transformer.py:731-737`` of the JAX package)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _pin_qkv(rules, *_qkv(p, cfg, x))
     ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
                             causal=False, chunk=chunk)
     return ctx.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
@@ -151,20 +172,19 @@ def cross_attn_specs(cfg) -> dict:
 
 def cross_kv(p, cfg, enc_out):
     """The encoder output's keys and values, each (B, Se, H, hd)."""
-    B, Se, _ = enc_out.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    return ((enc_out @ p["wk"]).reshape(B, Se, H, hd),
-            (enc_out @ p["wv"]).reshape(B, Se, H, hd))
+    return (split_heads(enc_out @ p["wk"], H, hd),
+            split_heads(enc_out @ p["wv"], H, hd))
 
 
-def cross_attn(p, cfg, x, enc_kv, chunk: int = 1024):
+def cross_attn(p, cfg, x, enc_kv, chunk: int = 1024, rules=ID_RULES):
     """x: (B, Sq, d); enc_kv: (k, v) each (B, Se, H, hd), precomputed.
     Every query sees every encoder key (no mask), on K6 in prefill and in
     decode (Sq = 1)."""
     B, Sq, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    k, v = enc_kv
-    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+    q, k, v = _pin_qkv(rules, split_heads(x @ p["wq"], H, hd), *enc_kv,
+                       kv_axis="heads")
     ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(hd),
                             causal=False, chunk=chunk)
     return ctx.reshape(B, Sq, H * hd) @ p["wo"]
@@ -190,10 +210,9 @@ def mla_specs(cfg) -> dict:
 
 
 def _mla_q(p, cfg, x, positions):
-    B, S, _ = x.shape
     H, nh, rh = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
     ql = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps, False)
-    q = (ql @ p["wq_b"]).reshape(B, S, H, nh + rh)
+    q = split_heads(ql @ p["wq_b"], H, nh + rh)
     return q[..., :nh], apply_rope(q[..., nh:], positions, cfg.rope_theta)
 
 
@@ -205,21 +224,23 @@ def _mla_ckv(p, cfg, x, positions):
     return c_kv, k_rope[:, :, 0, :]
 
 
-def mla_train(p, cfg, x, positions, chunk: int = 1024):
+def mla_train(p, cfg, x, positions, chunk: int = 1024, rules=ID_RULES):
     """Naive-expansion MLA (prefill).  Returns (out, (c_kv, k_rope))."""
     B, S, _ = x.shape
     H, nh, rh, vh = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, nh)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, H, vh)
+    k_nope = split_heads(c_kv @ p["wk_b"], H, nh)
+    v = split_heads(c_kv @ p["wv_b"], H, vh)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rh)],
                   dim=-1)
+    q, k, v = _pin_qkv(rules, q, k, v, kv_axis="heads")
     ctx = chunked_attention(q, k, v, scale=1.0 / math.sqrt(nh + rh),
                             causal=True, chunk=chunk)
-    return ctx.reshape(B, S, H * vh) @ p["wo"], (c_kv, k_rope)
+    ctx = rules(ctx.reshape(B, S, H * vh), ("batch", "seq", "heads"))
+    return ctx @ p["wo"], (c_kv, k_rope)
 
 
 def mla_decode(p, cfg, x, pos, cache):

@@ -26,7 +26,14 @@ __all__ = [
     "DTYPES", "Leaf", "ParamTree", "init_params", "abstract_params",
     "param_axes", "spec_leaves", "rms_norm", "layer_norm",
     "rope_freqs", "apply_rope", "mlp_specs", "mlp_apply", "norm_specs",
+    "ID_RULES",
 ]
+
+def ID_RULES(x, axes):
+    """The sharding hook without a mesh: ``x`` as it is (the JAX
+    package's ``_ID``)."""
+    return x
+
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}

@@ -6,14 +6,20 @@ size P = ssm_head_dim, state size N = ssm_state, n_groups = 1 (B/C shared
 across heads).  The chunked scan is ``ssd_chunked``: on the card the CUDA
 kernel of ``kernels/ssd`` (K7's counterpart), on the CPU its plain
 version.  Decode keeps (ssm_state (B,H,P,N), conv_state).
+
+``mamba_train`` takes the JAX package's sharding hook ``rules`` at its one
+site (x's d_inner over the heads' axis); on ``DTensor`` operands the scan
+runs on each rank's shards (``models.local.ssd_on_shards``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dtensor import is_dtensor
 from ..kernels.ssd import ssd_op
-from .layers import Leaf, rms_norm
+from .layers import ID_RULES, Leaf, rms_norm
+from .local import split_heads, ssd_on_shards, zero_pad
 
 __all__ = ["conv_dim", "ssm_specs", "ssd_chunked", "mamba_train",
            "mamba_decode"]
@@ -44,7 +50,7 @@ def ssm_specs(cfg) -> dict:
 def _causal_conv(xbc, w, b):
     """Depthwise causal conv. xbc: (B, S, Ch); w: (W, Ch)."""
     W, S = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    pad = zero_pad(xbc, 1, before=W - 1)
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(W))
     return F.silu(out + b)
 
@@ -55,12 +61,17 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     x: (B,S,H,P) values; dt: (B,S,H) post-softplus; A: (H,) negative;
     B_, C_: (B,S,N).  Returns (y: (B,S,H,P), final_state: (B,H,N,P)), f32
     (no D skip / gate).  CUDA tensors go to the kernel (or raise), CPU
-    tensors to its plain version.
+    tensors to its plain version, a ``DTensor`` x to either on each
+    rank's shards.
     """
+    if is_dtensor(x):
+        return ssd_on_shards(ssd_op, x, dt, A, B_, C_, chunk)
     return ssd_op(x, dt, A, B_, C_, chunk)
 
 
-def mamba_train(p, cfg, x, chunk: int | None = None, return_state: bool = False):
+def mamba_train(
+    p, cfg, x, chunk: int | None = None, return_state: bool = False, rules=ID_RULES
+):
     """Full-sequence Mamba2 block. x: (B,S,d) -> (y, final_state).
 
     final_state (when requested) is a dict {"ssm": (B,H,P,N), "conv":
@@ -77,10 +88,11 @@ def mamba_train(p, cfg, x, chunk: int | None = None, return_state: bool = False)
     # one f32 copy; x, B and C are strided views of it, which the kernel
     # reads in place
     xs, B_, C_ = torch.split(xbc.float(), [di, N, N], dim=-1)
+    xs = rules(xs, ("batch", "seq", "heads"))
     dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
 
-    xh = xs.reshape(B, S, H, P)
+    xh = split_heads(xs, H, P)
     y, S_final = ssd_chunked(xh, dt, A, B_, C_, chunk)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(B, S, di).to(x.dtype)

@@ -38,17 +38,23 @@ The serving caches keep the JAX layouts, in the compute dtype —
 place (prefill's k/v go to positions [0, S)) and return it, under
 ``torch.no_grad``.  ``Model.cache_spec`` gives the same tree on the meta
 device with each leaf's logical axes (JAX's ``cache_spec``), for the dry
-run.  The JAX package's sharding hook ``rules`` is dropped
-(one card).
+run.  Prefill and decode do not take the JAX package's sharding hook yet.
 
-``Model.loss(params, batch, remat=...)`` is each family's training loss,
+``Model.loss(params, batch, rules=..., remat=...)`` is each family's
+training loss,
 as the JAX package's: the mean next-token cross-entropy from seq-chunked
 logits (``_ce_from_hidden``, each chunk under ``torch.utils.checkpoint``),
 plus 0.01 × the moe aux term and 0.3 × deepseek's multi-token-prediction
 loss.  ``remat`` ("full" | "dots" | "none", ``_maybe_remat``) checkpoints
 each layer as the JAX package's ``jax.checkpoint`` of its scan body does:
 "full" keeps nothing, "dots" keeps the 2-D matrix products' outputs, "none"
-keeps everything.  The loss never touches a serving cache.
+keeps everything.  The loss never touches a serving cache.  ``rules(x,
+axes)`` is the JAX package's sharding hook, called at its sites with its
+logical axes (the block's residual, the logits, the attention and Mamba2
+operands, the moe dispatch): the identity by default and on plain
+tensors; with ``DTensor`` parameters and batch (``runtime.sharding``) it
+redistributes the activations, and the attention and SSD kernels run on
+each rank's shards.
 """
 from __future__ import annotations
 
@@ -63,9 +69,11 @@ from torch.utils import checkpoint as _ckpt
 from .attention import (attn_decode, attn_encode, attn_specs, attn_train,
                         cross_attn, cross_attn_specs, cross_kv, mla_decode,
                         mla_specs, mla_train)
-from .layers import (DTYPES, Leaf, ParamTree, abstract_params, init_params,
+from .layers import (DTYPES, ID_RULES, Leaf, ParamTree, abstract_params,
+                     init_params,
                      layer_norm, mlp_apply, mlp_specs, norm_specs,
                      param_axes, rms_norm)
+from .local import take_last, zero_pad
 from .moe import moe_apply, moe_specs
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
@@ -102,9 +110,9 @@ def _embed(params, cfg, tokens):
     return h
 
 
-def _logits(params, cfg, h):
+def _logits(params, cfg, h, rules=ID_RULES):
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (h @ head).float()
+    return rules((h @ head).float(), ("batch", "seq_sp", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -148,12 +156,11 @@ def _xent(logits, labels):
     """Mean token cross-entropy in f32 and the token count; labels
     (B, S)."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    nll = lse - take_last(logits, labels.long())
     return nll.mean(), nll.numel()
 
 
-def _ce_from_hidden(params, cfg, h, labels):
+def _ce_from_hidden(params, cfg, h, labels, rules=ID_RULES):
     """Cross-entropy from the final hidden states h (B, S, d) with
     seq-chunked logits (``transformer.py:220-251`` of the JAX package): S
     is padded to a multiple of ``cfg.xent_chunk``, each chunk's logits
@@ -163,18 +170,18 @@ def _ce_from_hidden(params, cfg, h, labels):
     B, S, _ = h.shape
     chunk = cfg.xent_chunk
     if chunk <= 0 or S <= chunk:
-        return _xent(_logits(params, cfg, h), labels)
+        return _xent(_logits(params, cfg, h, rules), labels)
     pad = (-S) % chunk
     labels = labels.long()
     if pad:
-        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad))
+        h = zero_pad(h, 1, after=pad)
+        labels = zero_pad(labels, 1, after=pad)
     valid = torch.arange(S + pad, device=h.device) < S
 
     def body(hs, ls, vs):
-        logits = _logits(params, cfg, hs)
+        logits = _logits(params, cfg, hs, rules)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ls[..., None])[..., 0]
+        gold = take_last(logits, ls)
         return torch.where(vs[None, :], lse - gold, 0.0).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -197,25 +204,26 @@ def _dense_block_specs(cfg, moe: bool = False) -> dict:
     return spec
 
 
-def _ffn(p, cfg, x, moe: bool):
+def _ffn(p, cfg, x, moe: bool, rules=ID_RULES):
     """The block's MLP or MoE and its aux loss (an f32 0 for an MLP)."""
     if moe:
-        return moe_apply(p["moe"], cfg, x)
+        return moe_apply(p["moe"], cfg, x, rules)
     return (mlp_apply(p["mlp"], x, cfg.activation),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _dense_block_train(p, cfg, h, positions, window, theta, moe=False):
+def _dense_block_train(p, cfg, h, positions, window, theta, moe=False, rules=ID_RULES):
     """Full-sequence block: (h, the layer's k/v, the moe aux term)."""
     x = _norm(p["ln1"], cfg, h)
     if cfg.mla:
-        a, kv = mla_train(p["attn"], cfg, x, positions, chunk=cfg.attn_chunk)
+        a, kv = mla_train(p["attn"], cfg, x, positions, chunk=cfg.attn_chunk,
+                          rules=rules)
     else:
         a, kv = attn_train(p["attn"], cfg, x, positions, window=window,
-                           theta=theta, chunk=cfg.attn_chunk)
+                           theta=theta, chunk=cfg.attn_chunk, rules=rules)
     h = h + a
-    f, aux = _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe)
-    return h + f, kv, aux
+    f, aux = _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe, rules)
+    return rules(h + f, ("batch", "seq_sp", None)), kv, aux
 
 
 def _dense_block_decode(
@@ -248,7 +256,7 @@ class Model:
     decode: Callable  # (params, batch) -> (logits, cache)
     alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
     encode: Callable | None = None  # encdec: (params, enc_embeds) -> h
-    loss: Callable | None = None  # (params, batch, remat=) -> (loss, metrics)
+    loss: Callable | None = None  # (params, batch, rules=, remat=) -> (loss, metrics)
     cache_axes: Callable | None = None  # () -> the cache's axes tree
 
     def init(self, generator: torch.Generator, trainable: bool = False) -> ParamTree:
@@ -436,7 +444,7 @@ def _build_decoder_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    def run_stack(params, h, positions, remat):
+    def run_stack(params, h, positions, remat, rules):
         """Every block, each under ``remat``; the final norm's output and
         the stacks' summed aux terms (each stack's layers summed first, as
         the JAX scans' outputs are)."""
@@ -446,14 +454,14 @@ def _build_decoder_lm(cfg):
             for i, lp in enumerate(params[name]):
                 def block(h, lp=lp, w=wins[i], th=ths[i], moe=moe):
                     h, _, aux = _dense_block_train(lp, cfg, h, positions, w,
-                                                   th, moe)
+                                                   th, moe, rules)
                     return h, aux
                 h, aux = _maybe_remat(block, remat)(h)
                 auxes.append(aux)
             aux_total = aux_total + torch.stack(auxes).sum()
         return _norm(params["final_norm"], cfg, h), aux_total
 
-    def mtp_loss(params, h, tokens):
+    def mtp_loss(params, h, tokens, rules):
         """deepseek's one-depth multi-token prediction: h at position i
         with the embedding of token i+1 predicts token i+2."""
         cdt = DTYPES[cfg.compute_dtype]
@@ -464,23 +472,24 @@ def _build_decoder_lm(cfg):
         hm = torch.cat([hh, ee], dim=-1) @ mp["proj"]
         B, S, _ = hm.shape
         positions = torch.arange(S, device=hm.device)[None].expand(B, S)
-        hm = _dense_block_train(mp["block"], cfg, hm, positions, None, None)[0]
-        return _ce_from_hidden(params, cfg, hm, tokens[:, 2:])[0]
+        hm = _dense_block_train(mp["block"], cfg, hm, positions, None, None,
+                                rules=rules)[0]
+        return _ce_from_hidden(params, cfg, hm, tokens[:, 2:], rules)[0]
 
-    def loss(params, batch, remat="full"):
+    def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch["tokens"] (B, S + 1): inputs [:, :-1], labels [:, 1:];
         for vlm also "patch_embeds" and (3, B, n_vision + S) "positions".
         Returns (ce + 0.01 aux [+ 0.3 mtp], metrics)."""
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
         h, positions = embed_input(params, {**batch, "tokens": tokens[:, :-1]})
-        h, aux = run_stack(params, h, positions, remat)
+        h, aux = run_stack(params, h, positions, remat, rules)
         n_vis = h.shape[1] - labels.shape[1]
-        ce, ntok = _ce_from_hidden(params, cfg, h[:, n_vis:], labels)
+        ce, ntok = _ce_from_hidden(params, cfg, h[:, n_vis:], labels, rules)
         total = ce + 0.01 * aux
         metrics = {"ce": ce, "aux": aux, "ntok": ntok}
         if cfg.mtp:
-            mtp = mtp_loss(params, h[:, n_vis:], tokens)
+            mtp = mtp_loss(params, h[:, n_vis:], tokens, rules)
             total = total + 0.3 * mtp
             metrics["mtp"] = mtp
         return total, metrics
@@ -541,15 +550,15 @@ def _build_ssm_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    def loss(params, batch, remat="full"):
+    def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch["tokens"] (B, S + 1).  Returns (ce, metrics)."""
         tokens = batch["tokens"]
         h = params["embed"][tokens[:, :-1]].to(DTYPES[cfg.compute_dtype])
         for lp in params["blocks"]:
-            h = _maybe_remat(lambda h, lp=lp: _mamba_residual(lp, cfg, h),
-                             remat)(h)
+            h = _maybe_remat(
+                lambda h, lp=lp: _mamba_residual(lp, cfg, h, rules), remat)(h)
         h = _norm(params["final_norm"], cfg, h)
-        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:], rules)
         return ce, {"ce": ce, "ntok": ntok}
 
     def cache_axes():
@@ -559,9 +568,11 @@ def _build_ssm_lm(cfg):
                   loss=loss)
 
 
-def _mamba_residual(lp, cfg, h):
+def _mamba_residual(lp, cfg, h, rules=ID_RULES):
     """h + one Mamba2 block of the training path (no state kept)."""
-    return h + mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h))[0]
+    y = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
+                    rules=rules)[0]
+    return rules(h + y, ("batch", "seq_sp", None))
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +678,7 @@ def _build_hybrid_lm(cfg):
         h = _norm(params["final_norm"], cfg, h)
         return _logits(params, cfg, h)[:, 0], cache
 
-    def loss(params, batch, remat="full"):
+    def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch["tokens"] (B, S + 1).  Each Mamba2 block under ``remat``;
         the shared attention block, applied once a group, is not (as in
         the JAX package) and gathers its gradient from every group.
@@ -678,17 +689,17 @@ def _build_hybrid_lm(cfg):
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
 
         def mamba(lp, h):
-            return _maybe_remat(lambda h: _mamba_residual(lp, cfg, h),
+            return _maybe_remat(lambda h: _mamba_residual(lp, cfg, h, rules),
                                 remat)(h)
         for g in range(n_groups):
             for lp in params["groups"][g]["mamba"]:
                 h = mamba(lp, h)
             h = _dense_block_train(params["shared_attn"], cfg, h, positions,
-                                   None, None)[0]
+                                   None, None, rules=rules)[0]
         for t in range(tail):
             h = mamba(params["tail"][t], h)
         h = _norm(params["final_norm"], cfg, h)
-        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:], rules)
         return ce, {"ce": ce, "ntok": ntok}
 
     return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes,
@@ -750,7 +761,7 @@ def _build_encdec(cfg):
         cross = ("layers", "batch", None, "heads", None)
         return {"k": _KV_AXES, "v": _KV_AXES, "ck": cross, "cv": cross}
 
-    def encode(params, enc_embeds, remat="none"):
+    def encode(params, enc_embeds, remat="none", rules=ID_RULES):
         """The encoder over frame embeddings (B, Se, d): the embeddings
         plus the sinusoid, both in the compute dtype, then bidirectional
         blocks, each under ``remat``; returns the final LayerNorm's
@@ -760,8 +771,9 @@ def _build_encdec(cfg):
 
         def block(lp, h):
             h = h + attn_encode(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
-                                chunk=cfg.attn_chunk)
-            return h + mlp_apply(lp["mlp"], _ln(lp["ln2"], cfg, h), "gelu")
+                                chunk=cfg.attn_chunk, rules=rules)
+            h = h + mlp_apply(lp["mlp"], _ln(lp["ln2"], cfg, h), "gelu")
+            return rules(h, ("batch", "seq_sp", None))
         for lp in params["enc"]:
             h = _maybe_remat(lambda h, lp=lp: block(lp, h), remat)(h)
         return _ln(params["enc_final_ln"], cfg, h)
@@ -817,12 +829,12 @@ def _build_encdec(cfg):
             h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
         return logits(params, h[:, 0]), cache
 
-    def loss(params, batch, remat="full"):
+    def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch: "tokens" (B, S + 1), "enc_embeds" (B, enc_len, d).  The
         encoder runs inside the loss; each encoder and decoder block under
         ``remat``.  Returns (ce, metrics)."""
         tokens = batch["tokens"]
-        enc_out = encode(params, batch["enc_embeds"], remat)
+        enc_out = encode(params, batch["enc_embeds"], remat, rules)
         inp = tokens[:, :-1]
         B, S = inp.shape
         h = (params["embed"][inp] + params["pos_embed"][:S]).to(cdt)
@@ -830,16 +842,17 @@ def _build_encdec(cfg):
 
         def block(lp, h):
             a, _ = attn_train(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
-                              positions, chunk=cfg.attn_chunk)
+                              positions, chunk=cfg.attn_chunk, rules=rules)
             h = h + a
             h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
                                cross_kv(lp["xattn"], cfg, enc_out),
-                               chunk=cfg.attn_chunk)
-            return h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+                               chunk=cfg.attn_chunk, rules=rules)
+            h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+            return rules(h, ("batch", "seq_sp", None))
         for lp in params["dec"]:
             h = _maybe_remat(lambda h, lp=lp: block(lp, h), remat)(h)
         h = _ln(params["dec_final_ln"], cfg, h)
-        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:])
+        ce, ntok = _ce_from_hidden(params, cfg, h, tokens[:, 1:], rules)
         return ce, {"ce": ce, "ntok": ntok}
 
     return _model(cfg, spec, prefill, decode, alloc_cache, cache_axes, encode,

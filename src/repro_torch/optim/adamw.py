@@ -7,6 +7,13 @@ parameter is computed in f32 and cast to the parameter's dtype.  A tree is
 a {name: tensor} mapping in ``named_parameters`` order.  The update writes
 the parameters and the moments in place (one copy of the state on the
 card), under ``torch.no_grad``.
+
+On ``DTensor`` gradients (a sharded step) each leaf's sum of squares is
+summed over its shards before the square root and the clip: the norm is
+the norm of the full tensors, the same on every rank.  The leaves whose
+sums share a mesh and placements are reduced together, one collective for
+each such group (``full_tensor`` of the stacked ``Partial`` scalars), not
+one a leaf.  The moment updates stay elementwise on the shards.
 """
 from __future__ import annotations
 
@@ -14,6 +21,9 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..dtensor import is_dtensor
 
 __all__ = ["AdamW", "OptState"]
 
@@ -23,6 +33,24 @@ class OptState:
     step: torch.Tensor  # () int32
     m: dict  # {name: f32 tensor}
     v: dict
+
+
+def _full_scalars(xs: list) -> list:
+    """Scalars, some of them ``DTensor``s partial over mesh dims, as their
+    full values: one reduction for each (mesh, placements) among them."""
+    groups = {}
+    for i, x in enumerate(xs):
+        if is_dtensor(x):
+            groups.setdefault((x.device_mesh, tuple(x.placements)),
+                              []).append(i)
+    out = list(xs)
+    for (mesh, placements), idx in groups.items():
+        stacked = torch.stack([xs[i].to_local() for i in idx])
+        whole = DTensor.from_local(stacked, mesh, placements,
+                                   run_check=False).full_tensor()
+        for j, i in enumerate(idx):
+            out[i] = whole[j]
+    return out
 
 
 def _named(params) -> dict:
@@ -62,6 +90,7 @@ class AdamW:
         with torch.no_grad():
             step = state.step + 1
             sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+            sq = _full_scalars(sq)
             if self.grad_clip is not None:
                 gnorm = torch.sqrt(torch.stack(sq).sum())
                 scale = torch.clamp(

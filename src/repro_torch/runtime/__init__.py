@@ -1,5 +1,6 @@
-"""Runtime of the port: serving, training, sharding rules, and fault
-injection and detection."""
+"""Runtime of the port: serving, training (on one device or across the
+ranks of a mesh), sharding rules, the pipeline (``runtime.pp``), and
+fault injection and detection."""
 from .fault import (FAULT_RATE_ENV, FAULT_SEED_ENV, CrashRateTracker,
                     FailureInjector, InjectedFault, StragglerTracker,
                     TrainSupervisor, fault_rate_from_env, planned_fault)

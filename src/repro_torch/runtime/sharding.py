@@ -24,8 +24,22 @@ Presets:
   long          : batch = 1 ⇒ cache/state sharded over everything available
   fsdp          : no TP; params over both mesh axes (ZeRO-3)
 
-The models do not call ``Rules`` on their activations yet (one card); the
-dry run uses it to know where each parameter, cache and batch leaf lives.
+The models' training losses call ``rules(x, axes)`` at the JAX package's
+sites (``Model.loss(params, batch, rules=...)``): on ``DTensor``
+activations it redistributes to the rule's placements, on plain tensors
+and without a mesh it is the identity.  The dry run uses the same rules
+to know where each parameter, cache and batch leaf lives.
+
+Placing a tree on a mesh, the counterpart of ``jax.device_put(tree,
+rules.tree_shardings(...))``: every rank builds the same full tensors (from
+one seed, or read from a checkpoint), and :func:`shard_tensor` keeps this
+rank's slice as a ``DTensor`` (``DTensor.from_local``, no communication).
+:func:`place` does that for each leaf of a state — a ``ParamTree``, the
+dataclasses of a train state, dicts, lists — from a tree of ``Sharding``s
+nested alike; :func:`state_leaves` and :func:`map_state` walk such trees
+with the checkpoint's "/"-joined keys.  A program that mixes plain tensors
+(``torch.arange`` positions, masks) into ``DTensor`` arithmetic runs under
+:func:`replicating`, which takes them as replicated.
 """
 from __future__ import annotations
 
@@ -33,7 +47,11 @@ import dataclasses
 import math
 from typing import Any, NamedTuple, Optional
 
-__all__ = ["Rules", "Sharding", "make_rules", "PRESETS", "mesh_axes"]
+from ..dtensor import is_dtensor
+
+__all__ = ["Rules", "Sharding", "make_rules", "PRESETS", "mesh_axes",
+           "shard_tensor", "local_chunk", "place", "state_leaves",
+           "map_state", "replicating", "full"]
 
 # logical name -> tuple of mesh axes (in priority order)
 PRESETS: dict[str, dict[str, tuple[str, ...]]] = {
@@ -227,3 +245,158 @@ def make_rules(
         table.update({k: tuple(v) for k, v in overrides.items()})
     return Rules(mesh=mesh, table=table)
 
+
+
+# ---------------------------------------------------------------------------
+# placing full tensors on a mesh
+# ---------------------------------------------------------------------------
+
+def full(x):
+    """The whole tensor: a ``DTensor``'s ``full_tensor()`` (a collective
+    every rank of its mesh joins), a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def replicating(rules: Optional[Rules]):
+    """A context in which plain tensors meet ``DTensor``s as replicated
+    ones (``implicit_replication``) when ``rules`` has a mesh; a null
+    context otherwise."""
+    import contextlib
+    if rules is None or getattr(rules, "mesh", None) is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def local_chunk(t, mesh, placements):
+    """This rank's slice of the full tensor ``t`` under ``placements``:
+    each mesh dim that shards a tensor dim cuts it into equal chunks, in
+    the mesh's dim order (the layout ``distribute_tensor`` makes)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            if t.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does not "
+                                 f"split into {n} equal shards")
+            t = torch.chunk(t, n, dim=pl.dim)[coord[i]]
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"cannot place a full tensor as {pl}")
+    return t
+
+
+def _mesh_device(mesh):
+    import torch
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def shard_tensor(t, mesh, placements, dtype=None):
+    """The full tensor ``t`` (the same on every rank) as a ``DTensor`` on
+    ``mesh``: this rank keeps its own slice, on the mesh's device, in
+    ``dtype`` (default ``t``'s).  No communication.  A slice is a copy (the
+    full tensor can go); a whole tensor already on that device in that
+    dtype is kept as it is, its storage shared."""
+    from torch.distributed.tensor import DTensor
+    t = t.detach()
+    local = local_chunk(t, mesh, tuple(placements))
+    if local.shape != t.shape:
+        local = local.clone()
+    local = local.to(_mesh_device(mesh), dtype or t.dtype)
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False, shape=t.shape,
+                              stride=t.contiguous().stride())
+
+
+def _key(prefix: str, k) -> str:
+    return f"{prefix}/{k}" if prefix else str(k)
+
+
+def state_leaves(state, prefix: str = "", leaf_type=None):
+    """(key, leaf) pairs of a state, in a fixed order: tensors (or, with
+    ``leaf_type``, objects of that type) in dataclasses, ``nn.Module``
+    parameter trees (named as ``named_parameters``), dicts, lists and
+    tuples, keyed "params/blocks.0.attn.wq", "opt/m/embed", "opt/step"."""
+    import dataclasses
+
+    import torch
+    if leaf_type is not None and isinstance(state, leaf_type):
+        yield prefix, state
+    elif isinstance(state, torch.Tensor):
+        yield prefix, state
+    elif isinstance(state, torch.nn.Module):
+        for name, p in state.named_parameters():
+            yield _key(prefix, name), p
+    elif dataclasses.is_dataclass(state):
+        for f in dataclasses.fields(state):
+            yield from state_leaves(getattr(state, f.name),
+                                    _key(prefix, f.name), leaf_type)
+    elif isinstance(state, dict):
+        for k, v in state.items():
+            yield from state_leaves(v, _key(prefix, k), leaf_type)
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            yield from state_leaves(v, _key(prefix, i), leaf_type)
+    elif state is not None:
+        raise TypeError(f"{prefix}: a state holds no {type(state)}")
+
+
+def map_state(state, fn, prefix: str = ""):
+    """``state`` with each tensor ``t`` at key ``k`` replaced by ``fn(k,
+    t)``: an ``nn.Module``'s parameters are replaced in place (an
+    ``nn.Parameter`` of the new value that requires a gradient as the old
+    did); a dataclass, dict, list or tuple is rebuilt where one of its
+    leaves changed, and is the same object where none did."""
+    import dataclasses
+
+    import torch
+    if isinstance(state, torch.nn.Module):
+        for name, p in list(state.named_parameters()):
+            new = fn(_key(prefix, name), p)
+            if new is p:
+                continue
+            *path, last = name.split(".")
+            mod = state
+            for part in path:
+                mod = getattr(mod, part) if not part.isdigit() else mod[int(part)]
+            setattr(mod, last, torch.nn.Parameter(
+                new.detach(), requires_grad=p.requires_grad))
+        return state
+    if isinstance(state, torch.Tensor):
+        return fn(prefix, state)
+    if state is None:
+        return None
+    if dataclasses.is_dataclass(state):
+        old = {f.name: getattr(state, f.name)
+               for f in dataclasses.fields(state)}
+        new = {k: map_state(v, fn, _key(prefix, k)) for k, v in old.items()}
+        same = all(new[k] is old[k] for k in old)
+        return state if same else dataclasses.replace(state, **new)
+    if isinstance(state, dict):
+        new = {k: map_state(v, fn, _key(prefix, k)) for k, v in state.items()}
+        return state if all(new[k] is state[k] for k in state) else new
+    if isinstance(state, (list, tuple)):
+        new = [map_state(v, fn, _key(prefix, i)) for i, v in enumerate(state)]
+        same = all(a is b for a, b in zip(new, state))
+        return state if same else type(state)(new)
+    raise TypeError(f"{prefix}: a state holds no {type(state)}")
+
+
+def place(state, shardings):
+    """``state`` with every leaf on its ``Sharding``'s mesh and
+    placements: ``shardings`` nests as ``state`` does, a parameter tree's
+    place taken by a {parameter name: Sharding} dict (the keys of
+    :func:`state_leaves` agree); a ``Sharding`` without a mesh, or a
+    missing one, leaves its leaf as it is.  A ``DTensor`` leaf is gathered whole first
+    (every rank of its mesh joins), so a state moves between meshes."""
+    table = dict(state_leaves(shardings, leaf_type=Sharding))
+
+    def put(key, t):
+        sh = table.get(key)
+        if sh is None or sh.mesh is None:
+            return t
+        return shard_tensor(full(t), sh.mesh, sh.placements)
+    return map_state(state, put)

@@ -118,8 +118,3 @@ def test_launch_train_restarts_once_as_the_jax_driver_does(tmp_path, capsys):
     assert np.isfinite(ours["first_loss"]) and np.isfinite(ours["last_loss"])
     assert ours["last_loss"] < ours["first_loss"]
 
-
-def test_launch_train_refuses_a_mesh(tmp_path):
-    with pytest.raises(ValueError, match="sharding"):
-        train.main(ARGS + ["--device", "cpu", "--mesh", "1,1",
-                           "--ckpt-dir", str(tmp_path)])
