@@ -204,6 +204,20 @@ Run from the root of a checkout (it imports ``repro_torch`` from
    steps, restarts, lost steps, losses and launches equal to (k)'s run
    without the mesh; (m4) ``runtime.pp.gpipe`` with one stage on CUDA
    tensors bitwise equal to the stage applied in turn;
+   (n) serving across ranks on (m)'s group and mesh, before (m) ends it:
+   ``greedy_generate(rules=make_rules(mesh, preset))`` with the
+   parameters placed as ``DTensor``s by the rules, the cache by the rules
+   from ``model.cache_spec``, against the same run unsharded in the
+   phase: (n1) FULL whisper-medium under ``decode`` on (j)'s weights and
+   inputs (batch 4, 1500 frames, prompt 416, 8 tokens, s_max 424), (n2)
+   FULL Mamba2-2.7B under ``long`` at batch 1 (prompt 2048, 4 tokens,
+   s_max 2052); each run's tokens and every step's logits bitwise equal
+   to the unsharded run's (the first aten op whose output differs named
+   where they are not), its K6 launches (72 a prefill, 24 a decode token)
+   and K7 launches (64 a prefill) equal to the unsharded run's, and the
+   prefill ms and ms a decode token beside the unsharded ones (the
+   sharded run twice: its first prefill and decode pay DTensor's sharding
+   propagation);
 7. kernel and plain-version times at the main paths' shapes: each
    kernel's device time per launch from a ``torch.profiler`` trace of
    many launches of its C entry point, summed over the kernels one call
@@ -311,6 +325,9 @@ def done(t0):
 
 
 M_STEPS = 3  # phase (m)'s sharded steps a model
+# phase (n): (arch, preset, batch rows, prompt, generated tokens)
+N_RUNS = (("whisper-medium", "decode", SERVE_B, WHISPER_S, 8),
+          ("mamba2-2.7b", "long", 1, SERVE_S, 4))
 
 
 def first_difference(run_plain, run_sharded):
@@ -384,10 +401,12 @@ def execution_across_ranks(
     reset,
     read_counts,
     expect,
+    serve=None,
 ):
     """Phase (m): the sharded path on a one-rank NCCL group; see the
     module docstring.  ``train_steps``/``train_ms``/``k_launch``: phase
-    (k)'s losses and norms, ms a step and ``launch.train`` run."""
+    (k)'s losses and norms, ms a step and ``launch.train`` run.
+    ``serve(mesh)``, when given, runs last on the group (phase (n))."""
     import tempfile
 
     import numpy as np
@@ -533,8 +552,118 @@ def execution_across_ranks(
             fail("(m) gpipe with one stage differs from the stage applied "
                  "in turn")
         done(t0)
+        if serve is not None:
+            serve(mesh)
     finally:
         dist.destroy_process_group()
+
+
+def _timed_calls(model, calls, reset, read_counts):
+    """``model`` whose prefill and decode each keep (the whole logits,
+    the call's ms on the host clock between synchronisations, its
+    launches) in ``calls``."""
+    import torch
+    from repro_torch.runtime.sharding import full
+
+    def timed(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            reset()
+            w0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - w0) * 1e3
+            calls.append((full(out[0]).clone(), ms, read_counts()))
+            return out
+        return run
+    return dataclasses.replace(model, prefill=timed(model.prefill),
+                               decode=timed(model.decode))
+
+
+def serving_across_ranks(mesh, dev, card, serving_batch, reset, read_counts, expect):
+    """Phase (n): ``greedy_generate`` with the rules on ``mesh`` (the
+    one-rank NCCL group's (1, 1) mesh) against the same run unsharded;
+    see the module docstring.  ``serving_batch``: phase (h)-(j)'s inputs
+    of an arch at a prompt length."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import TrainState, greedy_generate, make_rules
+    from repro_torch.runtime.train_step import shard_train_state
+
+    for arch, preset, rows, prompt, steps in N_RUNS:
+        cfg = get_config(arch)
+        s_max = prompt + steps
+        t0 = phase(f"(n) serving across ranks: {arch} ({cfg.n_layers} layers"
+                   + (f" + {cfg.n_enc_layers} encoder layers"
+                      if cfg.family == "encdec" else "")
+                   + f", full width), bf16, under make_rules(mesh, "
+                   f"{preset!r}), batch {rows} x prompt {prompt} + {steps} "
+                   f"tokens, s_max {s_max}, against the same run unsharded")
+        if cfg.family == "encdec":
+            per_prefill = {"flash_attention_wgmma":
+                           cfg.n_enc_layers + 2 * cfg.n_layers}
+            per_decode = {"flash_attention_wgmma": cfg.n_layers}
+        else:
+            per_prefill, per_decode = {"ssd_scan": cfg.n_layers}, {}
+        model = build_model(cfg)
+        batch = {k: v[:rows] for k, v in serving_batch(cfg, prompt)[0].items()}
+        rules = make_rules(mesh, preset)
+        # two draws of the same weights: placing a tree replaces its
+        # parameters in place
+        params, sharded = (model.init(torch.Generator(dev).manual_seed(SEED))
+                           for _ in range(2))
+        sharded = shard_train_state(
+            TrainState(params=sharded, opt=None, err=None), model,
+            rules).params
+        runs = {}
+        for label, p, r in (("unsharded", params, None),
+                            ("sharded", sharded, rules),
+                            ("sharded again", sharded, rules)):
+            calls = []
+            toks = greedy_generate(
+                _timed_calls(model, calls, reset, read_counts), p, batch,
+                steps, s_max, rules=r)
+            runs[label] = (toks, calls)
+        (u_toks, u_calls) = runs["unsharded"]
+        same = all(torch.equal(runs[k][0], u_toks)
+                   and all(torch.equal(a[0], b[0])
+                           for a, b in zip(runs[k][1], u_calls))
+                   for k in ("sharded", "sharded again"))
+        counts_same = all([c[2] for c in runs[k][1]]
+                          == [c[2] for c in u_calls] for k in runs)
+        want_counts = expect(u_calls[0][2], **per_prefill) and all(
+            expect(c[2], **per_decode) for c in u_calls[1:])
+
+        def ms(calls):  # prefill, the median decode token
+            dec = sorted(c[1] for c in calls[1:])
+            return calls[0][1], dec[len(dec) // 2]
+        (up, ud), (sp1, sd1), (sp, sd) = (ms(runs[k][1]) for k in (
+            "unsharded", "sharded", "sharded again"))
+        print(f"   tokens and every step's logits ({len(u_calls)} calls) "
+              f"bitwise equal to the unsharded run's: {same}; launches a "
+              f"prefill {runs['sharded'][1][0][2]}, a decode token "
+              f"{runs['sharded'][1][1][2]}, equal to the unsharded run's "
+              f"in every call: {counts_same}", flush=True)
+        print(f"   prefill {sp:.1f} ms sharded (its first run {sp1:.1f}, "
+              f"with DTensor's sharding propagation) against {up:.1f} "
+              f"unsharded; decode {sd:.2f} ms a token (median; first run "
+              f"{sd1:.2f}) against {ud:.2f}; {card}", flush=True)
+        if not same:
+            where = first_difference(
+                lambda: greedy_generate(model, params, batch, steps, s_max),
+                lambda: greedy_generate(model, sharded, batch, steps, s_max,
+                                        rules=rules))
+            fail(f"(n) {arch}: the sharded generation differs from the "
+                 f"unsharded one; the first operation whose output differs: "
+                 f"{where}")
+        if not (counts_same and want_counts):
+            fail(f"(n) {arch}: launches {[c[2] for c in u_calls]} unsharded, "
+                 f"{[c[2] for c in runs['sharded'][1]]} sharded; expected "
+                 f"{per_prefill} a prefill, {per_decode} a decode token")
+        del model, params, sharded, runs, u_calls
+        torch.cuda.empty_cache()
+        done(t0)
 
 
 # phase (l): the dry run's predicted peak against the measured one
@@ -3532,8 +3661,10 @@ def main():
     torch.cuda.empty_cache()
     done(t0)
 
-    execution_across_ranks(dev, train_steps, train_ms, k_launch, STEP_LIMIT,
-                           train_batch, reset, read_counts, expect)
+    execution_across_ranks(
+        dev, train_steps, train_ms, k_launch, STEP_LIMIT, train_batch, reset,
+        read_counts, expect, serve=lambda mesh: serving_across_ranks(
+            mesh, dev, card, serving_batch, reset, read_counts, expect))
 
     # ------------------------------------------- the dry run against the card
     # (l) the ported dry run plans phase (k)'s two training cells on a

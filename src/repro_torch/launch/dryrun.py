@@ -27,8 +27,10 @@ not, the key is renamed or dropped:
     ``cache_bytes``, ``batch_bytes`` split it).  ``temp_bytes`` is the
     peak of the live tensors the step allocates, traced at one device's
     local batch (the global batch over the mesh axes that ``batch``
-    shards).  Activations are not divided over ``model``: the models do
-    not carry the sharding hook yet.  A parameter's gradient, and the
+    shards).  Activations are not divided over ``model``: prefill and
+    decode trace through the models' sharding hook (``rules=``, as the
+    JAX package lowers them), which is the identity on meta tensors; the
+    train step traces without it.  A parameter's gradient, and the
     AdamW temporaries of its shape, count at its shard's share once the
     gradient is complete (FSDP reduce-scatters it).  ``peak_est_bytes``
     = argument + temp: the step updates the state in place, so nothing
@@ -110,9 +112,10 @@ def _nbytes(t: torch.Tensor) -> int:
 # the traced step
 # ---------------------------------------------------------------------------
 
-def _step(model, shape: Shape, remat: str, microbatches: int):
+def _step(model, shape: Shape, remat: str, microbatches: int, rules: Rules):
     """(the step on meta tensors as a thunk, its parameters, the AdamW
-    state (train) or None, the batch)."""
+    state (train) or None, the batch).  Prefill and decode take ``rules``
+    (``launch/dryrun.py:67-73`` of the JAX package)."""
     params = model.abstract()
     batch, _ = input_specs(model.config, shape, model)
     if shape.kind == "train":
@@ -124,8 +127,10 @@ def _step(model, shape: Shape, remat: str, microbatches: int):
                                microbatches=microbatches)
         return (lambda: step(state, batch)), params, state.opt, batch
     if shape.kind == "prefill":
-        return (lambda: model.prefill(params, batch)), params, None, batch
-    return (lambda: model.decode(params, batch)), params, None, batch
+        return (lambda: model.prefill(params, batch, rules=rules)), params, \
+            None, batch
+    return (lambda: model.decode(params, batch, rules=rules)), params, None, \
+        batch
 
 
 class _LiveBytes(TorchDispatchMode):
@@ -191,7 +196,7 @@ def step_memory(
 ) -> dict:
     """{"temp_bytes": the peak, "live_at_end_bytes"} of one step traced at
     ``shape``'s batch (pass one device's local batch)."""
-    run, params, opt, batch = _step(model, shape, remat, microbatches)
+    run, params, opt, batch = _step(model, shape, remat, microbatches, rules)
     moments = (opt.m, opt.v) if opt is not None else ()
     tracker = _LiveBytes(list(params.parameters())
                          + _tensors((opt.step, *moments) if opt else ())
@@ -369,7 +374,7 @@ def step_cost(
 ) -> dict:
     """One step traced at ``shape``'s (global) batch: {"flops", "bytes
     accessed", "wire:<kind>", "wire:total", "count:<kind>"}."""
-    run, params, _, _ = _step(model, shape, remat, microbatches)
+    run, params, _, _ = _step(model, shape, remat, microbatches, rules)
     shards = _batch_shards(rules, shape.global_batch)
     tokens = shape.global_batch // shards * (
         1 if shape.kind == "decode" else shape.seq_len)

@@ -11,13 +11,16 @@ there too (q/k nope + rope wide, v ``v_head_dim`` wide), and so does
 cross-attention, in prefill and in decode alike (Sq queries against the
 encoder's Se keys, no mask).
 
-The training functions take the JAX package's sharding hook ``rules(x,
-axes)`` (the identity by default; see ``runtime.sharding.Rules``) at its
-sites: q, k, v and the context in ``attn_train`` and ``mla_train``.  The
-port also pins q, k and v in ``attn_encode`` and ``cross_attn``, where the
-JAX package lets GSPMD choose: on ``DTensor`` operands the kernel runs on
-each rank's shards (``models.local.attention_on_shards``), which takes
-them sharded over batch and heads only.
+The functions take the JAX package's sharding hook ``rules(x, axes)``
+(the identity by default; see ``runtime.sharding.Rules``) at its sites:
+q, k, v and the context in ``attn_train`` and ``mla_train``, the written
+caches in ``attn_decode`` and ``mla_decode``.  The port also pins q, k and
+v in ``attn_encode`` and ``cross_attn``, where the JAX package lets GSPMD
+choose: on ``DTensor`` operands the kernel runs on each rank's shards
+(``models.local.attention_on_shards``), which takes them sharded over
+batch and heads only.  A decode over ``DTensor`` caches, which the
+``decode`` and ``long`` presets shard over their sequence, writes and
+attends on each rank's slice (``models.local``).
 
 Caches, per layer, written in place by decode:
   GQA   : k/v (B, S_max, KV, hd).
@@ -35,9 +38,10 @@ import torch
 
 from ..dtensor import is_dtensor
 from ..kernels.flash_attention import flash_attention_op
-from ..kernels.flash_attention.ref import NEG
 from .layers import ID_RULES, Leaf, apply_rope, rms_norm
-from .local import attention_on_shards, split_heads
+from .local import (attention_on_shards, decode_attention_on_shards,
+                    gqa_decode, mla_decode_on_shards, mla_decode_softmax,
+                    split_heads, write_rows)
 
 __all__ = ["chunked_attention", "attn_specs", "attn_train", "attn_decode",
            "attn_encode", "cross_attn_specs", "cross_kv", "cross_attn",
@@ -114,46 +118,43 @@ def attn_encode(p, cfg, x, chunk: int = 1024, rules=ID_RULES):
     return ctx.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
-def _scatter_kv(cache, new, pos):
-    """cache (B, S_max, ...) ← new (B, 1, ...) at per-row pos (B,), in
-    place."""
-    B = cache.shape[0]
-    cache[torch.arange(B, device=cache.device), pos] = new[:, 0].to(
-        cache.dtype)
-    return cache
-
-
 def attn_decode(
-    p, cfg, x, pos, kv_cache, *, window=None, theta=None, rope_positions=None
+    p,
+    cfg,
+    x,
+    pos,
+    kv_cache,
+    *,
+    window=None,
+    theta=None,
+    rope_positions=None,
+    rules=ID_RULES,
 ):
     """One-token decode. x: (B, 1, d); pos: (B,) absolute positions (cache
     write index + mask); ``rope_positions`` overrides the rotary stream
     (M-RoPE decode passes (3, B, 1)); kv_cache: (k, v) each (B, S_max, KV,
-    hd), written in place."""
+    hd), written in place and pinned by ``rules`` (``attention.py:168-171``
+    of the JAX package).  ``DTensor`` caches, sharded over their sequence
+    too, run on each rank's shards (``models.local``)."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     theta = cfg.rope_theta if theta is None else theta
     k_cache, v_cache = kv_cache
-    S_max = k_cache.shape[1]
 
     q, k_new, v_new = _qkv(p, cfg, x)
     pos_b = pos[:, None] if rope_positions is None else rope_positions
     if cfg.use_rope:
         q = apply_rope(q, pos_b, theta, cfg.mrope_sections)
         k_new = apply_rope(k_new, pos_b, theta, cfg.mrope_sections)
-    _scatter_kv(k_cache, k_new, pos)
-    _scatter_kv(v_cache, v_new, pos)
+    axes = ("batch", "cache_seq", "kv_heads", None)
+    k_cache = rules(write_rows(k_cache, k_new, pos), axes)
+    v_cache = rules(write_rows(v_cache, v_new, pos), axes)
 
-    g = H // KV
-    qg = q.reshape(B, 1, KV, g, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg,
-                          k_cache.to(q.dtype)) / math.sqrt(hd)
-    idx = torch.arange(S_max, device=x.device)[None, None, None, None, :]
-    m = idx <= pos[:, None, None, None, None]
-    if window is not None and window > 0:
-        m = m & (pos[:, None, None, None, None] - idx < window)
-    attn = torch.softmax(torch.where(m, logits.float(), NEG), dim=-1)
-    ctx = torch.einsum("bkgqs,bskh->bqkgh", attn.to(v_cache.dtype), v_cache)
+    if is_dtensor(k_cache):
+        ctx = decode_attention_on_shards(q, k_cache, v_cache, pos,
+                                         window=window)
+    else:
+        ctx = gqa_decode(q, k_cache, v_cache, pos, window=window)
     out = ctx.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
     return out, (k_cache, v_cache)
 
@@ -243,33 +244,33 @@ def mla_train(p, cfg, x, positions, chunk: int = 1024, rules=ID_RULES):
     return ctx @ p["wo"], (c_kv, k_rope)
 
 
-def mla_decode(p, cfg, x, pos, cache):
+def mla_decode(p, cfg, x, pos, cache, rules=ID_RULES):
     """Absorbed-form decode: attention entirely in the compressed
     (kv_lora) space.  x: (B, 1, d); pos: (B,); cache: (c_kv (B, S_max,
-    kv_lora), k_rope (B, S_max, rh)), written in place."""
+    kv_lora), k_rope (B, S_max, rh)), written in place, c_kv pinned by
+    ``rules`` (``attention.py:294`` of the JAX package).  ``DTensor``
+    caches run on each rank's shards."""
     B = x.shape[0]
     H, nh, rh, vh = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
     R = cfg.kv_lora_rank
     c_cache, r_cache = cache
-    S_max = c_cache.shape[1]
 
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
     c_new, r_new = _mla_ckv(p, cfg, x, pos[:, None])
-    _scatter_kv(c_cache, c_new, pos)
-    _scatter_kv(r_cache, r_new, pos)
+    c_cache = rules(write_rows(c_cache, c_new, pos),
+                    ("batch", "cache_seq", None))
+    r_cache = write_rows(r_cache, r_new, pos)
 
     # absorb W_k^b into q:  q_eff[h] = q_nope[h] @ W_k^b[h]^T  ∈ R^R
     q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope,
                          p["wk_b"].reshape(R, H, nh))
     scale = 1.0 / math.sqrt(nh + rh)
-    logits = (torch.einsum("bqhr,bsr->bhqs", q_eff, c_cache.to(q_eff.dtype))
-              + torch.einsum("bqhp,bsp->bhqs", q_rope,
-                             r_cache.to(q_rope.dtype))) * scale
-    idx = torch.arange(S_max, device=x.device)[None, None, None, :]
-    attn = torch.softmax(torch.where(idx <= pos[:, None, None, None],
-                                     logits.float(), NEG), dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", attn.to(c_cache.dtype), c_cache)
+    if is_dtensor(c_cache):
+        ctx = mla_decode_on_shards(q_eff, q_rope, c_cache, r_cache, pos,
+                                   scale)
+    else:
+        ctx = mla_decode_softmax(q_eff, q_rope, c_cache, r_cache, pos, scale)
     o = torch.einsum("bqhr,rhv->bqhv", ctx.to(x.dtype),
                      p["wv_b"].reshape(R, H, vh))
     return o.reshape(B, 1, H * vh) @ p["wo"], (c_cache, r_cache)

@@ -10,6 +10,7 @@ version.  Decode keeps (ssm_state (B,H,P,N), conv_state).
 ``mamba_train`` takes the JAX package's sharding hook ``rules`` at its one
 site (x's d_inner over the heads' axis); on ``DTensor`` operands the scan
 runs on each rank's shards (``models.local.ssd_on_shards``).
+``mamba_decode`` takes it for one site of the port's (see there).
 """
 from __future__ import annotations
 
@@ -109,16 +110,24 @@ def mamba_train(
     return out, state
 
 
-def mamba_decode(p, cfg, x, state):
+def mamba_decode(p, cfg, x, state, rules=ID_RULES):
     """One-token step. x: (B,1,d); state: {"ssm": (B,H,P,N),
-    "conv": (B, W-1, conv_dim)}. Returns (y, new_state)."""
+    "conv": (B, W-1, conv_dim)}. Returns (y, new_state).  ``rules`` pins
+    the new conv row as the window's channels, a site the JAX package's
+    ``mamba_decode`` leaves to GSPMD: on ``DTensor`` states the window
+    then stays on its shards (left to ``DTensor``, the row's partial sum
+    over the embed axis made the whole window partial, all-reduced twice
+    a layer); the split of the channels into x, B and C, whose points
+    fall inside a shard, gathers one (B, conv_dim) row."""
     B = x.shape[0]
     di, H, P, N = (cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_head_dim,
                    cfg.ssm_state)
     W = cfg.conv_width
 
     z = x @ p["wz"]
-    xbc_new = (x @ p["wxbc"])[:, 0, :]  # (B, Ch)
+    # laid out as the conv window's channels (``_CONV_AXES``), so that the
+    # window joins it where it lies
+    xbc_new = rules((x @ p["wxbc"])[:, 0, :], ("batch", "heads"))  # (B, Ch)
     conv_in = torch.cat([state["conv"], xbc_new[:, None, :]], dim=1)
     w = p["conv_w"]
     out = sum(conv_in[:, i, :] * w[i] for i in range(W)) + p["conv_b"]

@@ -38,7 +38,11 @@ The serving caches keep the JAX layouts, in the compute dtype —
 place (prefill's k/v go to positions [0, S)) and return it, under
 ``torch.no_grad``.  ``Model.cache_spec`` gives the same tree on the meta
 device with each leaf's logical axes (JAX's ``cache_spec``), for the dry
-run.  Prefill and decode do not take the JAX package's sharding hook yet.
+run and for placing a cache on a mesh.  Prefill and decode take the
+sharding hook (``rules=``) at the JAX package's sites; on a ``DTensor``
+cache (``runtime.serve_step.greedy_generate`` places one by the rules,
+and a prefill given none allocates one so) each rank writes and attends
+on its own slice (``models.local``).
 
 ``Model.loss(params, batch, rules=..., remat=...)`` is each family's
 training loss,
@@ -69,11 +73,12 @@ from torch.utils import checkpoint as _ckpt
 from .attention import (attn_decode, attn_encode, attn_specs, attn_train,
                         cross_attn, cross_attn_specs, cross_kv, mla_decode,
                         mla_specs, mla_train)
+from ..dtensor import is_dtensor
 from .layers import (DTYPES, ID_RULES, Leaf, ParamTree, abstract_params,
                      init_params,
                      layer_norm, mlp_apply, mlp_specs, norm_specs,
                      param_axes, rms_norm)
-from .local import take_last, zero_pad
+from .local import take_last, write_prefix, write_state, zero_pad
 from .moe import moe_apply, moe_specs
 from .ssm import conv_dim, mamba_decode, mamba_train, ssm_specs
 
@@ -227,16 +232,17 @@ def _dense_block_train(p, cfg, h, positions, window, theta, moe=False, rules=ID_
 
 
 def _dense_block_decode(
-    p, cfg, h, pos, cache, window, theta, moe=False, rope_positions=None
+    p, cfg, h, pos, cache, window, theta, moe=False, rope_positions=None, rules=ID_RULES
 ):
     x = _norm(p["ln1"], cfg, h)
     if cfg.mla:
-        a, cache = mla_decode(p["attn"], cfg, x, pos, cache)
+        a, cache = mla_decode(p["attn"], cfg, x, pos, cache, rules=rules)
     else:
         a, cache = attn_decode(p["attn"], cfg, x, pos, cache, window=window,
-                               theta=theta, rope_positions=rope_positions)
+                               theta=theta, rope_positions=rope_positions,
+                               rules=rules)
     h = h + a
-    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe)[0], cache
+    return h + _ffn(p, cfg, _norm(p["ln2"], cfg, h), moe, rules)[0], cache
 
 
 def _ssm_block_specs(cfg) -> dict:
@@ -252,8 +258,8 @@ def _ssm_block_specs(cfg) -> dict:
 class Model:
     config: Any
     spec: dict  # nested Leaf declarations, lists for runs of layers
-    prefill: Callable  # (params, batch, cache=None) -> (last_logits, cache)
-    decode: Callable  # (params, batch) -> (logits, cache)
+    prefill: Callable  # (params, batch, cache=None, rules=) -> (last_logits, cache)
+    decode: Callable  # (params, batch, rules=) -> (logits, cache)
     alloc_cache: Callable  # (batch_size, s_max, device) -> cache dict
     encode: Callable | None = None  # encdec: (params, enc_embeds) -> h
     loss: Callable | None = None  # (params, batch, rules=, remat=) -> (loss, metrics)
@@ -294,6 +300,17 @@ def _serving(fn):
             return fn(*args, **kwargs)
     run.__doc__ = fn.__doc__
     return run
+
+
+def _new_cache(alloc_cache, cache_axes, like, B, s_max, rules):
+    """A zero cache for a prefill given none, at ``s_max``: placed by
+    ``rules`` on their mesh when the prefill runs on ``DTensor``s (``like``
+    is one), this rank's slice allocated alone."""
+    if not is_dtensor(like):
+        return alloc_cache(B, s_max, like.device)
+    from ..runtime.sharding import zeros_placed
+    meta = alloc_cache(B, s_max, torch.device("meta"))
+    return zeros_placed(meta, rules.tree_shardings(meta, cache_axes()))
 
 
 def _model(cfg, spec, prefill, decode, alloc_cache, cache_axes, encode=None, loss=None):
@@ -407,7 +424,7 @@ def _build_decoder_lm(cfg):
             positions = torch.arange(S, device=h.device)[None].expand(B, S)
         return h, positions
 
-    def prefill(params, batch, cache=None):
+    def prefill(params, batch, cache=None, rules=ID_RULES):
         """batch["tokens"]: (B, S); optional "positions" and, for vlm,
         "patch_embeds" (B, n_vision_tokens, d) before the text.  Returns
         the last position's logits (B, vocab) f32 and the cache, allocated
@@ -417,18 +434,18 @@ def _build_decoder_lm(cfg):
         h, positions = embed_input(params, batch)
         B, S, _ = h.shape
         if cache is None:
-            cache = alloc_cache(B, S, h.device)
+            cache = _new_cache(alloc_cache, cache_axes, h, B, S, rules)
         for name, key, moe, wins, ths in stacks:
             a_cache, b_cache = cache[key]
             for i, lp in enumerate(params[name]):
                 h, (a, b), _ = _dense_block_train(lp, cfg, h, positions,
-                                                  wins[i], ths[i], moe)
-                a_cache[i, :, :S].copy_(a)
-                b_cache[i, :, :S].copy_(b)
+                                                  wins[i], ths[i], moe, rules)
+                write_prefix(a_cache[i], a)
+                write_prefix(b_cache[i], b)
         h = _norm(params["final_norm"], cfg, h[:, -1:])
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
-    def decode(params, batch):
+    def decode(params, batch, rules=ID_RULES):
         """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
         attend up to, "cache", and for M-RoPE "positions" (3, B, 1), the
         rotary streams.  Returns (logits (B, vocab) f32, cache)."""
@@ -440,9 +457,9 @@ def _build_decoder_lm(cfg):
             for i, lp in enumerate(params[name]):
                 h, _ = _dense_block_decode(lp, cfg, h, pos,
                                            (a_cache[i], b_cache[i]), wins[i],
-                                           ths[i], moe, rope_positions)
+                                           ths[i], moe, rope_positions, rules)
         h = _norm(params["final_norm"], cfg, h)
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
     def run_stack(params, h, positions, remat, rules):
         """Every block, each under ``remat``; the final norm's output and
@@ -517,24 +534,25 @@ def _build_ssm_lm(cfg):
                 "conv": torch.zeros((L, B, cfg.conv_width - 1, conv_dim(cfg)),
                                     dtype=cdt, device=device)}
 
-    def prefill(params, batch, cache=None):
+    def prefill(params, batch, cache=None, rules=ID_RULES):
         """Chunked-scan prefill (one SSD scan a layer); the cache is each
         layer's final recurrent state.  batch["tokens"]: (B, S)."""
         tokens = batch["tokens"]
         if cache is None:
-            cache = alloc_cache(tokens.shape[0], 0, tokens.device)
+            cache = _new_cache(alloc_cache, cache_axes, tokens,
+                               tokens.shape[0], 0, rules)
         h = _embed(params, cfg, tokens)
         for i in range(L):
             lp = params["blocks"][i]
             y, st = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
-                                return_state=True)
-            cache["ssm"][i].copy_(st["ssm"])
-            cache["conv"][i].copy_(st["conv"])
-            h = h + y
+                                return_state=True, rules=rules)
+            write_state(cache["ssm"][i], st["ssm"])
+            write_state(cache["conv"][i], st["conv"])
+            h = rules(h + y, ("batch", "seq_sp", None))
         h = _norm(params["final_norm"], cfg, h[:, -1:])
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
-    def decode(params, batch):
+    def decode(params, batch, rules=ID_RULES):
         """batch: "token" (B, 1), "pos" (unused: the state carries the
         position), "cache".  Returns (logits (B, vocab) f32, cache)."""
         cache = batch["cache"]
@@ -543,12 +561,12 @@ def _build_ssm_lm(cfg):
             lp = params["blocks"][i]
             y, st = mamba_decode(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
                                  {"ssm": cache["ssm"][i],
-                                  "conv": cache["conv"][i]})
-            cache["ssm"][i].copy_(st["ssm"])
-            cache["conv"][i].copy_(st["conv"])
+                                  "conv": cache["conv"][i]}, rules)
+            write_state(cache["ssm"][i], st["ssm"])
+            write_state(cache["conv"][i], st["conv"])
             h = h + y
         h = _norm(params["final_norm"], cfg, h)
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
     def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch["tokens"] (B, S + 1).  Returns (ce, metrics)."""
@@ -622,45 +640,47 @@ def _build_hybrid_lm(cfg):
             axes.update(t_ssm=_SSM_AXES, t_conv=_CONV_AXES)
         return axes
 
-    def mamba_prefill(lp, h, ssm_out, conv_out):
+    def mamba_prefill(lp, h, ssm_out, conv_out, rules):
         y, st = mamba_train(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
-                            return_state=True)
-        ssm_out.copy_(st["ssm"])
-        conv_out.copy_(st["conv"])
-        return h + y
+                            return_state=True, rules=rules)
+        write_state(ssm_out, st["ssm"])
+        write_state(conv_out, st["conv"])
+        return rules(h + y, ("batch", "seq_sp", None))
 
-    def mamba_step(lp, h, ssm, conv):
+    def mamba_step(lp, h, ssm, conv, rules):
         y, st = mamba_decode(lp["mixer"], cfg, _norm(lp["ln"], cfg, h),
-                             {"ssm": ssm, "conv": conv})
-        ssm.copy_(st["ssm"])
-        conv.copy_(st["conv"])
+                             {"ssm": ssm, "conv": conv}, rules)
+        write_state(ssm, st["ssm"])
+        write_state(conv, st["conv"])
         return h + y
 
-    def prefill(params, batch, cache=None):
+    def prefill(params, batch, cache=None, rules=ID_RULES):
         """batch["tokens"]: (B, S).  Returns the last position's logits
         (B, vocab) f32 and the cache, allocated at S_max = S when none is
         given."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         if cache is None:
-            cache = alloc_cache(B, S, tokens.device)
+            cache = _new_cache(alloc_cache, cache_axes, tokens, B, S, rules)
         h = _embed(params, cfg, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for g in range(n_groups):
             for m in range(mamba_per):
                 h = mamba_prefill(params["groups"][g]["mamba"][m], h,
-                                  cache["g_ssm"][g, m], cache["g_conv"][g, m])
+                                  cache["g_ssm"][g, m], cache["g_conv"][g, m],
+                                  rules)
             h, (k, v), _ = _dense_block_train(params["shared_attn"], cfg, h,
-                                              positions, None, None)
-            cache["k"][g, :, :S].copy_(k)
-            cache["v"][g, :, :S].copy_(v)
+                                              positions, None, None,
+                                              rules=rules)
+            write_prefix(cache["k"][g], k)
+            write_prefix(cache["v"][g], v)
         for t in range(tail):
             h = mamba_prefill(params["tail"][t], h, cache["t_ssm"][t],
-                              cache["t_conv"][t])
+                              cache["t_conv"][t], rules)
         h = _norm(params["final_norm"], cfg, h[:, -1:])
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
-    def decode(params, batch):
+    def decode(params, batch, rules=ID_RULES):
         """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
         attend up to, "cache".  Returns (logits (B, vocab) f32, cache)."""
         cache, pos = batch["cache"], batch["pos"]
@@ -668,15 +688,16 @@ def _build_hybrid_lm(cfg):
         for g in range(n_groups):
             for m in range(mamba_per):
                 h = mamba_step(params["groups"][g]["mamba"][m], h,
-                               cache["g_ssm"][g, m], cache["g_conv"][g, m])
+                               cache["g_ssm"][g, m], cache["g_conv"][g, m],
+                               rules)
             h, _ = _dense_block_decode(params["shared_attn"], cfg, h, pos,
                                        (cache["k"][g], cache["v"][g]), None,
-                                       None)
+                                       None, rules=rules)
         for t in range(tail):
             h = mamba_step(params["tail"][t], h, cache["t_ssm"][t],
-                           cache["t_conv"][t])
+                           cache["t_conv"][t], rules)
         h = _norm(params["final_norm"], cfg, h)
-        return _logits(params, cfg, h)[:, 0], cache
+        return _logits(params, cfg, h, rules)[:, 0], cache
 
     def loss(params, batch, rules=ID_RULES, remat="full"):
         """batch["tokens"] (B, S + 1).  Each Mamba2 block under ``remat``;
@@ -783,7 +804,7 @@ def _build_encdec(cfg):
         return (_ln(params["dec_final_ln"], cfg, h) @ params["embed"].T
                 ).float()
 
-    def prefill(params, batch, cache=None):
+    def prefill(params, batch, cache=None, rules=ID_RULES):
         """batch: "tokens" (B, S), "enc_embeds" (B, enc_len, d).  Returns
         the last position's logits (B, vocab) f32 and the cache, allocated
         at S_max = S when none is given: each decoder layer's self k/v at
@@ -794,26 +815,28 @@ def _build_encdec(cfg):
             raise ValueError(f"enc_embeds {tuple(frames.shape)}: the cache "
                              f"holds ({B}, enc_len={cfg.enc_len}, {d})")
         if cache is None:
-            cache = alloc_cache(B, S, tokens.device)
-        enc_out = encode(params, frames)
+            cache = _new_cache(alloc_cache, cache_axes, tokens, B, S, rules)
+        enc_out = encode(params, frames, rules=rules)
         # added in the parameter dtype, then cast: the JAX order
         h = (params["embed"][tokens] + params["pos_embed"][:S]).to(cdt)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for i, lp in enumerate(params["dec"]):
             a, (k, v) = attn_train(lp["attn"], cfg, _ln(lp["ln1"], cfg, h),
-                                   positions, chunk=cfg.attn_chunk)
-            cache["k"][i, :, :S].copy_(k)
-            cache["v"][i, :, :S].copy_(v)
+                                   positions, chunk=cfg.attn_chunk,
+                                   rules=rules)
+            write_prefix(cache["k"][i], k)
+            write_prefix(cache["v"][i], v)
             h = h + a
             ck, cv = cross_kv(lp["xattn"], cfg, enc_out)
-            cache["ck"][i].copy_(ck)
-            cache["cv"][i].copy_(cv)
+            write_state(cache["ck"][i], ck)
+            write_state(cache["cv"][i], cv)
             h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
-                               (ck, cv), chunk=cfg.attn_chunk)
+                               (ck, cv), chunk=cfg.attn_chunk, rules=rules)
             h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
+            h = rules(h, ("batch", "seq_sp", None))
         return logits(params, h[:, -1]), cache
 
-    def decode(params, batch):
+    def decode(params, batch, rules=ID_RULES):
         """batch: "token" (B, 1), "pos" (B,) the cache slot to write and
         attend up to (and the row of the position table), "cache".
         Returns (logits (B, vocab) f32, cache)."""
@@ -822,10 +845,10 @@ def _build_encdec(cfg):
              + params["pos_embed"][pos][:, None, :]).to(cdt)
         for i, lp in enumerate(params["dec"]):
             a, _ = attn_decode(lp["attn"], cfg, _ln(lp["ln1"], cfg, h), pos,
-                               (cache["k"][i], cache["v"][i]))
+                               (cache["k"][i], cache["v"][i]), rules=rules)
             h = h + a
             h = h + cross_attn(lp["xattn"], cfg, _ln(lp["ln2"], cfg, h),
-                               (cache["ck"][i], cache["cv"][i]))
+                               (cache["ck"][i], cache["cv"][i]), rules=rules)
             h = h + mlp_apply(lp["mlp"], _ln(lp["ln3"], cfg, h), "gelu")
         return logits(params, h[:, 0]), cache
 

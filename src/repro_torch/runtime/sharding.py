@@ -36,8 +36,9 @@ one seed, or read from a checkpoint), and :func:`shard_tensor` keeps this
 rank's slice as a ``DTensor`` (``DTensor.from_local``, no communication).
 :func:`place` does that for each leaf of a state — a ``ParamTree``, the
 dataclasses of a train state, dicts, lists — from a tree of ``Sharding``s
-nested alike; :func:`state_leaves` and :func:`map_state` walk such trees
-with the checkpoint's "/"-joined keys.  A program that mixes plain tensors
+nested alike, and :func:`zeros_placed` allocates a serving cache so, each
+rank its own slice alone; :func:`state_leaves` and :func:`map_state` walk
+such trees with the checkpoint's "/"-joined keys.  A program that mixes plain tensors
 (``torch.arange`` positions, masks) into ``DTensor`` arithmetic runs under
 :func:`replicating`, which takes them as replicated.
 """
@@ -50,8 +51,8 @@ from typing import Any, NamedTuple, Optional
 from ..dtensor import is_dtensor
 
 __all__ = ["Rules", "Sharding", "make_rules", "PRESETS", "mesh_axes",
-           "shard_tensor", "local_chunk", "place", "state_leaves",
-           "map_state", "replicating", "full"]
+           "shard_tensor", "local_chunk", "place", "zeros_placed",
+           "state_leaves", "map_state", "replicating", "full"]
 
 # logical name -> tuple of mesh axes (in priority order)
 PRESETS: dict[str, dict[str, tuple[str, ...]]] = {
@@ -309,6 +310,31 @@ def shard_tensor(t, mesh, placements, dtype=None):
     return DTensor.from_local(local, mesh, tuple(placements),
                               run_check=False, shape=t.shape,
                               stride=t.contiguous().stride())
+
+
+def zeros_placed(abstract, shardings):
+    """Zeros of the shapes and dtypes of ``abstract`` (a tree of meta
+    tensors: dicts, lists, tuples), each placed by its ``Sharding`` in
+    ``shardings`` (nested alike, every one with a mesh): this rank
+    allocates its own slice alone, on the mesh's device, a ``DTensor`` of
+    the whole leaf's shape."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(shardings, Sharding):
+        shape = tuple(abstract.shape)
+        mesh, local = shardings.mesh, list(shape)
+        for i, pl in enumerate(shardings.placements):
+            if isinstance(pl, Shard):
+                local[pl.dim] //= mesh.size(i)
+        z = torch.zeros(local, dtype=abstract.dtype, device=_mesh_device(mesh))
+        return DTensor.from_local(z, mesh, shardings.placements,
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+    if isinstance(shardings, dict):
+        return {k: zeros_placed(abstract[k], v) for k, v in shardings.items()}
+    return type(shardings)(zeros_placed(abstract[i], v)
+                           for i, v in enumerate(shardings))
 
 
 def _key(prefix: str, k) -> str:

@@ -261,6 +261,15 @@ _CELL_SCRIPT = textwrap.dedent("""
     import dataclasses, json
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.runtime import sharding
+
+    hooked = []  # the axes the models' sharding hook is called with
+    hook = sharding.Rules.__call__
+
+    def recording(self, x, axes):
+        hooked.append(list(axes))
+        return hook(self, x, axes)
+    sharding.Rules.__call__ = recording
 
     full, small = get_config("gemma-7b"), get_config("gemma-7b", reduced=True)
     overrides = {f.name: getattr(small, f.name)
@@ -275,6 +284,8 @@ _CELL_SCRIPT = textwrap.dedent("""
         "wire": rec.get("roofline", {}).get("wire_bytes_per_device", -1) >= 0,
         "mem": rec.get("memory", {}).get("peak_est_bytes", 0) > 0,
         "cache": rec.get("memory", {}).get("cache_bytes", 0) > 0,
+        # the decode traced attention's cache pin (attention.py:168-171)
+        "hook": ["batch", "cache_seq", "kv_heads", None] in hooked,
     }
     print(json.dumps(out))
 """)
@@ -289,3 +300,4 @@ def test_dryrun_cell_multi_pod_reduced():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["ok"] and res["n_devices"] == 512
     assert res["flops"] and res["wire"] and res["mem"] and res["cache"]
+    assert res["hook"], "the decode cell did not trace through the rules hook"

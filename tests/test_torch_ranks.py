@@ -10,11 +10,18 @@ rank's side of the sharded-training tests (``test_torch_mesh_train*.py``):
 the same state and batch through the port's unsharded step and through
 ``make_train_step(rules=make_rules(mesh, "train"))`` on ``DTensor``s,
 with what the attention and SSD operators received and the collectives
-that ran.  This module imports no JAX: the spawned ranks import it.
+that ran.  ``serve_case`` is one rank's side of the sharded-serving tests
+(``test_torch_mesh_serve*.py``): ``greedy_generate`` unsharded and with
+``rules=make_rules(mesh, preset)`` from the same parameters, every step's
+logits, the placed cache's local shapes, the operators' calls and what
+each decode step's collectives sent.  This module imports no JAX: the
+spawned ranks import it.
 
 The one case here: a failing rank's traceback reaches the test.
 """
+import dataclasses
 import datetime
+import math
 import os
 import traceback
 
@@ -241,3 +248,235 @@ def cases_on_ranks(path, rank):
     that each rank reads only once it has started, one after another)."""
     cases = torch.load(path, weights_only=False)
     return {name: sharded_step_case(*args) for name, args in cases}
+
+
+# ---------------------------------------------------------------------------
+# serving across ranks
+# ---------------------------------------------------------------------------
+
+def _sent_shapes(args, kwargs):
+    from torch.utils._pytree import tree_leaves
+    return [tuple(a.shape) for a in tree_leaves((args, kwargs))
+            if isinstance(a, torch.Tensor)]
+
+
+def collective_recorder():
+    """The sharded-step cases' ``CommDebugMode`` that also keeps, for each
+    collective, its name and the shapes of the tensors it sends
+    (``.sent``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class CollectiveSizes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.sent = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = str(func)
+            if out is not NotImplemented and "c10d" in name and not any(
+                    w in name for w in ("wait", "wrap")):
+                self.sent.append((name, _sent_shapes(args, kwargs)))
+            return out
+    return CollectiveSizes()
+
+
+def _recording(model, logits, caches, sent=None):
+    """``model`` whose prefill and decode keep each call's whole logits
+    (and the prefill's cache); with ``sent``, each decode step's
+    collectives too."""
+    from repro_torch.runtime.sharding import full
+
+    def prefill(*a, **kw):
+        out = model.prefill(*a, **kw)
+        logits.append(full(out[0]).clone())
+        caches.append(out[1])
+        return out
+
+    def decode(*a, **kw):
+        if sent is None:
+            out = model.decode(*a, **kw)
+        else:
+            with collective_recorder() as rec:
+                out = model.decode(*a, **kw)
+            sent.append(rec.sent)
+        logits.append(full(out[0]).clone())
+        return out
+    return dataclasses.replace(model, prefill=prefill, decode=decode)
+
+
+def _leaves(cache, axes):
+    """(name, leaf, its axes) of a cache tree."""
+    for k, ax in axes.items():
+        if isinstance(ax, tuple) and all(isinstance(a, tuple) for a in ax):
+            for i, a in enumerate(ax):
+                yield f"{k}/{i}", cache[k][i], a
+        else:
+            yield k, cache[k], ax
+
+
+def serve_case(cfg, params_np, batch_np, preset, steps, s_max):
+    """One rank's side of a sharded-serving case: ``greedy_generate`` of
+    ``steps`` tokens at ``s_max`` from the JAX parameters ``params_np`` on
+    the prompt ``batch_np``, unsharded and with ``make_rules(mesh,
+    preset)`` on a 2 × 2 (data, model) mesh (the parameters placed as
+    ``shard_train_state`` places ``model.axes()``).  Returns both runs'
+    tokens and every step's logits, each cache leaf's local shape beside
+    ``Rules.local_shape`` and its whole shape, the operators' calls, the
+    shapes each decode step's collectives sent, and the parameters' local
+    shapes."""
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models import build_model, from_jax_params
+    from repro_torch.runtime import (TrainState, greedy_generate,
+                                     make_prefill_step, make_rules)
+    from repro_torch.runtime.sharding import full
+    from repro_torch.runtime.train_step import shard_batch, shard_train_state
+
+    model = build_model(cfg)
+    params = from_jax_params(cfg, params_np)
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    for k in ("tokens", "positions"):
+        if k in batch:
+            batch[k] = batch[k].long()
+    plain_logits, sharded_logits, caches, sent = [], [], [], []
+    plain = greedy_generate(_recording(model, plain_logits, []), params,
+                            batch, steps, s_max)
+    mesh = make_mesh_shape((2, 2), ("data", "model"))
+    rules = make_rules(mesh, preset)
+    sharded_params = shard_train_state(
+        TrainState(params=params, opt=None, err=None), model, rules).params
+    rec = Recorder()
+    try:
+        sharded = greedy_generate(
+            _recording(model, sharded_logits, caches, sent), sharded_params,
+            batch, steps, s_max, rules=rules)
+    finally:
+        rec.close()
+    # the prefill step given no cache allocates one on the mesh
+    alone, _ = make_prefill_step(model, rules)(sharded_params,
+                                               shard_batch(batch, rules))
+    abstract, axes = model.cache_spec(batch["tokens"].shape[0], s_max)
+    shapes = {name: (tuple(leaf.to_local().shape),
+                     rules.local_shape(tuple(leaf.shape), ax),
+                     tuple(leaf.shape), ax)
+              for name, leaf, ax in _leaves(caches[0], axes)}
+    return {"plain": (plain, plain_logits),
+            "sharded": (sharded, sharded_logits),
+            "prefill_alone": full(alone),
+            "cache": shapes, "calls": rec.calls, "sent": sent,
+            "params": [tuple(p.to_local().shape)
+                       for p in sharded_params.parameters()]}
+
+
+def serve_cases_on_ranks(path, rank, extra=None):
+    """Every sharded-serving case of a test module on this rank, by name
+    (``path``: a file of (name, ``serve_case`` arguments) pairs); with
+    ``extra``, also ``extra()``'s results under "extra"."""
+    cases = torch.load(path, weights_only=False)
+    out = {name: serve_case(*args) for name, args in cases}
+    if extra is not None:
+        out["extra"] = extra()
+    return out
+
+
+def check_serving_against_plain(case, tol=1e-5, floor=1e-5):
+    """The sharded tokens equal the unsharded ones; every step's logits
+    within ``tol`` of the step's largest |logit| plus ``floor`` (f32,
+    summation order only), and so the sharded prefill step's given no
+    cache."""
+    (pt, pl), (st, sl) = case["plain"], case["sharded"]
+    assert torch.equal(pt, st), (pt, st)
+    assert len(pl) == len(sl) == pt.shape[1]
+    for i, (a, b) in enumerate(zip(pl + pl[:1],
+                                   sl + [case["prefill_alone"]])):
+        err = float((a - b).abs().max())
+        assert err <= tol * float(a.abs().max()) + floor, (i, err)
+
+
+def check_cache_shapes(case):
+    """Each cache leaf's local shape is ``Rules.local_shape``; every leaf
+    with a ``cache_seq`` axis is sharded along it."""
+    for name, (got, want, whole, ax) in case["cache"].items():
+        assert got == tuple(want), (name, got, want)
+        if "cache_seq" in ax:
+            i = ax.index("cache_seq")
+            assert got[i] < whole[i], (name, got, whole)
+
+
+def _layer_shard(got, ax):
+    return got[ax.index("batch"):]
+
+
+def check_decode_collectives(case):
+    """No decode step gathers a cache leaf.  Each collective sends neither
+    a cache leaf's local shard nor one layer's of it (their shapes up to a
+    permutation: a gather sends the local shard, moved to put its dim
+    first).  Beyond that, where the cache has sequence-sharded leaves,
+    every send but a parameter's own shard (the presets' FSDP placement
+    over ``embed`` gathers weights) carries fewer elements than one
+    layer's local shard of the largest of them, the k-cache (MLA's
+    c_kv): what remains are partials, (batch, heads, width)-sized."""
+    def key(shape):
+        return tuple(sorted(shape))
+    leaves = {}
+    for name, (got, _, _, ax) in case["cache"].items():
+        leaves[key(got)] = leaves[key(_layer_shard(got, ax))] = name
+    seq = [math.prod(_layer_shard(got, ax))
+           for got, _, _, ax in case["cache"].values() if "cache_seq" in ax]
+    limit = max(seq) if seq else None
+    params = {key(s) for s in case["params"]}
+    assert case["sent"] and all(case["sent"])
+    for step, sent in enumerate(case["sent"]):
+        for op, shapes in sent:
+            for s in shapes:
+                assert key(s) not in leaves, (step, op, s, leaves[key(s)])
+                if limit is not None and key(s) not in params:
+                    assert math.prod(s) < limit, (step, op, s, limit)
+
+
+def serve_units():
+    """On this rank of a 2 × 2 (data, model) mesh: (1) the greedy token of
+    vocab-sharded logits with ties planted within a shard and across the
+    vocab shards, beside ``torch.argmax`` of the whole logits (the first
+    maximum); (2) the sequence-sharded decode attention (S_max 16) where
+    slices are wholly masked — row 0 at position 5 (the upper positions
+    not yet written), row 1 at 14 with window 4 (the lower ones outside
+    it) — beside the plain decode on the whole cache; (3) a prefill's
+    prefix and a decode's rows written into a sequence-sharded cache,
+    beside the same writes into the whole cache.  (2) and (3) with the
+    sequence over model (the rows over data) and over both mesh dims
+    (four slices, as the ``long`` preset lays it over (pod, data))."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.local import (argmax_last,
+                                          decode_attention_on_shards,
+                                          gqa_decode, write_prefix,
+                                          write_rows)
+    from repro_torch.runtime.sharding import full, shard_tensor
+    mesh = make_mesh_shape((2, 2), ("data", "model"))
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(4, 16, generator=g)
+    logits[0, [3, 11]] = 9.0  # tied across the vocab shards [0, 8), [8, 16)
+    logits[1, [9, 12]] = 9.0  # tied within the upper shard
+    logits[2, [0, 8, 15]] = 9.0
+    got = {pl: full(argmax_last(shard_tensor(logits, mesh, pl)))
+           for pl in ((Shard(0), Shard(1)), (Shard(1), Shard(1)))}
+    want = torch.argmax(logits, dim=-1)
+
+    q = torch.randn(2, 1, 8, 16, generator=g)
+    k, v = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(2))
+    pos, window = torch.tensor([5, 14]), 4
+    plain = gqa_decode(q, k, v, pos, window=window).reshape(2, 1, 8, 16)
+    prefix, row = (torch.randn(2, n, 2, 16, generator=g) for n in (10, 1))
+    whole = torch.zeros(2, 16, 2, 16)
+    write_rows(write_prefix(whole, prefix), row, pos)
+    attention, writes = {}, {}
+    for pl in ((Shard(0), Shard(1)), (Shard(1), Shard(1))):
+        kd, vd = (shard_tensor(t, mesh, pl) for t in (k, v))
+        attention[pl] = (full(decode_attention_on_shards(
+            q, kd, vd, pos, window=window)), plain)
+        cache = shard_tensor(torch.zeros(2, 16, 2, 16), mesh, pl)
+        write_rows(write_prefix(cache, prefix), row, pos)
+        writes[pl] = (full(cache), whole)
+    return {"argmax": (got, want), "attention": attention, "writes": writes}
